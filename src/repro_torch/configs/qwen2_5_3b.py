@@ -1,0 +1,9 @@
+"""qwen2.5-3b [dense]: GQA kv=2, QKV bias. [hf:Qwen/Qwen2.5 family]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b", family="dense",
+    n_layers=36, d_model=2048, n_heads=16, n_kv_heads=2,
+    d_ff=11008, vocab_size=151936,
+    qkv_bias=True, activation="silu", rope_theta=1e6,
+)

@@ -1,0 +1,112 @@
+// Stacked (T, C, P) fleet chain resolution for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of
+// src/repro/kernels/chain_resolve/chain_resolve.py:
+//   resolve_vanilla_fleet  <- resolve_vanilla_fleet_pallas (_vanilla_fleet_kernel)
+//   resolve_direct_fleet   <- resolve_direct_fleet_pallas  (_direct_fleet_kernel)
+//
+// What bounds them on the card: device-memory bytes. Each page does a few
+// integer ops per 4-byte word it reads, far below the card's ratio of
+// operations to bytes.
+//
+// What the design does about it: one thread per (tenant, page), with
+// neighbouring threads on neighbouring pages, so every layer's words are
+// read coalesced along P. The TPU kernel's fori_loop visits all C layers
+// of every lane tile; here each thread walks down from its tenant's active
+// layer and stops at its first ALLOCATED word, so a walk reads only the
+// layers above the owner (plus one word on a hit). The direct kernel reads
+// the active layer's two words and nothing else.
+//
+// Words are read as uint32_t; the layout comes from -D macros generated
+// from repro_torch/core/format.py (kernels/_build.py).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef FMT_FLAG_ALLOCATED
+#error "build through repro_torch.kernels._build: the format macros are missing"
+#endif
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void vanilla_fleet_kernel(const uint32_t* __restrict__ w0,
+                                     const int32_t* __restrict__ lengths,
+                                     int32_t* __restrict__ owner,
+                                     uint32_t* __restrict__ hit,
+                                     int T, int C, int P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)T * P) return;
+  const int t = (int)(i / P);
+  const int p = (int)(i % P);
+  // layers >= length are dead, and so are layers >= C
+  const int top = min(lengths[t], C) - 1;
+  const uint32_t* col = w0 + (size_t)t * C * P + p;
+  int o = -1;
+  uint32_t h = 0u;
+  for (int layer = top; layer >= 0; --layer) {
+    const uint32_t w = col[(size_t)layer * P];
+    if (w & FMT_FLAG_ALLOCATED) {
+      o = layer;
+      h = w;
+      break;
+    }
+  }
+  owner[i] = o;
+  hit[i] = h;
+}
+
+__global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
+                                    const uint32_t* __restrict__ w1,
+                                    const int32_t* __restrict__ lengths,
+                                    int32_t* __restrict__ owner,
+                                    uint32_t* __restrict__ h0,
+                                    uint32_t* __restrict__ h1,
+                                    int T, int C, int P) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)T * P) return;
+  const int t = (int)(i / P);
+  const int p = (int)(i % P);
+  // the JAX indexing rules of the reference: a negative active layer
+  // (a length-0 tenant) wraps to C-1, then the index is clamped
+  int act = lengths[t] - 1;
+  if (act < 0) act += C;
+  act = max(0, min(act, C - 1));
+  const size_t at = ((size_t)t * C + act) * P + p;
+  const uint32_t a = w0[at];
+  const uint32_t b = w1[at];
+  owner[i] = (a & FMT_FLAG_ALLOCATED) ? (int32_t)(b & FMT_BFI_MASK) : -1;
+  h0[i] = a;
+  h1[i] = b;
+}
+
+unsigned int blocks_for(int T, int P) {
+  const long long n = (long long)T * P;
+  return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" int resolve_vanilla_fleet(const void* w0, const void* lengths,
+                                     void* owner, void* hit, int T, int C,
+                                     int P, void* stream) {
+  (void)cudaGetLastError();
+  vanilla_fleet_kernel<<<blocks_for(T, P), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const uint32_t*)w0, (const int32_t*)lengths, (int32_t*)owner,
+      (uint32_t*)hit, T, C, P);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int resolve_direct_fleet(const void* w0, const void* w1,
+                                    const void* lengths, void* owner, void* h0,
+                                    void* h1, int T, int C, int P,
+                                    void* stream) {
+  (void)cudaGetLastError();
+  direct_fleet_kernel<<<blocks_for(T, P), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)lengths,
+      (int32_t*)owner, (uint32_t*)h0, (uint32_t*)h1, T, C, P);
+  return (int)cudaGetLastError();
+}

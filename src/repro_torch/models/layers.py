@@ -1,0 +1,202 @@
+"""Shared neural-net layers (PyTorch port of ``repro.models.layers``).
+
+Plain functions over explicit parameter dicts of tensors. Compute dtype is
+bf16 and parameters are f32, as in the JAX package; norms, RoPE and
+softmax work in f32. Every function casts a weight to the compute dtype
+at use (``.to(cd)``), exactly where the JAX code writes ``.astype(cd)``;
+weights already held in the compute dtype (cast once at load) make that
+cast a no-op with the same result.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+COMPUTE_DTYPE = torch.bfloat16
+PARAM_DTYPE = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# init helpers: the JAX init's distributions and scales, drawn from a
+# torch.Generator (the numbers differ from jax.random's; tests carry JAX
+# params across with ``convert.params_from_jax`` instead)
+# ---------------------------------------------------------------------------
+
+def _normal(generator: torch.Generator, shape, scale: float, dtype, device):
+    x = torch.randn(shape, generator=generator, device=generator.device)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def dense_init(generator, d_in, d_out, *, scale=None, dtype=PARAM_DTYPE,
+               device="cpu"):
+    scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
+    return _normal(generator, (d_in, d_out), scale, dtype, device)
+
+
+def embed_init(generator, vocab, d_model, *, dtype=PARAM_DTYPE, device="cpu"):
+    return _normal(generator, (vocab, d_model), 0.02, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, gamma, eps=1e-5):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 1e4, device="cpu"):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)              # (D/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : d // 2], x32[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def activation_fn(name: str):
+    if name == "silu":
+        # jax.nn.silu is x * logistic(x), and XLA expands logistic into
+        # 1 / (1 + exp(-x)), rounding to the compute dtype after each op;
+        # the same ops here give the same bf16 bits (F.silu rounds once)
+        return lambda x: x * (1 / (1 + torch.exp(-x)))
+    raise ValueError(f"activation {name!r} arrives with its model family "
+                     "in a later slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# attention (prefill): plain PyTorch, as the JAX package's is plain jnp
+# ---------------------------------------------------------------------------
+
+def _grouped_scores(q, k):
+    """q: (B, Sq, H, D), k: (B, Sk, Hkv, D) → (B, Hkv, G, Sq, Sk) f32,
+    without materializing repeated KV."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, d)
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+
+
+def _grouped_out(probs, v):
+    """probs: (B, Hkv, G, Sq, Sk); v: (B, Sk, Hkv, D) → (B, Sq, H, D)."""
+    b, hkv, g, sq, sk = probs.shape
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, hkv * g, v.shape[-1])
+
+
+def attention_ref(q, k, v, *, causal: bool, kv_len=None, q_chunk: int = 1024):
+    """Chunked exact attention (softmax per q-chunk over full K rows), so
+    memory is O(q_chunk * Sk) per chunk. ``kv_len`` masks the valid prefix
+    of the KV buffers."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    kpos = torch.arange(sk, device=q.device)
+
+    def one_chunk(q_blk, q_start):
+        scores = _grouped_scores(q_blk, k) * scale           # (B,Hkv,G,qc,Sk)
+        mask = torch.ones((q_blk.shape[1], sk), dtype=torch.bool, device=q.device)
+        if causal:
+            qpos = q_start + torch.arange(q_blk.shape[1], device=q.device)
+            mask &= kpos[None, :] <= qpos[:, None]
+        if kv_len is not None:
+            mask &= kpos[None, :] < kv_len
+        scores = scores.masked_fill(~mask, float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
+        return _grouped_out(probs, v)
+
+    outs = [one_chunk(q[:, s:s + q_chunk], s) for s in range(0, sq, q_chunk)]
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# attention block parameters
+# ---------------------------------------------------------------------------
+
+def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias,
+              n_layers_scale=1, dtype=PARAM_DTYPE, device="cpu"):
+    kw = dict(dtype=dtype, device=device)
+    p = dict(
+        wq=dense_init(generator, d_model, n_heads * head_dim, **kw),
+        wk=dense_init(generator, d_model, n_kv_heads * head_dim, **kw),
+        wv=dense_init(generator, d_model, n_kv_heads * head_dim, **kw),
+        wo=dense_init(generator, n_heads * head_dim, d_model,
+                      scale=1.0 / math.sqrt(2.0 * n_layers_scale * d_model), **kw),
+    )
+    if qkv_bias:
+        p["bq"] = torch.zeros((n_heads * head_dim,), **kw)
+        p["bk"] = torch.zeros((n_kv_heads * head_dim,), **kw)
+        p["bv"] = torch.zeros((n_kv_heads * head_dim,), **kw)
+    return p
+
+
+def attn_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, *, rope_theta,
+             use_rope=True):
+    """Project to rope'd q/k and v. x: (B, S, d) → (B,S,H,D),(B,S,Hkv,D)x2."""
+    b, s, _ = x.shape
+    cd = x.dtype
+    q = x @ p["wq"].to(cd)
+    k = x @ p["wk"].to(cd)
+    v = x @ p["wv"].to(cd)
+    if "bq" in p:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    q = q.reshape(b, s, n_heads, head_dim)
+    k = k.reshape(b, s, n_kv_heads, head_dim)
+    v = v.reshape(b, s, n_kv_heads, head_dim)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(generator, d_model, d_ff, *, gated: bool, n_layers_scale=1,
+             dtype=PARAM_DTYPE, device="cpu"):
+    kw = dict(dtype=dtype, device=device)
+    p = dict(
+        w_up=dense_init(generator, d_model, d_ff, **kw),
+        w_down=dense_init(generator, d_ff, d_model,
+                          scale=1.0 / math.sqrt(2.0 * n_layers_scale * d_ff), **kw),
+    )
+    if gated:
+        p["w_gate"] = dense_init(generator, d_model, d_ff, **kw)
+    return p
+
+
+def mlp_apply(p, x, activation: str):
+    cd = x.dtype
+    act = activation_fn(activation)
+    up = x @ p["w_up"].to(cd)
+    if "w_gate" in p:
+        up = act(x @ p["w_gate"].to(cd)) * up
+    else:
+        up = act(up)
+    return up @ p["w_down"].to(cd)

@@ -1,0 +1,185 @@
+"""Serving engine: continuous batching over the fleet-backed KV cache
+(PyTorch port of ``repro.serve.engine``).
+
+Request lifecycle: ``add_request(prompt)`` prefills through the model and
+streams the K/V into the paged pool (one bulk fleet write);
+``fork_request`` COW-forks a sequence — with the scalable cache this
+clones the resolved tenant row forward (sQEMU snapshotting), with the
+vanilla cache the fork becomes a new fleet tenant whose chain pays the
+walk; ``step()`` decodes one token for every active sequence;
+``finish_request`` releases a sequence's blocks (tombstoned while forks
+are live) and retires its fleet tenant row.
+
+``step()`` performs **zero per-sequence host-side chain walks**. Two
+decode paths exist (``decode_path``, default ``"auto"``):
+
+- ``"tables"`` — the COW-prepare mask and the attention block tables
+  both come from ONE stacked fleet resolve (``PagedKVCache.prepare_step``,
+  the CUDA fleet-resolve kernels on the card), and every layer runs the
+  CUDA paged-attention kernel through those tables.
+- ``"fused"`` — a *narrow* resolve of the batch's write columns stamps
+  the COW slots, then every layer runs the fused CUDA kernel, which walks
+  the (T, C, P) fleet index itself.
+
+``"auto"`` keeps the JAX package's selection rule (fused iff
+``max_blocks_per_seq`` is a multiple of 128) so both packages pick the
+same path. Park/resume, golden prefixes, migration and the maintenance
+scheduler arrive in later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import fleet as fleet_lib
+from repro_torch.device import as_device
+from repro_torch.kvcache.paged import PagedKVCache, PagedKVConfig
+from repro_torch.models import layers as L
+from repro_torch.models.api import get_model
+from repro_torch.serve.paged_decode import (
+    paged_decode_step,
+    paged_decode_step_fused,
+)
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, *, scalable: bool = True,
+                 n_blocks: int = 512, block_size: int = 16,
+                 max_blocks_per_seq: int = 64, resolver: str = "auto",
+                 decode_path: str = "auto", device="cuda"):
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError("paged serving engine supports attention LMs")
+        if decode_path not in ("auto", "fused", "tables"):
+            raise ValueError(f"unknown decode_path {decode_path!r}")
+        if decode_path == "auto":
+            decode_path = ("fused"
+                           if fleet_lib.fused_layout_ok(max_blocks_per_seq)
+                           else "tables")
+        elif decode_path == "fused" and not fleet_lib.fused_layout_ok(
+                max_blocks_per_seq):
+            raise ValueError(
+                "decode_path='fused' needs a lane-aligned page axis "
+                f"(max_blocks_per_seq % 128 == 0, got {max_blocks_per_seq})"
+            )
+        self.decode_path = decode_path
+        self.cfg = cfg
+        self.params = params
+        self.model = get_model(cfg)
+        self.device = as_device(device)
+        self.kv = PagedKVCache(
+            PagedKVConfig(
+                n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, block_size=block_size, n_blocks=n_blocks,
+                max_blocks_per_seq=max_blocks_per_seq,
+                dtype=L.COMPUTE_DTYPE,
+            ),
+            scalable=scalable,
+            resolver=resolver,
+            device=self.device,
+        )
+        self.active: dict[int, list[int]] = {}  # sid -> generated tokens
+        # Scratch block absorbing the in-step pool writes of padded batch
+        # rows, so a padded decode can never touch a live sequence's blocks.
+        self._pad_block = self.kv.reserve_block()
+
+    def _prefill_seq(self, prompt_tokens) -> tuple[int, int]:
+        """Full-prompt prefill into a fresh sequence: one model prefill,
+        one bulk KV append. Returns ``(sid, first_token)``."""
+        toks = torch.as_tensor(np.asarray(prompt_tokens, np.int64).reshape(1, -1),
+                               device=self.device)
+        logits, cache = self.model.prefill(self.params, dict(tokens=toks))
+        sid = self.kv.new_seq()
+        # cache k/v: (L, 1, S, Hkv, D) → (L, S, Hkv, D)
+        self.kv.append_prefill(sid, cache["k"][:, 0], cache["v"][:, 0])
+        return sid, int(torch.argmax(logits[0]))
+
+    def add_request(self, prompt_tokens: np.ndarray) -> int:
+        """Admit a prompt (full prefill); returns the sequence id."""
+        sid, first = self._prefill_seq(prompt_tokens)
+        self.active[sid] = [first]
+        return sid
+
+    def fork_request(self, sid: int) -> int:
+        child = self.kv.fork(sid)
+        self.active[child] = list(self.active.get(sid) or [])
+        return child
+
+    def finish_request(self, sid: int) -> None:
+        """Retire a finished sequence and release its blocks to the pool
+        (tombstoned while live forks pin it)."""
+        del self.active[sid]
+        self.kv.free_seq(sid)
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """Next power of two: the batch is padded to a size bucket."""
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _decode(self, sids, last_tokens) -> dict[int, int]:
+        """ONE fleet-batched decode: COW-prepare, attention, pool commit,
+        advance — for ``sids`` feeding ``last_tokens``. Returns
+        ``{sid: next_token}``."""
+        pad_to = self._bucket(len(sids))
+        tok_col = np.zeros((pad_to, 1), np.int64)
+        tok_col[: len(sids), 0] = last_tokens
+        tokens = torch.as_tensor(tok_col, device=self.device)
+        if self.decode_path == "fused":
+            # no table materialization: the narrow COW-prepare resolve
+            # stamps this step's write slots, then every layer reads K/V
+            # straight through the stacked fleet index
+            plan = self.kv.prepare_step_fused(
+                sids, pad_to=pad_to, pad_block=self._pad_block
+            )
+            logits, pk, pv = paged_decode_step_fused(
+                self.cfg, self.params, self.kv.pool_k, self.kv.pool_v,
+                plan.l2, plan.chain_lengths, plan.tenants, plan.lengths,
+                plan.write_blocks, tokens,
+            )
+        else:
+            # ONE stacked fleet resolve serves both the COW-prepare mask and
+            # the attention block tables; a lone sequence takes the narrow
+            # single-row resolve — O(C·P), not O(T·C·P)
+            if len(sids) == 1:
+                tables, lengths = self.kv.prepare_step_single(
+                    sids[0], pad_to=pad_to, pad_block=self._pad_block
+                )
+            else:
+                tables, lengths = self.kv.prepare_step(
+                    sids, pad_to=pad_to, pad_block=self._pad_block
+                )
+            logits, pk, pv = paged_decode_step(
+                self.cfg, self.params, self.kv.pool_k, self.kv.pool_v,
+                tables, lengths, tokens,
+            )
+        self.kv.commit_pools(pk, pv)
+        out = {}
+        # the sampling boundary: greedy argmax must reach the host to
+        # extend python-side sequences — the one designed sync in step()
+        nxt = np.asarray(torch.argmax(logits, dim=-1).cpu())  # fleetlint: disable=FL002
+        for i, sid in enumerate(sids):
+            self.kv.advance(sid)
+            out[sid] = int(nxt[i])
+        return out
+
+    def step(self) -> dict[int, int]:
+        """Decode one token for every active sequence — one fleet-batched
+        dispatch over the batch padded to a size bucket."""
+        sids = sorted(self.active)
+        if not sids:
+            return {}
+        out = self._decode(sids, [self.active[s][-1] for s in sids])
+        for sid, tok in out.items():
+            self.active[sid].append(tok)
+        return out
+
+    def memory_stats(self) -> dict:
+        return dict(
+            blocks_in_use=self.kv.blocks_in_use(),
+            lookups=self.kv.lookup_count,
+            n_seqs=len(self.active),
+        )

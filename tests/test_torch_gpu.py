@@ -1,0 +1,149 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every case carries the ``gpu`` marker and skips where there is no CUDA
+card (decided inside the fixture, never at import). This file imports no
+JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+K1/K2 (chain resolve) must be bit-exact; K3/K4 (attention) within the
+tolerances of ``tests/test_kernels.py``: f32 2e-5, bf16 2e-2. The f32
+bound holds on the card because the kernels accumulate in f32 and the
+plain versions run with TF32 off.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import format as fmt  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.chain_resolve import chain_resolve as cr  # noqa: E402
+from repro_torch.kernels.chain_resolve import ref as cr_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention as pa  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def packed_words(rng, t, c, p, nb, density):
+    """(T, C, P) word0/word1 stacks in the entry layout, ptrs into [0, nb)."""
+    e = fmt.pack_entry(
+        torch.as_tensor(rng.integers(0, nb, (t, c, p))),
+        torch.as_tensor(rng.integers(0, max(c, 1), (t, c, p))),
+        allocated=torch.as_tensor(rng.random((t, c, p)) < density),
+        bfi_valid=torch.as_tensor(rng.random((t, c, p)) < 0.7),
+        zero=torch.as_tensor(rng.random((t, c, p)) < 0.1),
+    )
+    return e[..., 0].contiguous(), e[..., 1].contiguous()
+
+
+@pytest.mark.parametrize("t,c,p", [(4, 1, 128), (8, 7, 16), (16, 64, 128),
+                                   (128, 128, 128)])
+def test_resolve_kernels_bit_exact(cuda, t, c, p):
+    rng = np.random.default_rng(t + c + p)
+    w0, w1 = (w.to(cuda) for w in packed_words(rng, t, c, p, 10_000, 0.5))
+    lengths = rng.integers(0, c + 1, t).astype(np.int32)
+    lengths[0], lengths[-1] = 0, c          # a free row and a full chain
+    lens = torch.as_tensor(lengths, device=cuda)
+    got = cr.resolve_vanilla_fleet_cuda(w0, lens) + cr.resolve_direct_fleet_cuda(
+        w0, w1, lens)
+    torch.cuda.synchronize()
+    want = (cr_ref.resolve_vanilla_fleet_ref(w0, lens)
+            + cr_ref.resolve_direct_fleet_ref(w0, w1, lens))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def tables_case(rng, b, h, hkv, d, bs, m, nb, dtype, device):
+    q, pk, pv = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+                 .to(device, dtype)
+                 for s in ((b, h, d), (nb, bs, hkv, d), (nb, bs, hkv, d)))
+    lengths = np.array([1, bs * m // 2 + 1, bs * m, 0][:b], np.int32)
+    tables = np.where(np.arange(m)[None, :] * bs < lengths[:, None],
+                      rng.integers(0, nb, (b, m)), -1).astype(np.int32)
+    return q, pk, pv, torch.as_tensor(tables, device=device), torch.as_tensor(
+        lengths, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,bs,m", [(8, 2, 64, 16, 4), (16, 1, 64, 8, 8),
+                                          (4, 4, 128, 32, 2),
+                                          (16, 2, 128, 16, 128)])
+def test_paged_attention_kernel(cuda, dtype, h, hkv, d, bs, m):
+    """K3 against its plain version; the length-0 row comes out zero."""
+    args = tables_case(np.random.default_rng(h + m), 4, h, hkv, d, bs, m, 64,
+                       dtype, cuda)
+    before = _build.LAUNCHES["paged_attention"]
+    got = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_attention"] == before + 1
+    want = pa_ref.paged_attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert torch.count_nonzero(got[3]) == 0
+
+
+def fused_case(rng, t, c, p, b, nb, bs, h, hkv, d, dtype, device, density):
+    w0, _ = packed_words(rng, t, c, p, nb, density)
+    q, pk, pv = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+                 .to(device, dtype)
+                 for s in ((b, h, d), (nb, bs, hkv, d), (nb, bs, hkv, d)))
+    ints = (rng.integers(1, c + 1, t), rng.integers(0, t, b),
+            rng.integers(1, p * bs + 1, b))
+    return (q, pk, pv, w0.to(device),
+            *(torch.as_tensor(x.astype(np.int32), device=device) for x in ints))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c,p,h,hkv,d,bs", [(4, 6, 128, 8, 2, 64, 8),
+                                              (3, 1, 128, 16, 2, 128, 16),
+                                              (5, 65, 128, 16, 2, 128, 16),
+                                              (5, 9, 16, 16, 1, 64, 8)])
+def test_fused_attention_kernel(cuda, dtype, t, c, p, h, hkv, d, bs):
+    """K4 against its plain version, holes and all."""
+    args = fused_case(np.random.default_rng(t + c), t, c, p, 4, 64, bs, h, hkv,
+                      d, dtype, cuda, density=0.55)
+    got = pa.fused_chain_attention_cuda(*args)
+    torch.cuda.synchronize()
+    want = pa_ref.fused_chain_attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_and_tables_kernels_bit_identical(cuda, dtype):
+    """K3 and K4 share one attention body: fed the rows the walk resolves
+    (no holes), they agree bit for bit."""
+    q, pk, pv, w0, cl, tn, kl = fused_case(np.random.default_rng(9), 5, 65, 128,
+                                           8, 256, 16, 16, 2, 128, dtype, cuda,
+                                           density=1.0)
+    tables = pa_ref.fused_tables_ref(w0, cl, tn)
+    assert (tables >= 0).all()
+    fused = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
+    via_tables = pa.paged_attention_cuda(q, pk, pv, tables, kl)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, via_tables)
+
+
+def test_all_masked_fused_row_is_zero(cuda):
+    q, pk, pv, w0, cl, tn, kl = fused_case(np.random.default_rng(77), 2, 3, 128,
+                                           2, 16, 4, 4, 2, 32, torch.float32,
+                                           cuda, density=0.55)
+    w0[1] = 0                               # tenant 1 owns nothing anywhere
+    tn = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    got = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[1]) == 0
