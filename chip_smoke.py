@@ -30,6 +30,30 @@ Phases, each printing its own lines:
    version (K1/K2 bit-exact, K3/K4 within bf16 2e-2; K3 and K4 bit-identical
    to each other), timed with CUDA events (L2 flushed before each call),
    with the least time the card could take (bound) beside it.
+6. store — one 16 GiB virtual disk (262,144 clusters of 64 KiB, float32
+   pages of 16,384) in both formats with the same content: a base layer
+   at 25 % fill, then 64 random clusters per layer with a snapshot
+   between, read at chain length 1 and 500. dd (``store.materialize``,
+   every method; ``direct`` on the scalable image only, as the paper's
+   Fig. 15) and YCSB-C (``store.read`` of 4,096 uniform random clusters,
+   Fig. 18); every read of one content must be bit-identical across
+   methods and formats; at depth 500 the vanilla walk costs about 500
+   lookups a request and direct exactly 1. K6/K7/K8 run on the disk's own
+   planes and must equal ``store.read``; at depth 500 each is held against
+   its plain version and timed as in phase 5.
+7. fleet — 64 tenants, each a 1 GiB disk (16,384 clusters) at 12.5 %
+   fill, tenant t grown to chain length 1 + 499 t / 63 with 4 clusters a
+   layer, one format at a time. ``fleet.read(auto)`` (K2 + K1 + K5) of
+   1,024 random clusters per tenant must equal ``method="vanilla"`` bit
+   for bit. Cold tier: two 16,384-row ``demote_tenants`` calls on the odd
+   tenants, then the device read is zeros exactly where cold,
+   ``read_tiered`` and the read after ``promote_tenants`` equal the read
+   before, and ``free_tenant(store=)`` returns every host row. K5 is held
+   against its plain version and timed on the vanilla fleet's read.
+
+Launch counts are zeroed just before each phase's main path (an engine's
+run, a store depth, a fleet) and read just after it, before any kernel is
+compared with its plain version.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -56,6 +80,26 @@ STEPS, WARMUP, PROFILED = 16, 2, 2   # of the 16 steps, 12 are timed
 SPIN_CYCLES = 2_000_000        # about 1 ms of card clock (kernel timing)
 PROMPT_LENGTHS = (64, 192, 320, 512)
 CHAIN_DEPTH = 64
+# phase 6: one virtual disk (benchmarks/paper_figs.py frames a page as a
+# 64 KiB Qcow2 cluster); 16 GiB so two images and two full reads share
+# one 80 GB card
+CLUSTER = 16_384                 # float32 per page: 64 KiB
+DISK_PAGES = 262_144             # 16 GiB
+DISK_CHAIN = 512
+DISK_POOL = 98_304               # 65,536 + 499 * 64 = 97,472 rows used
+DISK_DEPTHS = (1, 500)
+BASE_FILL = 65_536               # 25 %, as fig18_ycsb
+LAYER_WRITES = 64
+YCSB_BATCH = 4_096
+DD_TIMED, YCSB_TIMED = 3, 20
+PROFILED_DD = ("vanilla/vanilla", "vanilla/pallas_vanilla", "scalable/direct")
+# phase 7: a fleet of 64 one-GiB disks; chain lengths 1..500 (the paper's
+# §3 long tail)
+FLEET_T, FLEET_PAGES, FLEET_CHAIN, FLEET_Q = 64, 16_384, 512, 64
+FLEET_BASE, FLEET_LAYER_WRITES, FLEET_BATCH = 2_048, 4, 1_024
+FLEET_MAX_DEPTH = 500
+DEMOTE_ROWS, DEMOTE_CALLS = 16_384, 2
+DEV = "cuda"                     # phases 6-7 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -65,6 +109,14 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/paged_attention/paged_attention.py:90"),
     "fused_chain_attention": ("src/repro_torch/csrc/paged_attention.cu",
                               "src/repro/kernels/paged_attention/paged_attention.py:220"),
+    "gather_fleet": ("src/repro_torch/csrc/cow_gather.cu",
+                     "src/repro/kernels/cow_gather/cow_gather.py:59"),
+    "resolve_vanilla": ("src/repro_torch/csrc/chain_resolve.cu",
+                        "src/repro/kernels/chain_resolve/chain_resolve.py:58"),
+    "resolve_direct": ("src/repro_torch/csrc/chain_resolve.cu",
+                       "src/repro/kernels/chain_resolve/chain_resolve.py:94"),
+    "gather": ("src/repro_torch/csrc/cow_gather.cu",
+               "src/repro/kernels/cow_gather/cow_gather.py:27"),
 }
 
 
@@ -183,7 +235,8 @@ def serve_phase(torch, mods, cfg, params, prompts):
             per_step = {k: (_build.LAUNCHES[k] - before[k]) / timed
                         for k in before}
             step_ms = float(np.mean(ms))
-            profile = profile_steps(torch, eng, PROFILED, step_ms)
+            profile = profile_calls(torch, eng.step, PROFILED, step_ms,
+                                    SERVE_GROUPS)
             launches = dict(_build.LAUNCHES)       # read just after the run
             tokens = {s: list(t) for s, t in eng.active.items()}
             if not scalable and path == "fused":
@@ -217,16 +270,28 @@ def serve_phase(torch, mods, cfg, params, prompts):
     return results, captured
 
 
-def profile_steps(torch, eng, n, step_ms):
-    """Kernel time by kernel over ``n`` decode steps under torch.profiler.
-    The device idle share compares the device time per step with the
-    unprofiled ``step_ms`` (the profiler slows the host, not the kernels)."""
+SERVE_GROUPS = {"attention (K3/K4)": ("paged_attention_kernel",
+                                      "fused_chain_attention_kernel"),
+                "chain resolve (K1/K2)": ("fleet_kernel",),
+                "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
+READ_GROUPS = {"gather (K5/K8)": ("gather_rows_kernel",),
+               "chain resolve (K1/K2/K6/K7)": ("fleet_kernel", "vanilla_kernel",
+                                              "direct_kernel"),
+               "copies": ("copy", "Copy", "elementwise", "index", "Index",
+                          "gather", "scatter", "where", "fill")}
+
+
+def profile_calls(torch, fn, n, wall_ms, groups):
+    """Kernel time by kernel over ``n`` calls of ``fn`` under torch.profiler.
+    The device idle share compares the device time per call with the
+    unprofiled ``wall_ms`` (the profiler slows the host, not the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            eng.step()
+            out = fn()
+            del out
         torch.cuda.synchronize()
     by_kernel = {}
     for e in prof.key_averages():
@@ -239,10 +304,6 @@ def profile_steps(torch, eng, n, step_ms):
             us = e.self_cuda_time_total
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / n
     device_ms = sum(by_kernel.values())
-    groups = {"attention (K3/K4)": ("paged_attention_kernel",
-                                    "fused_chain_attention_kernel"),
-              "chain resolve (K1/K2)": ("fleet_kernel",),
-              "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
     by_group = {g: 0.0 for g in groups}
     by_group["other"] = 0.0
     for k, v in by_kernel.items():
@@ -251,8 +312,8 @@ def profile_steps(torch, eng, n, step_ms):
         by_group[g] += v
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(
-        steps_profiled=n, device_ms_per_step=device_ms,
-        device_idle_share=(1.0 - device_ms / step_ms) if device_ms else None,
+        calls_profiled=n, device_ms_per_call=device_ms,
+        device_idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
         device_ms_by_group=by_group,
         top_kernels=[[k[:80], v] for k, v in top],
     )
@@ -322,7 +383,46 @@ def walk_words(w0, chain_lengths, pages_of, allocated_bit):
     return total
 
 
-def kernel_phase(torch, mods, state, per_step_of, launches_of):
+def measure(torch, name, kern, plain, nbytes, ops, tol, flush, library=None,
+            n_kernel=50, n_plain=10):
+    """Hold ``kern`` against ``plain`` on the same inputs (bit-exact where
+    ``tol`` is None) and time both, and ``library`` where one PyTorch call
+    computes the same function. Returns the kernels-line row (without the
+    launch counts) and the kernel's outputs."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, want))
+    if tol is None:
+        require(all(a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                                       b.view(torch.uint8))
+                    for a, b in zip(got, want)),
+                f"{name} is not bit-exact against its plain version")
+    else:
+        require(err <= tol, f"{name} error {err} above {tol}")
+        require(bool(torch.isfinite(got[0].float()).all()), f"{name} not finite")
+    del want
+    kernel_ms = timed_ms(torch, kern, n_kernel, flush)
+    plain_ms = timed_ms(torch, plain, n_plain, flush)
+    library_ms = None if library is None else timed_ms(torch, library,
+                                                       n_plain, flush)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / BF16_FLOPS
+    src, replaces = KERNEL_SOURCES[name]
+    row = dict(
+        name=name, route="cuda", source=src, replaces=replaces,
+        max_abs_err=err, max_err=err, ms=kernel_ms, kernel_ms=kernel_ms,
+        plain_ms=plain_ms, bytes=nbytes, ops=ops,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=library_ms,
+    )
+    return row, got
+
+
+def kernel_phase(torch, mods, state):
     cr, cr_ref, pa, pa_ref = (mods["cr"], mods["cr_ref"], mods["pa"],
                               mods["pa_ref"])
     s = state
@@ -386,32 +486,9 @@ def kernel_phase(torch, mods, state, per_step_of, launches_of):
     }
     rows, outs = [], {}
     for name, (kern, plain, nbytes, ops, tol) in runs.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((a.float() - b_.float()).abs().max()) for a, b_ in zip(got, want))
-        if tol is None:
-            require(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
-                    f"{name} is not bit-exact against its plain version")
-        else:
-            require(err <= tol, f"{name} error {err} above {tol}")
-            require(bool(torch.isfinite(got[0].float()).all()), f"{name} not finite")
-        outs[name] = got
-        kernel_ms = timed_ms(torch, kern, 50, flush)
-        plain_ms = timed_ms(torch, plain, 10, flush)
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops / BF16_FLOPS
-        src, replaces = KERNEL_SOURCES[name]
-        rows.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches_of[name], launches_per_step=per_step_of[name],
-            max_abs_err=err, max_err=err, ms=kernel_ms, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, bytes=nbytes, ops=ops,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=None,
-        ))
+        row, outs[name] = measure(torch, name, kern, plain, nbytes, ops, tol,
+                                  flush)
+        rows.append(row)
     require(torch.equal(outs["paged_attention"][0], outs["fused_chain_attention"][0]),
             "paged_attention and fused_chain_attention differ on the same rows")
     emit({"phase": "kernels", "shapes": {
@@ -419,6 +496,352 @@ def kernel_phase(torch, mods, state, per_step_of, launches_of):
         "batch": b, "kv_lengths": len_h.tolist()},
         "k3_equals_k4_bitwise": True})
     return rows
+
+
+# -- phase 6: one virtual disk, dd and YCSB-C --------------------------------
+
+
+def _bits(torch, x):
+    """The raw bits of a float tensor, for bit-exact comparison."""
+    return x.view(torch.int32) if x.element_size() == 4 else x.view(torch.int16)
+
+
+def _same(torch, a, b, rows=16_384) -> bool:
+    """Bit-exact equality, compared ``rows`` leading rows at a time so a
+    full-disk comparison needs no disk-sized temporary."""
+    return a.shape == b.shape and all(
+        torch.equal(_bits(torch, a[i:i + rows]), _bits(torch, b[i:i + rows]))
+        for i in range(0, a.shape[0], rows))
+
+
+def _host_ms(torch, fn, n):
+    """Mean host-clock ms of ``n`` calls, each ending in a synchronize;
+    the result is dropped before the next call."""
+    total = 0.0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+        del out
+    return 1e3 * total / n
+
+
+def _grow_disks(torch, store, chains, g, to_depth):
+    """Snapshot and write ``LAYER_WRITES`` random clusters into every image
+    until each is ``to_depth`` long; the same clusters and data for all."""
+    while store.chain_length(chains[0]) < to_depth:
+        ids = torch.randperm(DISK_PAGES, generator=g, device=DEV)[:LAYER_WRITES]
+        data = torch.randn((LAYER_WRITES, CLUSTER), generator=g, device=DEV)
+        for c in chains:
+            store.snapshot(c)
+            store.write(c, ids, data)
+
+
+def store_phase(torch, mods):
+    store, fmt, _build = mods["store"], mods["fmt"], mods["_build"]
+    cr, cg = mods["cr_ops"], mods["cg_ops"]
+    g = torch.Generator(device=DEV).manual_seed(6)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    van, sca = chains = [store.create(DISK_PAGES, CLUSTER, max_chain=DISK_CHAIN,
+                                      pool_capacity=DISK_POOL, scalable=s,
+                                      device=DEV)
+                         for s in (False, True)]
+    base = torch.randperm(DISK_PAGES, generator=g, device=DEV)[:BASE_FILL]
+    for lo in range(0, BASE_FILL, 8_192):
+        ids = base[lo:lo + 8_192]
+        data = torch.randn((ids.numel(), CLUSTER), generator=g, device=DEV)
+        for c in chains:
+            store.write(c, ids, data)
+    del data
+    ycsb = torch.randint(0, DISK_PAGES, (YCSB_BATCH,), generator=g,
+                         device=DEV, dtype=torch.int32)
+    emit({"phase": "store", "disk_GiB": DISK_PAGES * CLUSTER * 4 / 2**30,
+          "n_pages": DISK_PAGES, "page_bytes": CLUSTER * 4,
+          "max_chain": DISK_CHAIN, "pool_rows": DISK_POOL,
+          "base_fill": BASE_FILL, "layer_writes": LAYER_WRITES,
+          "base_seconds": time.perf_counter() - t0})
+    total, measured = {}, None
+    for depth in DISK_DEPTHS:
+        t0 = time.perf_counter()
+        _grow_disks(torch, store, chains, g, depth)
+        for c in chains:
+            store.check_pool_capacity(c)
+            require(store.chain_length(c) == depth, f"chain length {depth}")
+        grow_s = time.perf_counter() - t0
+        _build.reset_launches()
+        runs = [(van, m) for m in ("vanilla", "auto", "pallas_vanilla")] + [
+            (sca, m) for m in ("vanilla", "direct", "auto", "pallas_vanilla",
+                               "pallas_direct")]
+        # dd: every full read of the one content is bit-identical
+        ref = store.materialize(sca, method="direct")
+        dd = {}
+        for c, m in runs:
+            key = f"{'scalable' if c.scalable else 'vanilla'}/{m}"
+            out = store.materialize(c, method=m)
+            require(_same(torch, out, ref), f"dd depth {depth} {key} differs")
+            del out
+            ms = _host_ms(torch, lambda: store.materialize(c, method=m), DD_TIMED)
+            dd[key] = dict(ms=ms, GBps=DISK_PAGES * CLUSTER * 4 / ms / 1e6)
+            if depth == max(DISK_DEPTHS) and key in PROFILED_DD:
+                dd[key]["profile"] = profile_calls(
+                    torch, lambda: store.materialize(c, method=m), 2, ms,
+                    READ_GROUPS)
+        del ref
+        # YCSB-C: one batch of uniform random clusters, every method
+        yref, _ = store.read(sca, ycsb, method="direct")
+        yc = {}
+        for c, m in runs:
+            key = f"{'scalable' if c.scalable else 'vanilla'}/{m}"
+            data, res = store.read(c, ycsb, method=m)
+            require(_same(torch, data, yref), f"YCSB depth {depth} {key} differs")
+            ms = _host_ms(torch, lambda: store.read(c, ycsb, method=m), YCSB_TIMED)
+            yc[key] = dict(ms=ms, kops=YCSB_BATCH / ms,
+                           mean_lookups=float(res.lookups.float().mean()))
+        walk = yc["vanilla/vanilla"]["mean_lookups"]
+        require(yc["scalable/direct"]["mean_lookups"] == 1.0,
+                "direct must cost exactly one lookup")
+        if depth == max(DISK_DEPTHS):
+            require(walk >= 0.9 * depth, f"vanilla walk {walk} lookups at {depth}")
+        # K6/K7/K8 on the disk's own planes, against store.read
+        planes = single_chain_planes(torch, fmt, van, sca)
+        _, yres = store.read(van, ycsb, method="vanilla")
+        safe_rows, ok = mods["readable_rows"](yres)
+        before = dict(_build.LAUNCHES)
+        k6 = cr.resolve_vanilla(planes["alloc"], planes["ptrs"], van.length)
+        k7 = cr.resolve_direct(planes["alloc_active"], planes["bfi_active"],
+                               planes["ptrs_active"])
+        k8 = cg.gather(van.pool, safe_rows, ok)
+        launches = dict(_build.LAUNCHES)        # read just after the run
+        per_call = {k: launches[k] - before[k]
+                    for k in ("resolve_vanilla", "resolve_direct", "gather")}
+        require(_same(torch, k8, yref), "K8 gather differs from store.read")
+        step = min(32_768, DISK_PAGES)
+        for (c, m, got) in ((van, "vanilla", k6), (sca, "direct", k7)):
+            for lo in range(0, DISK_PAGES, step):
+                ids = torch.arange(lo, lo + step, dtype=torch.int32, device=DEV)
+                _, r = store.read(c, ids, method=m)
+                require(torch.equal(got[0][lo:lo + step], r.owner)
+                        and torch.equal(got[1][lo:lo + step], r.ptr),
+                        f"{m} kernel resolve differs from store.read")
+        for k in ("resolve_vanilla", "resolve_direct", "gather"):
+            require(launches[k] > 0, f"store: kernel {k} never launched")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        emit({"phase": "store", "depth": depth, "grow_seconds": grow_s,
+              "dd": dd, "ycsb": yc, "dd_equal_across_methods_and_formats": True,
+              "k6_k7_k8_equal_store_read": True, "launches": launches,
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+        if depth == max(DISK_DEPTHS):
+            measured = store_kernels(torch, mods, planes, van, safe_rows, ok,
+                                     k6, flush)
+        del planes, k6, k7, k8, yref
+        torch.cuda.empty_cache()
+    del chains, van, sca
+    torch.cuda.empty_cache()
+    return measured, total, per_call
+
+
+def single_chain_planes(torch, fmt, van, sca):
+    """The planes K6/K7 take: the vanilla image's allocation map and
+    pointers (C, N), and the scalable image's active layer."""
+    act = sca.l2[int(sca.length) - 1]
+    return dict(
+        alloc=fmt.entry_allocated(van.l2).to(torch.int32),
+        ptrs=fmt.entry_ptr(van.l2).contiguous(),
+        alloc_active=fmt.entry_allocated(act).to(torch.int32),
+        bfi_active=fmt.entry_bfi(act).contiguous(),
+        ptrs_active=fmt.entry_ptr(act).contiguous(),
+    )
+
+
+def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
+    """K6, K7 and K8 at the store phase's shapes against their plain
+    versions, timed, with their bounds from this run's data."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    cg, cg_ref = mods["cg"], mods["cg_ref"]
+    c, n = planes["alloc"].shape
+    length = van.length
+    top = min(int(length), c) - 1
+    owner = k6[0]
+    hits = int((owner >= 0).sum())
+    walked = int(torch.where(owner >= 0, top - owner + 1, top + 1).sum())
+    page = van.pool.shape[1] * van.pool.element_size()
+    found = int(ok.sum())
+    b = safe_rows.numel()
+    rows = []
+    for name, kern, plain, nbytes, library in (
+        ("resolve_vanilla",
+         lambda: cr.resolve_vanilla_cuda(planes["alloc"], planes["ptrs"], length),
+         lambda: cr_ref.resolve_vanilla_ref(planes["alloc"], planes["ptrs"], length),
+         4 * (walked + hits + 1) + 8 * n, None),
+        ("resolve_direct",
+         lambda: cr.resolve_direct_cuda(planes["alloc_active"],
+                                        planes["bfi_active"], planes["ptrs_active"]),
+         lambda: cr_ref.resolve_direct_ref(planes["alloc_active"],
+                                           planes["bfi_active"], planes["ptrs_active"]),
+         12 * n + 8 * n, None),
+        ("gather",
+         lambda: cg.gather_cuda(van.pool, safe_rows, ok),
+         lambda: cg_ref.gather_ref(van.pool, safe_rows, ok),
+         (found + b) * page + 5 * b,
+         lambda: torch.index_select(van.pool, 0, safe_rows)),
+    ):
+        row, _ = measure(torch, name, kern, plain, nbytes, 0, None, flush,
+                         library=library)
+        rows.append(row)
+    emit({"phase": "store", "kernel_shapes": {
+        "resolve_vanilla_C_N": [c, n], "length": int(length),
+        "words_walked": walked, "hits": hits, "gather_pages": b,
+        "gather_found": found}})
+    return rows
+
+
+# -- phase 7: a fleet of disks, fleet.read and the host cold tier ------------
+
+
+def build_fleet(torch, fleet_lib, scalable, seed):
+    """The phase-7 fleet: each tenant's base at 12.5 % fill, then tenant t
+    snapshots and writes 4 clusters a layer up to its target length."""
+    target = 1 + (FLEET_MAX_DEPTH - 1) * torch.arange(FLEET_T) // (FLEET_T - 1)
+    rows = (FLEET_BASE + FLEET_LAYER_WRITES * (target - 1) + FLEET_Q - 1) // FLEET_Q
+    # every tenant's own rows rounded up to whole quanta, plus slack for
+    # the promotion's fresh quanta
+    spec = fleet_lib.FleetSpec(
+        n_tenants=FLEET_T, n_pages=FLEET_PAGES, page_size=CLUSTER,
+        max_chain=FLEET_CHAIN, pool_capacity=(int(rows.sum()) + FLEET_T) * FLEET_Q,
+        lease_quantum=FLEET_Q)
+    fl = fleet_lib.create(spec, scalable=scalable, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def fresh_ids(k):
+        perm = torch.argsort(torch.rand((FLEET_T, FLEET_PAGES), generator=g,
+                                        device=DEV), dim=1)
+        return perm[:, :k]
+
+    base = fresh_ids(FLEET_BASE)
+    for lo in range(0, FLEET_BASE, 256):
+        chunk = base[:, lo:lo + 256]
+        data = torch.randn((FLEET_T, chunk.shape[1], CLUSTER), generator=g,
+                           device=DEV)
+        fleet_lib.write(fl, chunk, data)
+    del data
+    target = target.to(DEV)
+    for layer in range(1, FLEET_MAX_DEPTH):
+        mask = target > layer
+        fleet_lib.snapshot(fl, mask)
+        data = torch.randn((FLEET_T, FLEET_LAYER_WRITES, CLUSTER), generator=g,
+                           device=DEV)
+        fleet_lib.write(fl, fresh_ids(FLEET_LAYER_WRITES), data, mask)
+    fleet_lib.check_pool_capacity(fl)
+    require(torch.equal(fl.length.cpu(), target.cpu().to(torch.int32)),
+            "fleet chain lengths")
+    return fl
+
+
+def fleet_phase(torch, mods):
+    fleet_lib, _build = mods["fleet"], mods["_build"]
+    TieredStore = mods["TieredStore"]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    ids = torch.randint(0, FLEET_PAGES, (FLEET_T, FLEET_BATCH), generator=g,
+                        device=DEV, dtype=torch.int32)
+    out_bytes = FLEET_T * FLEET_BATCH * CLUSTER * 4
+    odd = list(range(1, FLEET_T, 2))
+    total, measured = {}, None
+    for scalable in (False, True):
+        name = "scalable" if scalable else "vanilla"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fl = build_fleet(torch, fleet_lib, scalable, seed=8)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _build.reset_launches()
+        pre, res = fleet_lib.read(fl, ids, method="auto")
+        per_read = dict(_build.LAUNCHES)        # one read's launches
+        plain, _ = fleet_lib.read(fl, ids, method="vanilla")
+        require(_same(torch, pre, plain), f"{name}: fleet read auto != vanilla")
+        del plain
+        auto_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids, method="auto"), 5)
+        van_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids, method="vanilla"), 3)
+        read_profile = profile_calls(
+            torch, lambda: fleet_lib.read(fl, ids, method="auto"), 2, auto_ms,
+            READ_GROUPS)
+        store = TieredStore(CLUSTER, torch.float32, initial_rows=2 * DEMOTE_ROWS)
+        demote = []
+        for _ in range(DEMOTE_CALLS):
+            t0 = time.perf_counter()
+            fl, rep = fleet_lib.demote_tenants(fl, store, odd, max_rows=DEMOTE_ROWS,
+                                               verify=True)
+            torch.cuda.synchronize()
+            demote.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                               rows=rep["rows_demoted"], tenants=len(rep["tenants"])))
+        require(all(d["rows"] == DEMOTE_ROWS for d in demote), "demoted rows")
+        dev_read, dres = fleet_lib.read(fl, ids, method="auto")
+        cold = dres.cold & dres.found & ~dres.zero
+        require(bool(cold.any()), f"{name}: nothing read cold after demotion")
+        require(not bool(_bits(torch, dev_read)[cold].any()),
+                f"{name}: device read not zero where cold")
+        require(torch.equal(_bits(torch, dev_read)[~cold], _bits(torch, pre)[~cold]),
+                f"{name}: device read differs where hot")
+        del dev_read
+        tiered, _ = fleet_lib.read_tiered(fl, store, ids, method="auto")
+        require(_same(torch, tiered, pre), f"{name}: read_tiered differs")
+        del tiered
+        t0 = time.perf_counter()
+        fl, prep = fleet_lib.promote_tenants(fl, store, odd, verify=True)
+        torch.cuda.synchronize()
+        promote = dict(ms=1e3 * (time.perf_counter() - t0),
+                       rows=prep["rows_promoted"])
+        require(prep["rows_promoted"] == DEMOTE_CALLS * DEMOTE_ROWS, "promoted rows")
+        require(store.host_rows_in_use() == 0, "host rows left after promotion")
+        after, _ = fleet_lib.read(fl, ids, method="auto")
+        require(_same(torch, after, pre), f"{name}: read after promotion differs")
+        del after
+        fl, rep = fleet_lib.demote_tenants(fl, store, odd, max_rows=DEMOTE_ROWS)
+        held = store.host_rows_in_use()
+        fleet_lib.free_tenant(fl, rep["tenants"], store=store)
+        require(held == DEMOTE_ROWS and store.host_rows_in_use() == 0,
+                f"{name}: free_tenant left host rows")
+        launches = dict(_build.LAUNCHES)        # read just after the run
+        for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather_fleet"):
+            require(launches[k] > 0, f"fleet {name}: kernel {k} never launched")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        emit({"phase": "fleet", "format": name, "tenants": FLEET_T,
+              "n_pages": FLEET_PAGES, "pool_rows": fl.spec.pool_capacity,
+              "chain_lengths": [1, FLEET_MAX_DEPTH], "build_seconds": build_s,
+              "read_pages_per_tenant": FLEET_BATCH, "read_GB": out_bytes / 1e9,
+              "read_auto_ms": auto_ms, "read_auto_GBps": out_bytes / auto_ms / 1e6,
+              "read_vanilla_ms": van_ms,
+              "read_vanilla_GBps": out_bytes / van_ms / 1e6,
+              "read_auto_profile": read_profile,
+              "auto_equals_vanilla": True, "demote": demote, "promote": promote,
+              "device_read_zero_where_cold": True, "tiered_equals_before": True,
+              "promoted_equals_before": True, "host_rows_after_free": 0,
+              "launches": launches, "stats": fleet_lib.fleet_stats(fl),
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+        if not scalable:
+            measured = fleet_kernel(torch, mods, fl.pool, res, flush)
+        del fl, pre, res, store
+        torch.cuda.empty_cache()
+    return measured, total, per_read
+
+
+def fleet_kernel(torch, mods, pool, res, flush):
+    """K5 at the fleet read's shapes against its plain version, timed."""
+    cg, cg_ref = mods["cg"], mods["cg_ref"]
+    safe_rows, ok = mods["readable_rows"](res)
+    page = pool.shape[1] * pool.element_size()
+    tb = safe_rows.numel()
+    row, _ = measure(
+        torch, "gather_fleet", lambda: cg.gather_fleet_cuda(pool, safe_rows, ok),
+        lambda: cg_ref.gather_fleet_ref(pool, safe_rows, ok),
+        (int(ok.sum()) + tb) * page + 5 * tb, 0, None, flush,
+        library=lambda: torch.index_select(pool, 0, safe_rows.view(-1)),
+        n_kernel=10, n_plain=3)
+    return [row]
 
 
 def main() -> int:
@@ -429,10 +852,16 @@ def main() -> int:
         return 1
 
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import fleet
     from repro_torch.core import format as fmt
+    from repro_torch.core import store
     from repro_torch.kernels import _build
     from repro_torch.kernels.chain_resolve import chain_resolve as cr
+    from repro_torch.kernels.chain_resolve import ops as cr_ops
     from repro_torch.kernels.chain_resolve import ref as cr_ref
+    from repro_torch.kernels.cow_gather import cow_gather as cg
+    from repro_torch.kernels.cow_gather import ops as cg_ops
+    from repro_torch.kernels.cow_gather import ref as cg_ref
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref as pa_ref
     from repro_torch.models import layers
@@ -457,7 +886,10 @@ def main() -> int:
 
     mods = dict(layers=layers, Engine=Engine, smoke_config=smoke_config,
                 init_params=init_params, _build=_build, cr=cr, cr_ref=cr_ref,
-                pa=pa, pa_ref=pa_ref, fmt=fmt)
+                cr_ops=cr_ops, pa=pa, pa_ref=pa_ref, fmt=fmt, cg=cg,
+                cg_ref=cg_ref, cg_ops=cg_ops, store=store, fleet=fleet,
+                TieredStore=store.TieredStore,
+                readable_rows=store.readable_rows)
 
     # 3. smoke-size reference: the card against the plain versions on the CPU
     t0 = time.perf_counter()
@@ -488,15 +920,40 @@ def main() -> int:
     results, state = serve_phase(torch, mods, cfg, params, prompts)
 
     # 5. kernels at the main path's shapes
-    launches_of = {k: sum(r["launches"][k] for r in results.values())
-                   for k in KERNEL_SOURCES}
     per_step_of = {
         "resolve_vanilla_fleet": results["vanilla/fused"]["per_step"]["resolve_vanilla_fleet"],
         "resolve_direct_fleet": results["vanilla/fused"]["per_step"]["resolve_direct_fleet"],
         "paged_attention": results["vanilla/tables"]["per_step"]["paged_attention"],
         "fused_chain_attention": results["vanilla/fused"]["per_step"]["fused_chain_attention"],
     }
-    rows = kernel_phase(torch, mods, state, per_step_of, launches_of)
+    rows = kernel_phase(torch, mods, state)
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+    # 6. one virtual disk: dd and YCSB-C through the snapshot chain
+    t0 = time.perf_counter()
+    store_rows, store_launches, store_per_call = store_phase(torch, mods)
+    emit({"phase": "store", "seconds": time.perf_counter() - t0})
+    per_step_of.update(store_per_call)
+
+    # 7. a fleet of disks: fleet.read and the host cold tier
+    t0 = time.perf_counter()
+    fleet_rows, fleet_launches, fleet_per_read = fleet_phase(torch, mods)
+    emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
+    per_step_of["gather_fleet"] = fleet_per_read["gather_fleet"]
+
+    # launches on the main paths: the engines' runs, both store depths and
+    # both fleets (each counted from zero just before its run)
+    launches_of = {k: sum(r["launches"][k] for r in results.values())
+                   + store_launches.get(k, 0) + fleet_launches.get(k, 0)
+                   for k in KERNEL_SOURCES}
+    rows += fleet_rows + store_rows
+    for row in rows:
+        row["launches"] = launches_of[row["name"]]
+        row["launches_per_step"] = per_step_of[row["name"]]
+        require(row["launches"] > 0, f"kernel {row['name']} never launched")
+    require(sorted(r["name"] for r in rows) == sorted(KERNEL_SOURCES),
+            "one kernels-line row per kernel")
 
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": rows})

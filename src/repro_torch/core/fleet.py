@@ -19,8 +19,11 @@ here updates the fleet's tensors in place and returns the same object:
 callers always continue from the returned fleet, and in-place updates
 spare a copy of the (T, C, P, 2) index per operation.
 
-``read``/``materialize`` (which gather through the ``cow_gather`` kernel)
-and the maintenance, tiering and migration planes come in later slices.
+The read plane gathers the resolved pages through the ``cow_gather``
+fleet kernel (``read``, ``materialize``), and the host cold tier moves
+immutable snapshot layers between the device pool and a ``TieredStore``
+(``demote_tenants``, ``promote_tenants``, ``read_tiered``). Streaming,
+compaction, the golden registry and migration come in later slices.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ import torch
 from repro_torch.core import chain as chain_lib
 from repro_torch.core import format as fmt
 from repro_torch.core import resolve as resolve_lib
-from repro_torch.core.chain import ChainSpec
+from repro_torch.core import store as store_lib
+from repro_torch.core.chain import Chain, ChainSpec
 from repro_torch.device import as_device
+from repro_torch.kernels.cow_gather import ops as cow_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,6 +335,49 @@ def get_resolver(name: str):
     return resolve_lib.lookup_resolver(_RESOLVERS, name)
 
 
+def _uses_kernels(fleet: ChainFleet, method: str) -> bool:
+    return (method in store_lib.KERNEL_METHODS
+            or (method == "auto" and _kernel_layout_ok(fleet)))
+
+
+def read(fleet: ChainFleet, page_ids, *, method: str = "auto"):
+    """Batched whole-page read across the fleet.
+
+    Args:
+        fleet: the fleet state (untouched: reads modify nothing).
+        page_ids: (T, B) int32 logical page indices, one batch per tenant.
+        method: resolver method (see ``get_resolver``). The default
+            ``"auto"`` resolves each page direct-where-trusted and runs on
+            the kernels when ``_kernel_layout_ok`` (every CUDA fleet).
+
+    Returns:
+        ``(data, result)``: ``data`` (T, B, page_size) and the
+        ``ResolveResult`` of (T, B) leaves the gather consumed.
+        Unallocated, ZERO and COLD pages read as +0.0, exactly as
+        ``store.read``. Kernel methods gather through the fleet gather of
+        ``kernels/cow_gather`` (K5); the plain methods use
+        ``store.gather_pages``. Both give the same bytes.
+    """
+    ids = torch.as_tensor(page_ids, device=fleet.device)
+    res = get_resolver(method)(fleet, ids)
+    if _uses_kernels(fleet, method):
+        # cold hits address the host tier: masked like ZERO clusters
+        # (read_tiered fills them from the TieredStore afterwards)
+        return cow_ops.gather_fleet(fleet.pool, *store_lib.readable_rows(res)), res
+    return store_lib.gather_pages(fleet.pool, res), res
+
+
+def materialize(fleet: ChainFleet, *, method: str = "auto") -> torch.Tensor:
+    """Read every tenant's full virtual disk: (T, n_pages, page_size).
+
+    ``method`` is any ``get_resolver`` name; the fleet-wide 'dd' op.
+    """
+    spec = fleet.spec
+    ids = torch.arange(spec.n_pages, dtype=torch.int32, device=fleet.device)
+    data, _ = read(fleet, ids[None].expand(spec.n_tenants, -1), method=method)
+    return data
+
+
 # -- tenant lifecycle: attach / clone / fork / free / stamp ------------------
 
 
@@ -344,19 +392,60 @@ def _tenant_sel(n_tenants: int, tenants) -> np.ndarray:
     return sel
 
 
-def free_tenant(fleet: ChainFleet, tenants) -> ChainFleet:
+def _no_registry(registry, op: str) -> None:
+    if registry is not None:
+        raise NotImplementedError(
+            f"{op}(registry=...): the golden registry is not ported yet; it "
+            "comes with the golden-admission slice"
+        )
+
+
+def _entry_masks(w0: torch.Tensor):
+    """(allocated, zero, cold) masks and the ptr field of word0 words."""
+    return ((w0 & fmt.FLAG_ALLOCATED_I32) != 0, (w0 & fmt.FLAG_ZERO_I32) != 0,
+            (w0 & fmt.FLAG_COLD_I32) != 0, (w0 & fmt.PTR_MASK).to(torch.int64))
+
+
+def _tenant_cold_rows(w0_t: torch.Tensor):
+    """Cold entries of one tenant's live word0 stack (L, n_pages): the
+    (layer, page) mask and every entry's ptr field (a host row where
+    cold)."""
+    alloc, zero, cold, rows = _entry_masks(w0_t)
+    return cold & alloc & ~zero, rows
+
+
+def free_tenant(fleet: ChainFleet, tenants, *, store=None,
+                registry=None) -> ChainFleet:
     """Retire tenants wholesale: reset their chains to an empty length-1
     chain and return each one's *entire* lease set to the allocator.
 
     ``tenants``: an int tenant id, a sequence of ids, or a (T,) bool mask.
-    Pool rows the freed tenants referenced are garbage until their quanta
-    are re-leased (rows are never zeroed). Host-tier rows and golden pins
-    arrive with the tiering and golden slices.
+    ``store``: the ``TieredStore`` holding any demoted pages of the freed
+    tenants; their host rows return to its free list here, so a freed
+    tenant leaves no orphaned host pages. Required iff a selected tenant
+    holds cold rows. ``registry`` (golden admission) is not ported yet and
+    raises ``NotImplementedError``. Pool rows the freed tenants referenced
+    are garbage until their quanta are re-leased (rows are never zeroed).
     """
+    _no_registry(registry, "free_tenant")
     spec = fleet.spec
     idx = np.flatnonzero(_tenant_sel(spec.n_tenants, tenants))
     if idx.size == 0:
         return fleet
+    cold_held = fleet.cold_count.cpu().numpy()[idx]
+    if np.any(cold_held > 0):
+        if store is None:
+            raise ValueError(
+                f"tenants {idx[cold_held > 0].tolist()} hold host-tier "
+                "rows; pass the TieredStore so free_tenant can release "
+                "them (orphaned host pages otherwise)"
+            )
+        # sweep the freed tenants' L2 stacks for COLD entries and hand
+        # their host rows back to the cold tier's free list
+        lengths = fleet.length.cpu().numpy()
+        for t in idx[cold_held > 0]:
+            coldm, rows = _tenant_cold_rows(fleet.l2[t, : lengths[t], :, 0])
+            store.free(torch.unique(rows[coldm]).cpu().numpy())
     rows = torch.as_tensor(idx, dtype=torch.int64, device=fleet.device)
     fleet.lease_owner[torch.isin(fleet.lease_owner,
                                 rows.to(torch.int32))] = -1
@@ -383,6 +472,11 @@ def attach_tenant(fleet: ChainFleet, t: int, *,
 
 def _clone_into(fleet: ChainFleet, src: int, dst: int, *,
                 bump: bool) -> ChainFleet:
+    if int(fleet.cold_count[src]) > 0:
+        raise ValueError(
+            f"tenant {src} holds host-tier rows; promote_tenants before "
+            "cloning (cold entries cannot be shared across tenants)"
+        )
     fleet.l1[dst] = fleet.l1[src]
     fleet.l2[dst] = fleet.l2[src]
     fleet.length[dst] = fleet.length[src] + (1 if bump else 0)
@@ -394,7 +488,8 @@ def clone_tenant(fleet: ChainFleet, src: int, dst: int) -> ChainFleet:
     """Copy tenant ``src``'s chain metadata (L1/L2 stacks, length, format
     flag) into slot ``dst``. Pool rows are shared, not copied: the caller
     owns cross-tenant row lifetime (the serving plane refcounts KV blocks
-    host-side)."""
+    host-side). Raises if ``src`` holds demoted (host-tier) rows: a cloned
+    COLD entry would alias the host row across tenants, so promote first."""
     return _clone_into(fleet, src, dst, bump=False)
 
 
@@ -466,3 +561,346 @@ def acquire_rows(fleet: ChainFleet, t: int, n: int):
     fleet.lease_count = lease_count
     fleet.alloc_count = fleet.alloc_count + need
     return fleet, rows[t].cpu().numpy().astype(np.int64)
+
+
+# -- maintenance plane: lease reclamation ------------------------------------
+
+
+def _reclaim(fleet: ChainFleet, sel: np.ndarray) -> ChainFleet:
+    """Repack each selected tenant's live rows into its leading lease
+    quanta and return now-empty quanta to the allocator free list.
+
+    Host-driven, like the JAX package's. Per selected tenant: gather the
+    pool rows its live L2 entries reference, copy them into the densest
+    prefix of its leased quanta, remap the L2 pointers, then release every
+    quantum past the packed prefix. COLD entries point at the host tier:
+    they pin no device row and keep their ptr. ``overflow`` clears only
+    for tenants whose row count actually shrank. (The golden registry's
+    shared rows come with the golden slice.)
+    """
+    spec = fleet.spec
+    q = spec.lease_quantum
+    dev = fleet.device
+    lengths = fleet.length.cpu().numpy()
+    reclaimed = torch.zeros(spec.n_tenants, dtype=torch.bool, device=dev)
+    for t in np.flatnonzero(sel):
+        length_t = int(lengths[t])
+        entries = fleet.l2[t, :length_t]                 # (L, n_pages, 2)
+        alloc, zero, cold, rows = _entry_masks(entries[..., 0])
+        # ZERO clusters never dereference their ptr and COLD ones address
+        # the host tier: neither pins a device row
+        live = alloc & ~zero & ~cold
+        used = torch.unique(rows[live])                  # sorted global rows
+        n_live = int(used.numel())
+        if n_live and not bool((fleet.lease_owner[used // q] == t).all()):
+            raise RuntimeError(
+                f"tenant {t} references pool rows outside its leased "
+                "quanta: fleet state is corrupt"
+            )
+        n_keep = -(-n_live // q)
+        if n_live:
+            keep = fleet.lease_index[t, :n_keep].to(torch.int64)
+            i = torch.arange(n_live, device=dev)
+            new_rows = keep[i // q] * q + i % q
+            # the source rows are gathered into a new tensor before the
+            # scatter, so old and new rows that overlap inside the kept
+            # quanta cannot read a row already overwritten
+            fleet.pool[new_rows] = fleet.pool.index_select(0, used)
+            lut = torch.zeros(spec.pool_capacity, dtype=torch.int64, device=dev)
+            lut[used] = new_rows
+            new_ptr = torch.where(cold, rows, lut[torch.where(live, rows, 0)])
+            fleet.l2[t, :length_t] = fmt.pack_entry(
+                new_ptr, fmt.entry_bfi(entries), allocated=alloc,
+                bfi_valid=fmt.entry_bfi_valid(entries), zero=zero, cold=cold)
+        count = int(fleet.lease_count[t])
+        fleet.lease_owner[fleet.lease_index[t, n_keep:count].to(torch.int64)] = -1
+        fleet.lease_index[t, n_keep:] = -1
+        fleet.lease_count[t] = n_keep
+        reclaimed[t] = int(fleet.alloc_count[t]) > n_live
+        fleet.alloc_count[t] = n_live
+    fleet.overflow = fleet.overflow & ~reclaimed
+    return fleet
+
+
+# -- host cold tier: demote / promote / tiered read --------------------------
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu().view(torch.uint8), b.cpu().view(torch.uint8))
+
+
+def demote_tenants(fleet: ChainFleet, store, tenants, *,
+                   max_rows: int | None = None, verify: bool = True,
+                   registry=None):
+    """Demote immutable snapshot-layer pages of the selected tenants to
+    the host tier, freeing their device rows.
+
+    Only pages **owned by a layer below the active volume** are eligible
+    (a page's owner is the lowest layer referencing its row); every entry
+    in any layer that references a demoted row is rewritten to the host
+    row under ``FLAG_COLD`` in the same transfer, so the index never
+    dangles. The freed device rows then leave the tenant's lease footprint
+    through ``_reclaim`` and their quanta return to the allocator.
+
+    Host-driven (maintenance plane; it syncs by design and is never
+    reached from a decode step). Transfers are bit-verified by default:
+    the host copy is read back and compared bitwise against the rows read
+    from the device.
+
+    Args:
+        fleet: the fleet state, updated in place and returned.
+        store: the ``TieredStore`` cold tier receiving the pages.
+        tenants: int id, id sequence, or (T,) bool mask.
+        max_rows: demote at most this many pool rows across the call;
+            ``None`` = no cap. Oldest layers go first.
+        verify: bit-verify every transferred row (default True).
+        registry: the golden registry: not ported yet, raises
+            ``NotImplementedError``.
+
+    Returns:
+        ``(fleet, report)`` where report is
+        ``dict(rows_demoted=int, tenants=[ids that moved rows])``.
+    """
+    _no_registry(registry, "demote_tenants")
+    spec = fleet.spec
+    dev = fleet.device
+    sel = _tenant_sel(spec.n_tenants, tenants)
+    lengths = fleet.length.cpu().numpy()
+    budget = np.inf if max_rows is None else int(max_rows)
+    total = 0
+    moved: list[int] = []
+
+    for t in np.flatnonzero(sel):
+        if budget <= 0:
+            break
+        length_t = int(lengths[t])
+        if length_t < 2:
+            continue                       # nothing below the active volume
+        w0 = fleet.l2[t, :length_t, :, 0]              # (L, n_pages) view
+        alloc, zero, cold, rows = _entry_masks(w0)
+        hot = alloc & ~zero & ~cold
+        if not bool(hot.any()):
+            continue
+        # a row's owner is the lowest layer referencing it (copy-forward
+        # re-references ancestor rows from every upper layer)
+        layer_idx = torch.arange(length_t, device=dev)[:, None].expand_as(hot)
+        uniq_rows, inverse = torch.unique(rows[hot], return_inverse=True)
+        owner_layer = torch.full_like(uniq_rows, length_t).scatter_reduce_(
+            0, inverse, layer_idx[hot], "amin")
+        eligible = owner_layer < length_t - 1        # never the active layer
+        uniq_rows, owner_layer = uniq_rows[eligible], owner_layer[eligible]
+        if uniq_rows.numel() == 0:
+            continue
+        # coldest first: the oldest layers' rows go first under the budget
+        pick = torch.sort(owner_layer, stable=True).indices
+        if pick.numel() > budget:
+            pick = pick[: int(budget)]
+        dem_rows = uniq_rows[pick]
+        n = int(dem_rows.numel())
+
+        host_rows = store.alloc(n)
+        vals = fleet.pool.index_select(0, dem_rows).cpu()
+        store.put(host_rows, vals)
+        if verify and not _same_bytes(store.get(host_rows), vals):
+            raise RuntimeError(
+                f"demotion transfer verification failed for tenant {t}"
+            )
+        # rewrite every entry (any layer) referencing a demoted row:
+        # ptr -> host row, FLAG_COLD set; all other bits carried
+        lut = torch.zeros(spec.pool_capacity, dtype=torch.int64, device=dev)
+        in_set = torch.zeros(spec.pool_capacity, dtype=torch.bool, device=dev)
+        lut[dem_rows] = torch.as_tensor(host_rows, device=dev)
+        in_set[dem_rows] = True
+        hit = hot & in_set[torch.where(hot, rows, 0)]
+        new_ptr = lut[torch.where(hit, rows, 0)].to(torch.int32)
+        w0.copy_(torch.where(hit, (w0 & ~fmt.PTR_MASK) | new_ptr
+                             | fmt.FLAG_COLD_I32, w0))
+        fleet.cold_count[t] += n
+        budget -= n
+        total += n
+        moved.append(int(t))
+
+    if not moved:
+        return fleet, dict(rows_demoted=0, tenants=[])
+    # repack: the demoted rows are no longer referenced by any hot entry,
+    # so _reclaim returns their quanta to the allocator free list
+    fleet = _reclaim(fleet, _tenant_sel(spec.n_tenants, moved))
+    return fleet, dict(rows_demoted=total, tenants=moved)
+
+
+def promote_tenants(fleet: ChainFleet, store, tenants, *,
+                    max_rows: int | None = None, verify: bool = True):
+    """Promote the selected tenants' demoted pages back into the device
+    pool (the inverse of ``demote_tenants``).
+
+    Fresh device rows come from the tenant's own leases (acquiring quanta
+    on demand); the host copies are scattered in, every COLD entry
+    referencing them is rewritten to the new device row with the residency
+    bit cleared, and the host rows return to the store's free list.
+    Bit-verified by default: the device rows are read back and compared
+    against the host copies. Raises ``RuntimeError`` (leaving the fleet
+    untouched) if the pool cannot grant enough quanta.
+
+    Args:
+        fleet: the fleet state, updated in place and returned.
+        store: the ``TieredStore`` the pages were demoted into.
+        tenants: int id, id sequence, or (T,) bool mask.
+        max_rows: promote at most this many rows across the call
+            (``None`` = everything cold the selected tenants hold).
+        verify: bit-verify every transferred row (default True).
+
+    Returns:
+        ``(fleet, report)``: ``dict(rows_promoted=int, tenants=[...])``.
+    """
+    spec = fleet.spec
+    dev = fleet.device
+    sel = _tenant_sel(spec.n_tenants, tenants)
+    lengths = fleet.length.cpu().numpy()
+    cold_count = fleet.cold_count.cpu().numpy()
+    budget = np.inf if max_rows is None else int(max_rows)
+
+    # pick the host rows to promote per tenant, under the budget
+    plans: dict[int, torch.Tensor] = {}      # t -> sorted host rows
+    need = torch.zeros(spec.n_tenants, dtype=torch.int32, device=dev)
+    for t in np.flatnonzero(sel & (cold_count > 0)):
+        if budget <= 0:
+            break
+        coldm, rows = _tenant_cold_rows(fleet.l2[t, : lengths[t], :, 0])
+        host_rows = torch.unique(rows[coldm])
+        if host_rows.numel() > budget:
+            host_rows = host_rows[: int(budget)]
+        if host_rows.numel() == 0:
+            continue
+        plans[int(t)] = host_rows
+        need[t] = host_rows.numel()
+        budget -= host_rows.numel()
+    if not plans:
+        return fleet, dict(rows_promoted=0, tenants=[])
+
+    lease_owner, lease_index, lease_count, short = _acquire_leases(fleet, need)
+    bad = [t for t in plans if bool(short[t])]
+    if bad:
+        raise RuntimeError(
+            f"device pool exhausted promoting tenants {bad}: demote or "
+            "free other tenants first"
+        )
+    bsz = int(need.max())
+    dev_rows, _ = _rows_for(spec, lease_index, fleet.alloc_count, bsz)
+
+    # one batched scatter for the whole call's data movement
+    dev_cat = torch.cat([dev_rows[t, : h.numel()] for t, h in plans.items()])
+    host_cat = torch.cat(list(plans.values()))
+    vals = store.get(host_cat.cpu())
+    fleet.pool[dev_cat] = vals.to(dev)
+    if verify and not _same_bytes(fleet.pool.index_select(0, dev_cat), vals):
+        raise RuntimeError("promotion transfer verification failed")
+
+    # rewrite the promoted COLD entries: host row -> device row, bit clear
+    for t, host_rows in plans.items():
+        w0 = fleet.l2[t, : lengths[t], :, 0]           # in-place view
+        coldm, rows = _tenant_cold_rows(w0)
+        promoting = coldm & torch.isin(rows, host_rows)
+        # host_rows is sorted: searchsorted maps each promoted entry's host
+        # row to its fresh device row
+        idx = torch.searchsorted(host_rows, rows[promoting])
+        new_ptr = dev_rows[t, : host_rows.numel()][idx].to(torch.int32)
+        w0[promoting] = ((w0[promoting] & ~fmt.PTR_MASK & ~fmt.FLAG_COLD_I32)
+                         | new_ptr)
+        fleet.alloc_count[t] += host_rows.numel()
+        fleet.cold_count[t] -= host_rows.numel()
+        store.free(host_rows.cpu().numpy())
+        store.promoted_rows += int(host_rows.numel())
+    fleet.lease_owner = lease_owner
+    fleet.lease_index = lease_index
+    fleet.lease_count = lease_count
+    return fleet, dict(rows_promoted=int(need.sum()), tenants=sorted(plans))
+
+
+def read_tiered(fleet: ChainFleet, store, page_ids, *, method: str = "auto"):
+    """Batched fleet read that serves cold pages from the host tier.
+
+    The device gather (``read``) masks cold hits to zeros; this host-side
+    wrapper fills exactly those positions from the ``TieredStore``. The
+    maintenance and verification planes read through it without
+    perturbing residency; serving promotes before reading instead.
+
+    Returns ``(data (T, B, page_size) on the fleet's device,
+    ResolveResult)``.
+    """
+    data, res = read(fleet, page_ids, method=method)
+    coldm = res.cold & res.found & ~res.zero
+    if bool(coldm.any()):
+        data[coldm] = store.get(res.ptr[coldm].cpu()).to(data.device)
+    return data, res
+
+
+# -- per-tenant views & host-side helpers ------------------------------------
+
+
+def tenant_chain(fleet: ChainFleet, t: int) -> Chain:
+    """A read-only single-``Chain`` view of tenant ``t``.
+
+    Its L1/L2 are views of the fleet's tables and its pool is the fleet's
+    global pool, so resolvers and reads on the view agree bit for bit
+    with the batched fleet paths. Do **not** run a mutating single-chain
+    op through the view: ``chain.write`` allocates from a linear cursor,
+    not the fleet's leases, and would overwrite other tenants' rows. The
+    view's ``pool_cursor`` is pinned to ``pool_capacity``, so an
+    accidental ``write`` only flags overflow.
+    """
+    return Chain(
+        spec=fleet.spec.chain_spec(),
+        scalable=bool(fleet.scalable[t]),
+        l1=fleet.l1[t],
+        l2=fleet.l2[t],
+        pool=fleet.pool,
+        pool_cursor=torch.tensor(fleet.spec.pool_capacity, dtype=torch.int32,
+                                 device=fleet.device),
+        length=fleet.length[t].clone(),
+        overflow=fleet.overflow[t].clone(),
+        snap_dropped=fleet.snap_dropped[t].clone(),
+    )
+
+
+def check_pool_capacity(fleet: ChainFleet) -> None:
+    """Raise if any tenant hit a resource limit (host-side guard)."""
+    bad = np.flatnonzero(fleet.overflow.cpu().numpy())
+    if bad.size:
+        raise RuntimeError(
+            f"page pool exhausted for tenants {bad.tolist()}: grow "
+            "FleetSpec.pool_capacity or stream/compact their chains"
+        )
+    capped = np.flatnonzero(fleet.snap_dropped.cpu().numpy())
+    if capped.size:
+        raise RuntimeError(
+            f"snapshot dropped for tenants {capped.tolist()}: their chains "
+            "are at max_chain; stream them to make room"
+        )
+
+
+def fleet_stats(fleet: ChainFleet) -> dict:
+    """Host-side occupancy summary (monitoring / benchmark reporting)."""
+    st = tenant_stats(fleet)
+    owner = fleet.lease_owner.cpu().numpy()
+    return dict(
+        n_tenants=fleet.spec.n_tenants,
+        quanta_total=fleet.spec.n_quanta,
+        quanta_leased=int(np.sum(owner >= 0)),
+        quanta_free=int(np.sum(owner < 0)),
+        rows_allocated=int(np.sum(st["alloc_count"])),
+        mean_chain_length=float(np.mean(st["length"])),
+        overflowed_tenants=int(np.sum(st["overflow"])),
+        snapshot_capped_tenants=int(np.sum(st["snap_dropped"])),
+        rows_cold=int(np.sum(st["cold_count"])),
+        cold_tenants=int(np.sum(st["cold_count"] > 0)),
+    )
+
+
+def tenant_stats(fleet: ChainFleet) -> dict:
+    """Per-tenant occupancy arrays: (T,) numpy arrays of chain ``length``,
+    ``alloc_count`` (pool rows held), ``lease_count`` (quanta held),
+    ``cold_count`` (host rows held) and the ``overflow``/``snap_dropped``
+    pressure flags."""
+    return {name: getattr(fleet, name).cpu().numpy()
+            for name in ("length", "alloc_count", "lease_count", "overflow",
+                         "snap_dropped", "cold_count")}

@@ -1,9 +1,12 @@
-// Stacked (T, C, P) fleet chain resolution for Hopper (sm_90a).
+// Chain resolution for Hopper (sm_90a): the stacked (T, C, P) fleet layout
+// and the single-chain (C, N) planes.
 //
 // Replaces the Pallas TPU kernels of
 // src/repro/kernels/chain_resolve/chain_resolve.py:
 //   resolve_vanilla_fleet  <- resolve_vanilla_fleet_pallas (_vanilla_fleet_kernel)
 //   resolve_direct_fleet   <- resolve_direct_fleet_pallas  (_direct_fleet_kernel)
+//   resolve_vanilla        <- resolve_vanilla_pallas       (_vanilla_kernel)
+//   resolve_direct         <- resolve_direct_pallas        (_direct_kernel)
 //
 // What bounds them on the card: device-memory bytes. Each page does a few
 // integer ops per 4-byte word it reads, far below the card's ratio of
@@ -16,6 +19,14 @@
 // layer and stops at its first ALLOCATED word, so a walk reads only the
 // layers above the owner (plus one word on a hit). The direct kernel reads
 // the active layer's two words and nothing else.
+//
+// The single-chain kernels take the chain as separate planes, as the TPU
+// kernels do: an allocation map (int32 or bool, tested != 0) and a pointer
+// plane. The walk keeps the same shape: one thread per page, coalesced
+// along N, from layer min(length, C) - 1 down to the first allocated layer
+// (layers >= C are invalid, and so are layers >= length); ptr is 0 on a
+// miss. The direct kernel is one elementwise pass over the active layer.
+// It does not look at BFI_VALID: its caller decides what is trusted.
 //
 // Words are read as uint32_t; the layout comes from -D macros generated
 // from repro_torch/core/format.py (kernels/_build.py).
@@ -81,6 +92,42 @@ __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
   h1[i] = b;
 }
 
+template <typename A>
+__global__ void vanilla_kernel(const A* __restrict__ alloc,
+                               const int32_t* __restrict__ ptrs,
+                               const int32_t* __restrict__ length,
+                               int32_t* __restrict__ owner,
+                               int32_t* __restrict__ ptr, int C, int N) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= N) return;
+  const int top = min(length[0], C) - 1;
+  int o = -1;
+  int32_t v = 0;
+  for (int layer = top; layer >= 0; --layer) {
+    const size_t at = (size_t)layer * N + p;
+    if (alloc[at] != 0) {
+      o = layer;
+      v = ptrs[at];
+      break;
+    }
+  }
+  owner[p] = o;
+  ptr[p] = v;
+}
+
+template <typename A>
+__global__ void direct_kernel(const A* __restrict__ alloc,
+                              const int32_t* __restrict__ bfi,
+                              const int32_t* __restrict__ ptrs,
+                              int32_t* __restrict__ owner,
+                              int32_t* __restrict__ ptr, int N) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= N) return;
+  const bool a = alloc[p] != 0;
+  owner[p] = a ? bfi[p] : -1;
+  ptr[p] = a ? ptrs[p] : 0;
+}
+
 unsigned int blocks_for(int T, int P) {
   const long long n = (long long)T * P;
   return (unsigned int)((n + kThreads - 1) / kThreads);
@@ -108,5 +155,44 @@ extern "C" int resolve_direct_fleet(const void* w0, const void* w1,
                         (cudaStream_t)stream>>>(
       (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)lengths,
       (int32_t*)owner, (uint32_t*)h0, (uint32_t*)h1, T, C, P);
+  return (int)cudaGetLastError();
+}
+
+// alloc_bytes: 1 (bool) or 4 (int32) per allocation-map entry.
+extern "C" int resolve_vanilla(const void* alloc, const void* ptrs,
+                               const void* length, void* owner, void* ptr,
+                               int C, int N, int alloc_bytes, void* stream) {
+  (void)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (alloc_bytes == 1) {
+    vanilla_kernel<uint8_t><<<blocks_for(1, N), kThreads, 0, st>>>(
+        (const uint8_t*)alloc, (const int32_t*)ptrs, (const int32_t*)length,
+        (int32_t*)owner, (int32_t*)ptr, C, N);
+  } else if (alloc_bytes == 4) {
+    vanilla_kernel<int32_t><<<blocks_for(1, N), kThreads, 0, st>>>(
+        (const int32_t*)alloc, (const int32_t*)ptrs, (const int32_t*)length,
+        (int32_t*)owner, (int32_t*)ptr, C, N);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int resolve_direct(const void* alloc, const void* bfi,
+                              const void* ptrs, void* owner, void* ptr, int N,
+                              int alloc_bytes, void* stream) {
+  (void)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (alloc_bytes == 1) {
+    direct_kernel<uint8_t><<<blocks_for(1, N), kThreads, 0, st>>>(
+        (const uint8_t*)alloc, (const int32_t*)bfi, (const int32_t*)ptrs,
+        (int32_t*)owner, (int32_t*)ptr, N);
+  } else if (alloc_bytes == 4) {
+    direct_kernel<int32_t><<<blocks_for(1, N), kThreads, 0, st>>>(
+        (const int32_t*)alloc, (const int32_t*)bfi, (const int32_t*)ptrs,
+        (int32_t*)owner, (int32_t*)ptr, N);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,8 @@ from pathlib import Path
 from repro_torch.core import format as fmt
 
 KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
-           "fused_chain_attention")
+           "fused_chain_attention", "gather_fleet", "resolve_vanilla",
+           "resolve_direct", "gather")
 
 #: Launches per kernel since the last ``reset_launches``.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
@@ -46,7 +47,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: argtypes of every C launcher; each returns its cudaGetLastError() code.
+#: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``).
 _SIGNATURES = {
     "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _P],
     "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -54,6 +57,9 @@ _SIGNATURES = {
                         _I, _P],
     "fused_chain_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _P],
+    "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _P],
 }
 
 _lock = threading.Lock()

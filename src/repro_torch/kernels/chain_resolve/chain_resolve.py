@@ -1,7 +1,9 @@
-"""CUDA kernels for stacked (T, C, P) fleet chain resolution.
+"""CUDA kernels for chain resolution, fleet and single-chain.
 
 The counterparts of ``repro.kernels.chain_resolve.chain_resolve``'s
-``resolve_vanilla_fleet_pallas`` and ``resolve_direct_fleet_pallas``:
+``resolve_vanilla_fleet_pallas`` and ``resolve_direct_fleet_pallas`` (the
+stacked (T, C, P) fleet layout), and ``resolve_vanilla_pallas`` and
+``resolve_direct_pallas`` (one chain's (C, N) planes):
 hand-written CUDA C++ in ``csrc/chain_resolve.cu``, built for Hopper by
 ``kernels._build``. The wrappers here take CUDA tensors only, check what
 the kernel takes, allocate the outputs, launch on the current stream
@@ -66,3 +68,61 @@ def resolve_direct_fleet_cuda(w0: torch.Tensor, w1: torch.Tensor,
         torch.cuda.current_stream(w0.device).cuda_stream)
     _build.check_launch("resolve_direct_fleet", code)
     return owner, h0, h1
+
+
+def _check_planes(name: str, alloc: torch.Tensor, *words: torch.Tensor) -> int:
+    """Check one chain's planes; return the allocation map's entry bytes."""
+    _check_words(name, *words)
+    if not alloc.is_cuda or not alloc.is_contiguous():
+        raise ValueError(f"{name}: alloc must be a contiguous CUDA tensor")
+    if alloc.dtype not in (torch.bool, torch.int32):
+        raise TypeError(f"{name}: alloc must be bool or int32, got {alloc.dtype}")
+    if any(w.shape != alloc.shape for w in words):
+        raise ValueError(f"{name}: every plane must have the alloc's shape")
+    return alloc.element_size()
+
+
+def resolve_vanilla_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, length):
+    """Single-chain first-hit walk: ``alloc`` (C, N) bool or int32 (tested
+    ``!= 0``), ``ptrs`` (C, N) int32, ``length`` an int or a 0-d tensor
+    (it may exceed C; layers >= C do not exist). Returns ``(owner (N,)
+    int32 [-1 on a miss], ptr (N,) int32 [0 on a miss])``."""
+    nbytes = _check_planes("resolve_vanilla", alloc, ptrs)
+    if alloc.dim() != 2:
+        raise ValueError("resolve_vanilla: alloc/ptrs must be (C, N)")
+    c, n = alloc.shape
+    # the length stays on the device: no sync for a 0-d CUDA tensor
+    ln = torch.as_tensor(length, device=alloc.device).to(torch.int32).reshape(1)
+    owner = torch.empty((n,), dtype=torch.int32, device=alloc.device)
+    ptr = torch.empty((n,), dtype=torch.int32, device=alloc.device)
+    if n == 0:
+        return owner, ptr
+    code = _build.library().resolve_vanilla(
+        alloc.data_ptr(), ptrs.data_ptr(), ln.data_ptr(), owner.data_ptr(),
+        ptr.data_ptr(), c, n, nbytes,
+        torch.cuda.current_stream(alloc.device).cuda_stream)
+    _build.check_launch("resolve_vanilla", code)
+    return owner, ptr
+
+
+def resolve_direct_cuda(alloc_active: torch.Tensor, bfi_active: torch.Tensor,
+                        ptrs_active: torch.Tensor):
+    """Single-chain direct lookup of the active layer: all inputs (N,);
+    ``alloc_active`` bool or int32, the others int32. ``owner`` is the bfi
+    where allocated, else -1; ``ptr`` the pointer where allocated, else 0.
+    BFI_VALID is the caller's business, as in the JAX kernel."""
+    nbytes = _check_planes("resolve_direct", alloc_active, bfi_active,
+                           ptrs_active)
+    if alloc_active.dim() != 1:
+        raise ValueError("resolve_direct: inputs must be (N,)")
+    n = alloc_active.shape[0]
+    owner = torch.empty((n,), dtype=torch.int32, device=alloc_active.device)
+    ptr = torch.empty((n,), dtype=torch.int32, device=alloc_active.device)
+    if n == 0:
+        return owner, ptr
+    code = _build.library().resolve_direct(
+        alloc_active.data_ptr(), bfi_active.data_ptr(), ptrs_active.data_ptr(),
+        owner.data_ptr(), ptr.data_ptr(), n, nbytes,
+        torch.cuda.current_stream(alloc_active.device).cuda_stream)
+    _build.check_launch("resolve_direct", code)
+    return owner, ptr

@@ -1,7 +1,7 @@
-"""Plain PyTorch versions of the stacked fleet chain-resolve kernels.
+"""Plain PyTorch versions of the chain-resolve kernels.
 
-Line for line the oracles of ``repro.kernels.chain_resolve.ref`` for the
-(T, C, P) fleet layout. The CPU tests pin them against the JAX oracles and
+Line for line the oracles of ``repro.kernels.chain_resolve.ref``, for the
+single-chain (C, N) planes and the stacked (T, C, P) fleet layout. The CPU tests pin them against the JAX oracles and
 Pallas kernels; ``chip_smoke.py`` holds the CUDA kernels against them on
 the card. Words are the ``int32`` carrier of ``core.format``.
 """
@@ -11,6 +11,37 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import format as fmt
+
+
+def resolve_vanilla_ref(alloc, ptrs, length):
+    """First allocated layer from the top of the chain.
+
+    alloc: (C, N) bool/int — per-layer allocation map for N pages.
+    ptrs:  (C, N) int32 — per-layer pool pointers.
+    length: scalar int (or 0-d tensor) — live chain length (layers >=
+    length are dead).
+
+    Returns (owner (N,) int32 [-1 if absent], ptr (N,) int32 — the JAX
+    ``uint32`` pointer's bits, 0 where absent).
+    """
+    c = alloc.shape[0]
+    idx = torch.arange(c, dtype=torch.int32, device=alloc.device)[:, None]
+    live = idx < torch.as_tensor(length, device=alloc.device)
+    a = (alloc != 0) & live
+    owner = torch.where(a, idx, -1).amax(dim=0)
+    ptr = torch.gather(ptrs, 0, owner.clamp(min=0)[None].to(torch.int64))[0]
+    ptr = torch.where(owner >= 0, ptr, 0)
+    return owner.to(torch.int32), ptr.to(torch.int32)
+
+
+def resolve_direct_ref(alloc_active, bfi_active, ptrs_active):
+    """sQEMU direct access: one lookup of the active volume's entries.
+
+    All inputs (N,). Returns (owner (N,) int32, ptr (N,) int32).
+    """
+    owner = torch.where(alloc_active != 0, bfi_active.to(torch.int32), -1)
+    ptr = torch.where(alloc_active != 0, ptrs_active, 0)
+    return owner.to(torch.int32), ptr.to(torch.int32)
 
 
 def resolve_vanilla_fleet_ref(w0, lengths):

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from repro_torch.device import as_device
+
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
 
@@ -21,21 +23,23 @@ PARAM_DTYPE = torch.float32
 # ---------------------------------------------------------------------------
 # init helpers: the JAX init's distributions and scales, drawn from a
 # torch.Generator (the numbers differ from jax.random's; tests carry JAX
-# params across with ``convert.params_from_jax`` instead)
+# params across with ``convert.params_from_jax`` instead). Like every entry
+# point of the port they default to ``device="cuda"`` and raise without a
+# card (``device.as_device``); callers that want the CPU say so.
 # ---------------------------------------------------------------------------
 
 def _normal(generator: torch.Generator, shape, scale: float, dtype, device):
     x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * scale).to(device=device, dtype=dtype)
+    return (x * scale).to(device=as_device(device), dtype=dtype)
 
 
 def dense_init(generator, d_in, d_out, *, scale=None, dtype=PARAM_DTYPE,
-               device="cpu"):
+               device="cuda"):
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
     return _normal(generator, (d_in, d_out), scale, dtype, device)
 
 
-def embed_init(generator, vocab, d_model, *, dtype=PARAM_DTYPE, device="cpu"):
+def embed_init(generator, vocab, d_model, *, dtype=PARAM_DTYPE, device="cuda"):
     return _normal(generator, (vocab, d_model), 0.02, dtype, device)
 
 
@@ -54,8 +58,9 @@ def rmsnorm(x, gamma, eps=1e-5):
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float = 1e4, device="cpu"):
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+def rope_frequencies(head_dim: int, theta: float = 1e4, device="cuda"):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=as_device(device)) / head_dim
     return 1.0 / (theta ** exps)
 
 
@@ -137,8 +142,8 @@ def attention_ref(q, k, v, *, causal: bool, kv_len=None, q_chunk: int = 1024):
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias,
-              n_layers_scale=1, dtype=PARAM_DTYPE, device="cpu"):
-    kw = dict(dtype=dtype, device=device)
+              n_layers_scale=1, dtype=PARAM_DTYPE, device="cuda"):
+    kw = dict(dtype=dtype, device=as_device(device))
     p = dict(
         wq=dense_init(generator, d_model, n_heads * head_dim, **kw),
         wk=dense_init(generator, d_model, n_kv_heads * head_dim, **kw),
@@ -179,8 +184,8 @@ def attn_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, *, rope_theta,
 # ---------------------------------------------------------------------------
 
 def mlp_init(generator, d_model, d_ff, *, gated: bool, n_layers_scale=1,
-             dtype=PARAM_DTYPE, device="cpu"):
-    kw = dict(dtype=dtype, device=device)
+             dtype=PARAM_DTYPE, device="cuda"):
+    kw = dict(dtype=dtype, device=as_device(device))
     p = dict(
         w_up=dense_init(generator, d_model, d_ff, **kw),
         w_down=dense_init(generator, d_ff, d_model,

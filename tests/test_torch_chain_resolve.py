@@ -1,5 +1,6 @@
-"""The port's fleet chain-resolve kernels (K1 vanilla walk, K2 direct lookup)
-against the JAX oracles and Pallas kernels, bit for bit.
+"""The port's chain-resolve kernels (K1/K2 fleet walk and direct lookup, K6/K7
+single-chain walk and direct lookup) against the JAX oracles and Pallas
+kernels, bit for bit.
 
 On the CPU the port runs its plain versions (``test_torch_gpu.py`` holds the
 CUDA kernels against them on the card).
@@ -15,7 +16,8 @@ import numpy as np  # noqa: E402
 from repro.core import format as jfmt  # noqa: E402
 from repro.kernels.chain_resolve import ref as jref  # noqa: E402
 from repro.kernels.chain_resolve.chain_resolve import (  # noqa: E402
-    resolve_direct_fleet_pallas, resolve_vanilla_fleet_pallas)
+    resolve_direct_fleet_pallas, resolve_direct_pallas,
+    resolve_vanilla_fleet_pallas, resolve_vanilla_pallas)
 from repro_torch.core import format as tfmt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_resolve import chain_resolve as tcr  # noqa: E402
@@ -99,3 +101,71 @@ def test_cpu_dispatch_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         tcr.resolve_vanilla_fleet_cuda(tfmt.words(w0), torch.as_tensor(lengths))
 
+
+
+@pytest.mark.parametrize("c,n", [(1, 128), (4, 256), (16, 640), (64, 128)])
+@pytest.mark.parametrize("density", [0.05, 0.5, 1.0])
+def test_vanilla_single_chain_matches_jax(c, n, density):
+    rng = np.random.default_rng(c * n + int(density * 100))
+    alloc = (rng.random((c, n)) < density).astype(np.uint32)
+    ptrs = rng.integers(0, 10_000, (c, n)).astype(np.uint32)
+    for length in sorted({1, c // 2 or 1, c}):
+        o_ref, p_ref = jref.resolve_vanilla_ref(jnp.asarray(alloc), jnp.asarray(ptrs),
+                                                length)
+        o_pal, p_pal = resolve_vanilla_pallas(jnp.asarray(alloc), jnp.asarray(ptrs),
+                                              length, interpret=True)
+        # the port takes the allocation map as int32 or bool
+        for a in (tfmt.words(alloc), torch.as_tensor(alloc != 0)):
+            o, p = tops.resolve_vanilla(a, tfmt.words(ptrs), length)
+            for want_o, want_p in ((o_ref, p_ref), (o_pal, p_pal)):
+                np.testing.assert_array_equal(o.numpy(), np.asarray(want_o))
+                np.testing.assert_array_equal(p.numpy(), _i32(want_p))
+
+
+def test_vanilla_single_chain_length_beyond_chain():
+    """A length past C reads every layer (layers >= C do not exist), as the
+    JAX oracle does; a length of 0 finds nothing."""
+    rng = np.random.default_rng(4)
+    alloc = (rng.random((6, 32)) < 0.3).astype(np.uint32)
+    ptrs = rng.integers(0, 500, (6, 32)).astype(np.uint32)
+    for length in (0, 6, 9, 100):
+        o_ref, p_ref = jref.resolve_vanilla_ref(jnp.asarray(alloc), jnp.asarray(ptrs),
+                                                length)
+        o, p = tref.resolve_vanilla_ref(tfmt.words(alloc), tfmt.words(ptrs),
+                                        torch.tensor(length))
+        np.testing.assert_array_equal(o.numpy(), np.asarray(o_ref))
+        np.testing.assert_array_equal(p.numpy(), _i32(p_ref))
+
+
+@pytest.mark.parametrize("n", [128, 384, 1024])
+def test_direct_single_chain_matches_jax(n):
+    rng = np.random.default_rng(n)
+    alloc = (rng.random(n) < 0.6).astype(np.uint32)
+    bfi = rng.integers(0, 500, n).astype(np.uint32)
+    ptrs = rng.integers(0, 10_000, n).astype(np.uint32)
+    args = [jnp.asarray(x) for x in (alloc, bfi, ptrs)]
+    o_ref, p_ref = jref.resolve_direct_ref(*args)
+    o_pal, p_pal = resolve_direct_pallas(*args, interpret=True)
+    for a in (tfmt.words(alloc), torch.as_tensor(alloc != 0)):
+        o, p = tops.resolve_direct(a, tfmt.words(bfi), tfmt.words(ptrs))
+        for want_o, want_p in ((o_ref, p_ref), (o_pal, p_pal)):
+            np.testing.assert_array_equal(o.numpy(), np.asarray(want_o))
+            np.testing.assert_array_equal(p.numpy(), _i32(want_p))
+
+
+def test_single_chain_cpu_dispatch_takes_the_plain_version():
+    rng = np.random.default_rng(8)
+    alloc = torch.as_tensor(rng.random((4, 16)) < 0.5)
+    ptrs = torch.as_tensor(rng.integers(0, 99, (4, 16)).astype(np.int32))
+    before = dict(_build.LAUNCHES)
+    a = tops.resolve_vanilla(alloc, ptrs, 3)
+    b = tref.resolve_vanilla_ref(alloc, ptrs, 3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = tops.resolve_direct(alloc[0], ptrs[1], ptrs[2])
+    b = tref.resolve_direct_ref(alloc[0], ptrs[1], ptrs[2])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _build.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tcr.resolve_vanilla_cuda(alloc, ptrs, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcr.resolve_direct_cuda(alloc[0], ptrs[1], ptrs[2])

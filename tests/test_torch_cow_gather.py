@@ -1,0 +1,88 @@
+"""The port's resolved-page gathers (K8 single-chain, K5 fleet) against the
+JAX oracles and Pallas kernels (interpret mode), bit for bit.
+
+On the CPU the port runs its plain versions (``test_torch_gpu.py`` holds
+the CUDA kernel against them on the card). Unfound pages must come out as
++0.0 bit patterns, so every comparison is on the raw bytes.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.cow_gather import ref as jref  # noqa: E402
+from repro.kernels.cow_gather.cow_gather import (  # noqa: E402
+    gather_fleet_pallas, gather_pallas)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.cow_gather import cow_gather as tcg  # noqa: E402
+from repro_torch.kernels.cow_gather import ops as tops  # noqa: E402
+from repro_torch.kernels.cow_gather import ref as tref  # noqa: E402
+
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _case(seed, rows, page, shape):
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((rows, page)).astype(np.float32)
+    # negative zeros in the pool must survive the copy as they are
+    pool[0, :2] = -0.0
+    idx = rng.integers(0, rows, shape).astype(np.int32)
+    found = rng.random(shape) < 0.8
+    return pool, idx, found
+
+
+def _bytes(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.float().numpy()
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,page", [(16, 128), (64, 256), (200, 512)])
+def test_gather_matches_jax(jdt, tdt, rows, page):
+    b = min(rows, 32)
+    pool, idx, found = _case(rows + page, rows, page, (b,))
+    jpool = jnp.asarray(pool).astype(jdt)
+    want_ref = jref.gather_ref(jpool, jnp.asarray(idx), jnp.asarray(found))
+    want_pal = gather_pallas(jpool, jnp.asarray(idx), jnp.asarray(found),
+                             interpret=True)
+    got = tref.gather_ref(torch.as_tensor(pool).to(tdt), torch.as_tensor(idx),
+                          torch.as_tensor(found))
+    assert got.dtype == tdt and tuple(got.shape) == (b, page)
+    for want in (want_ref, want_pal):
+        np.testing.assert_array_equal(_bytes(got), _bytes(want))
+    assert not _bytes(got)[~found].any()          # +0.0 where not found
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,page,t,b", [(16, 128, 2, 8), (64, 256, 5, 17),
+                                           (40, 4, 3, 1)])
+def test_gather_fleet_matches_jax(jdt, tdt, rows, page, t, b):
+    pool, idx, found = _case(rows * t + b, rows, page, (t, b))
+    jpool = jnp.asarray(pool).astype(jdt)
+    want_ref = jref.gather_fleet_ref(jpool, jnp.asarray(idx), jnp.asarray(found))
+    want_pal = gather_fleet_pallas(jpool, jnp.asarray(idx), jnp.asarray(found),
+                                   interpret=True)
+    got = tops.gather_fleet(torch.as_tensor(pool).to(tdt), torch.as_tensor(idx),
+                            torch.as_tensor(found))
+    assert tuple(got.shape) == (t, b, page)
+    for want in (want_ref, want_pal):
+        np.testing.assert_array_equal(_bytes(got), _bytes(want))
+
+
+def test_cpu_dispatch_takes_the_plain_version():
+    pool, idx, found = _case(7, 12, 8, (3, 5))
+    pool, idx, found = (torch.as_tensor(x) for x in (pool, idx, found))
+    before = dict(_build.LAUNCHES)
+    assert torch.equal(tops.gather(pool, idx[0], found[0]),
+                       tref.gather_ref(pool, idx[0], found[0]))
+    assert torch.equal(tops.gather_fleet(pool, idx, found),
+                       tref.gather_fleet_ref(pool, idx, found))
+    assert _build.LAUNCHES == before          # no kernel launched on the CPU
+    with pytest.raises(ValueError, match="CUDA"):
+        tcg.gather_cuda(pool, idx[0], found[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        tcg.gather_fleet_cuda(pool, idx, found)

@@ -6,7 +6,8 @@ JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-K1/K2 (chain resolve) must be bit-exact; K3/K4 (attention) within the
+K1/K2/K6/K7 (chain resolve) and K5/K8 (page gather) must be bit-exact;
+K3/K4 (attention) within the
 tolerances of ``tests/test_kernels.py``: f32 2e-5, bf16 2e-2. The f32
 bound holds on the card because the kernels accumulate in f32 and the
 plain versions run with TF32 off.
@@ -21,6 +22,8 @@ from repro_torch.core import format as fmt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_resolve import chain_resolve as cr  # noqa: E402
 from repro_torch.kernels.chain_resolve import ref as cr_ref  # noqa: E402
+from repro_torch.kernels.cow_gather import cow_gather as cg  # noqa: E402
+from repro_torch.kernels.cow_gather import ref as cg_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 
@@ -147,3 +150,72 @@ def test_all_masked_fused_row_is_zero(cuda):
     got = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
     torch.cuda.synchronize()
     assert torch.count_nonzero(got[1]) == 0
+
+
+def _same_bytes(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                              b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,p,t,b", [(16, 128, 2, 8), (64, 256, 5, 17),
+                                     (40, 5, 3, 7), (9, 3, 1, 33),
+                                     (300, 16384, 4, 64), (7, 1029, 2, 5)])
+def test_gather_kernels_bit_exact(cuda, dtype, r, p, t, b):
+    """K5 and K8 against their plain versions: ragged batches, page sizes
+    whose rows are not 16-byte aligned (the narrower widths and the byte
+    tail), bf16 pools, rows at R - 1, negative zeros in the pool, and
+    +0.0 bytes wherever a page is not found."""
+    rng = np.random.default_rng(r + p + t + b)
+    pool = torch.as_tensor(rng.standard_normal((r, p)), dtype=torch.float32)
+    pool[0, :2] = -0.0
+    pool = pool.to(cuda, dtype)
+    rows = torch.as_tensor(rng.integers(0, r, (t, b)).astype(np.int32),
+                           device=cuda)
+    rows[:, 0] = r - 1
+    found = torch.as_tensor(rng.random((t, b)) < 0.7, device=cuda)
+    # an unfound page may carry any row: the kernel never dereferences it
+    rows = torch.where(found, rows, 1 << 20)
+    launches = dict(_build.LAUNCHES)
+    got_fleet = cg.gather_fleet_cuda(pool, rows, found)
+    got_one = cg.gather_cuda(pool, rows[-1].contiguous(), found[-1].contiguous())
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gather_fleet"] == launches["gather_fleet"] + 1
+    assert _build.LAUNCHES["gather"] == launches["gather"] + 1
+    assert _same_bytes(got_fleet, cg_ref.gather_fleet_ref(pool, rows, found))
+    assert _same_bytes(got_one, cg_ref.gather_ref(pool, rows[-1], found[-1]))
+    assert not got_fleet.view(torch.uint8)[~found].any()
+
+
+def test_gather_all_unfound_and_empty(cuda):
+    pool = torch.randn((8, 40), device=cuda)
+    rows = torch.full((3, 6), -5, dtype=torch.int32, device=cuda)
+    found = torch.zeros((3, 6), dtype=torch.bool, device=cuda)
+    out = cg.gather_fleet_cuda(pool, rows, found)
+    torch.cuda.synchronize()
+    assert not out.view(torch.uint8).any()
+    empty = cg.gather_cuda(pool, rows[0, :0], found[0, :0])
+    assert tuple(empty.shape) == (0, 40)
+
+
+@pytest.mark.parametrize("c,n", [(1, 128), (7, 1000), (64, 4096), (512, 257)])
+@pytest.mark.parametrize("alloc_dtype", [torch.int32, torch.bool])
+def test_single_chain_resolve_kernels_bit_exact(cuda, c, n, alloc_dtype):
+    """K6 and K7 against their plain versions, with lengths 0, 1, C/2, C
+    and past C (layers >= C do not exist), int32 or bool allocation maps."""
+    rng = np.random.default_rng(c + n)
+    alloc = torch.as_tensor(rng.random((c, n)) < 0.2, device=cuda).to(alloc_dtype)
+    ptrs = torch.as_tensor(rng.integers(0, 1 << 28, (c, n)).astype(np.int32),
+                           device=cuda)
+    bfi = torch.as_tensor(rng.integers(0, 1 << 16, n).astype(np.int32),
+                          device=cuda)
+    for length in (0, 1, c // 2, c, c + 3):
+        for ln in (length, torch.tensor(length, device=cuda)):
+            got = cr.resolve_vanilla_cuda(alloc, ptrs, ln)
+            torch.cuda.synchronize()
+            want = cr_ref.resolve_vanilla_ref(alloc, ptrs, length)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = cr.resolve_direct_cuda(alloc[c - 1], bfi, ptrs[0])
+    torch.cuda.synchronize()
+    want = cr_ref.resolve_direct_ref(alloc[c - 1], bfi, ptrs[0])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

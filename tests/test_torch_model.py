@@ -172,3 +172,29 @@ def test_init_params_scales():
             "['layers']['ff']['w_down']": (2 * n * f) ** -0.5}
     for k, s in want.items():
         assert abs(float(flat_t[k].std()) / s - 1) < 0.1, k
+
+
+
+@pytest.mark.parametrize("helper,args,kwargs", [
+    ("dense_init", (4, 8), {}),
+    ("embed_init", (16, 4), {}),
+    ("rope_frequencies", (8,), {}),
+    ("attn_init", (8, 2, 1, 4), {"qkv_bias": True}),
+    ("mlp_init", (8, 16), {"gated": True}),
+])
+def test_init_helpers_default_to_the_card(helper, args, kwargs):
+    """With no card and no explicit CPU request, the public init helpers
+    raise instead of running on the CPU, like every entry point; with
+    ``device="cpu"`` they run there."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.models import layers as L
+
+    fn = getattr(L, helper)
+    if helper != "rope_frequencies":
+        args = (torch.Generator().manual_seed(0),) + args
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(*args, **kwargs)
+    out = fn(*args, **kwargs, device="cpu")
+    leaves = out.values() if isinstance(out, dict) else [out]
+    assert all(x.device.type == "cpu" for x in leaves)
