@@ -50,6 +50,30 @@ Phases, each printing its own lines:
    ``read_tiered`` and the read after ``promote_tenants`` equal the read
    before, and ``free_tenant(store=)`` returns every host row. K5 is held
    against its plain version and timed on the vanilla fleet's read.
+8. maintenance — (a) one disk: the phase-6 disk at depth 500 (pool of
+   196,608 rows), one format at a time, ``store.stream(chain, 498,
+   copy_data=True)``, then ``compact_pool``, then on the vanilla image
+   ``convert_to_scalable``; after each step every read (page chunks,
+   every method the format serves) is bit-identical to the read before
+   streaming, and YCSB-C's mean walk falls from ~470 lookups to at most 2.
+   K9 is held against its plain version on the disk's own (499, 262,144)
+   planes and timed; ``plan_merge`` and its plane copies are timed apart.
+   (b) a fleet: the phase-7 fleet, one format at a time, streamed
+   stop-the-world (``stream_tenants``, one call) and, on a copy, budgeted
+   (``MaintenanceScheduler``, 4 tenants a tick, drained); after each,
+   ``fleet.read(auto)`` equals the reference, every length is at most 2,
+   quanta came free and ``check_fleet_invariants`` passes. Then 256
+   clusters a tenant are overwritten twice and ``compact`` must keep the
+   reads and give the garbage back; on the vanilla fleet a demotion-policy
+   scheduler (``TieredStore``, device budget 75 % of the rows, 4,096 rows
+   a tick) drains to the budget with ``read_tiered`` equal to the
+   reference. (c) Qwen2.5-3B (phase 4's weights and prompts) on vanilla
+   fused engines: 12 steps without and with a scheduler over a fresh
+   phase-7 fleet, the two engines stepping in turns (same tokens, at
+   least 12 tenants streamed, the fleet's reads unchanged), then park /
+   4 steps / resume / 4 steps of the
+   512-token sequence against a run that never parks it (same tokens,
+   host blocks back to 0, ``check_kv_invariants`` after each event).
 
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet) and read just after it, before any kernel is
@@ -99,7 +123,16 @@ FLEET_T, FLEET_PAGES, FLEET_CHAIN, FLEET_Q = 64, 16_384, 512, 64
 FLEET_BASE, FLEET_LAYER_WRITES, FLEET_BATCH = 2_048, 4, 1_024
 FLEET_MAX_DEPTH = 500
 DEMOTE_ROWS, DEMOTE_CALLS = 16_384, 2
-DEV = "cuda"                     # phases 6-7 run here
+# phase 8: maintenance. The streamed disk needs room for the copy:
+# 97,472 rows in use + about 89,000 merged pages moved to fresh rows
+MAINT_DISK_POOL = 196_608        # 12.9 GB
+MAINT_DEPTH = 500
+COMPARE_PAGES = 32_768           # pages per chunk of a full-disk comparison
+SCHED_TENANTS_PER_TICK, SCHED_THRESHOLD = 4, 3
+OVERWRITE = 256                  # clusters per tenant, written twice
+DEMOTE_BUDGET_SHARE, DEMOTE_PER_TICK, HOST_ROWS = 0.75, 4_096, 32_768
+MAINT_STEPS, PARK_STEPS = 12, 4
+DEV = "cuda"                     # phases 6-8 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -117,6 +150,8 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/chain_resolve/chain_resolve.py:94"),
     "gather": ("src/repro_torch/csrc/cow_gather.cu",
                "src/repro/kernels/cow_gather/cow_gather.py:27"),
+    "merge": ("src/repro_torch/csrc/stream_merge.cu",
+              "src/repro/kernels/stream_merge/stream_merge.py:41"),
 }
 
 
@@ -702,11 +737,13 @@ def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
 # -- phase 7: a fleet of disks, fleet.read and the host cold tier ------------
 
 
-def build_fleet(torch, fleet_lib, scalable, seed):
+def build_fleet(torch, fleet_lib, scalable, seed, extra_rows=0):
     """The phase-7 fleet: each tenant's base at 12.5 % fill, then tenant t
-    snapshots and writes 4 clusters a layer up to its target length."""
+    snapshots and writes 4 clusters a layer up to its target length.
+    ``extra_rows`` per tenant widens the pool for later writes."""
     target = 1 + (FLEET_MAX_DEPTH - 1) * torch.arange(FLEET_T) // (FLEET_T - 1)
-    rows = (FLEET_BASE + FLEET_LAYER_WRITES * (target - 1) + FLEET_Q - 1) // FLEET_Q
+    rows = (FLEET_BASE + FLEET_LAYER_WRITES * (target - 1) + extra_rows
+            + FLEET_Q - 1) // FLEET_Q
     # every tenant's own rows rounded up to whole quanta, plus slack for
     # the promotion's fresh quanta
     spec = fleet_lib.FleetSpec(
@@ -844,6 +881,391 @@ def fleet_kernel(torch, mods, pool, res, flush):
     return [row]
 
 
+# -- phase 8: the maintenance plane -------------------------------------------
+
+
+def _timed(torch, fn):
+    """``(result, host ms)`` of one call that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _ms(torch, fn) -> float:
+    """Host ms of one call; its result (often a chain or a fleet the op
+    updated in place) is dropped, so no stray reference keeps it alive."""
+    return _timed(torch, fn)[1]
+
+
+def _require_disk_reads(torch, store, chain, ref, methods, what):
+    """Every method's read of the whole disk, a page chunk at a time,
+    bit-identical to ``ref``."""
+    n = chain.spec.n_pages
+    for m in methods:
+        for lo in range(0, n, COMPARE_PAGES):
+            ids = torch.arange(lo, min(lo + COMPARE_PAGES, n), dtype=torch.int32,
+                               device=DEV)
+            data, _ = store.read(chain, ids, method=m)
+            require(_same(torch, data, ref[lo:lo + COMPARE_PAGES]),
+                    f"{what}: {m} read differs from the read before streaming")
+            del data
+
+
+def _mean_walk(store, chain, ids) -> float:
+    _, res = store.read(chain, ids, method="vanilla")
+    return float(res.lookups.float().mean())
+
+
+def disk_maintenance(torch, mods):
+    """8a: stream, compact and convert one 16 GiB disk at depth 500."""
+    store, chain_lib, fmt, _build = (mods["store"], mods["chain"], mods["fmt"],
+                                     mods["_build"])
+    sm, sm_ref = mods["sm"], mods["sm_ref"]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+    total, measured, out = {}, None, {}
+    k = MAINT_DEPTH - 1                       # layers [0, 498] merge
+    for scalable in (False, True):
+        name = "scalable" if scalable else "vanilla"
+        methods = (("vanilla", "direct", "auto", "pallas_vanilla", "pallas_direct")
+                   if scalable else ("vanilla", "auto", "pallas_vanilla"))
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device=DEV).manual_seed(9)
+        t0 = time.perf_counter()
+        chain = store.create(DISK_PAGES, CLUSTER, max_chain=DISK_CHAIN,
+                             pool_capacity=MAINT_DISK_POOL, scalable=scalable,
+                             device=DEV)
+        base = torch.randperm(DISK_PAGES, generator=g, device=DEV)[:BASE_FILL]
+        for lo in range(0, BASE_FILL, 8_192):
+            ids = base[lo:lo + 8_192]
+            store.write(chain, ids, torch.randn((ids.numel(), CLUSTER),
+                                                generator=g, device=DEV))
+        _grow_disks(torch, store, [chain], g, MAINT_DEPTH)
+        store.check_pool_capacity(chain)
+        require(store.chain_length(chain) == MAINT_DEPTH, "disk depth")
+        ycsb = torch.randint(0, DISK_PAGES, (YCSB_BATCH,), generator=g,
+                             device=DEV, dtype=torch.int32)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ref = store.materialize(chain, method="vanilla")
+        walk_before = _mean_walk(store, chain, ycsb)
+
+        # the merge plan apart: its plane copies, the whole plan, and K9 on
+        # this disk's own planes against its plain version (not the main
+        # path: launch counts are zeroed after)
+        sub = chain.l2[:k]
+        planes_ms = _host_ms(torch, lambda: (fmt.entry_allocated(sub),
+                                             fmt.entry_ptr(sub)), 3)
+        plan_ms = _host_ms(torch, lambda: chain_lib.plan_merge(chain.l2, k - 1), 3)
+        alloc, ptrs = fmt.entry_allocated(sub), fmt.entry_ptr(sub)
+        merged, plan_found = chain_lib.plan_merge(chain.l2, k - 1)
+        found, ptr, src = sm.merge_cuda(alloc, ptrs)
+        require(torch.equal(found, plan_found), "K9 found differs from plan_merge")
+        require(torch.equal(ptr[found], fmt.entry_ptr(merged)[found]),
+                "K9 ptr differs from the merged entries' ptr")
+        if not scalable:
+            hits = int(found.sum())
+            walked = int(torch.where(src >= 0, k - src, k).sum())
+            esz = alloc.element_size()
+            n = alloc.shape[1]
+            full = (esz + 4) * k * n + 9 * n
+            row, _ = measure(torch, "merge", lambda: sm.merge_cuda(alloc, ptrs),
+                             lambda: sm_ref.merge_ref(alloc, ptrs),
+                             esz * walked + 4 * hits + 9 * n, 0, None, flush)
+            row["bound_full_scan_ms"] = 1e3 * full / HBM_BYTES_PER_S
+            row["bound_full_scan_bytes"] = full
+            measured = [row]
+            emit({"phase": "maintenance", "part": "disk", "kernel_shapes": {
+                "merge_K_N": [k, n], "alloc_dtype": str(alloc.dtype),
+                "words_walked": walked, "hits": hits}})
+        del sub, alloc, ptrs, merged, plan_found, found, ptr, src
+
+        _build.reset_launches()
+        cursor0 = int(chain.pool_cursor)
+        stream_ms = _ms(torch, lambda: store.stream(chain, k - 1, copy_data=True))
+        per_call = _build.LAUNCHES["merge"]     # one stream, one plan
+        moved = int(chain.pool_cursor) - cursor0
+        require(store.chain_length(chain) == 2, "streamed chain length")
+        require(not bool(chain.overflow), "stream ran out of pool rows")
+        require(moved > 0, "stream moved no rows")
+        _require_disk_reads(torch, store, chain, ref, methods, f"{name} stream")
+        walk_after = _mean_walk(store, chain, ycsb)
+        if not scalable:
+            require(walk_before >= 0.9 * MAINT_DEPTH and walk_after <= 2,
+                    f"walk {walk_before} -> {walk_after} lookups")
+        live_l2 = chain.l2[:2]
+        live = int(torch.unique(
+            fmt.entry_ptr(live_l2)[fmt.entry_allocated(live_l2)]).numel())
+        del live_l2
+        compact_ms = _ms(torch, lambda: store.compact_pool(chain))
+        require(int(chain.pool_cursor) == live, "compact_pool cursor != live rows")
+        _require_disk_reads(torch, store, chain, ref, methods, f"{name} compact")
+        convert_ms = None
+        if not scalable:
+            convert_ms = _ms(torch, lambda: store.convert_to_scalable(chain))
+            _require_disk_reads(torch, store, chain, ref,
+                                ("direct", "pallas_direct", "auto"),
+                                f"{name} convert")
+        launches = dict(_build.LAUNCHES)       # read just after the run
+        require(launches["merge"] > 0, "disk maintenance: K9 never launched")
+        total = {key: total.get(key, 0) + v for key, v in launches.items()}
+        out[name] = dict(
+            build_seconds=build_s, stream_ms=stream_ms, plan_merge_ms=plan_ms,
+            plane_copies_ms=planes_ms, rows_moved=moved,
+            GB_copied=moved * CLUSTER * 4 / 1e9, compact_ms=compact_ms,
+            live_rows=live, convert_ms=convert_ms,
+            ycsb_mean_lookups_before=walk_before,
+            ycsb_mean_lookups_after=walk_after)
+        emit({"phase": "maintenance", "part": "disk", "format": name,
+              "pool_rows": MAINT_DISK_POOL, "depth": MAINT_DEPTH,
+              "merge_upto": k - 1, **out[name],
+              "reads_equal_after_each_step": True, "launches": launches,
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+        del chain, ref
+        torch.cuda.empty_cache()
+    if measured:
+        measured[0]["plan_merge_ms"] = out["vanilla"]["plan_merge_ms"]
+        measured[0]["plane_copies_ms"] = out["vanilla"]["plane_copies_ms"]
+    return measured, total, per_call
+
+
+def _clone_fleet(fl):
+    """An independent copy of a fleet (the ops work in place)."""
+    import dataclasses
+
+    return dataclasses.replace(fl, **{
+        f.name: getattr(fl, f.name).clone()
+        for f in dataclasses.fields(fl) if f.name != "spec"})
+
+
+def _check_streamed(torch, mods, fl, ref, ids, lengths0, free0, what):
+    fleet_lib = mods["fleet"]
+    got, _ = fleet_lib.read(fl, ids, method="auto")
+    require(_same(torch, got, ref), f"{what}: read differs from the reference")
+    require(torch.equal(fl.length.cpu(), lengths0.clamp(max=2)),
+            f"{what}: chain lengths are not min(length, 2)")
+    require(fleet_lib.fleet_stats(fl)["quanta_free"] > free0,
+            f"{what}: no quanta came free")
+    mods["check_fleet_invariants"](fl)
+
+
+def _drain_timed(torch, sched):
+    """Tick until the backlog is empty; the host ms of every tick."""
+    ms = []
+    while sched.backlog():
+        require(len(ms) < 10_000, "maintenance backlog did not drain")
+        ms.append(_ms(torch, sched.tick))
+    require(sched.drain() == 0, "drain() found work after the timed ticks")
+    return ms
+
+
+def _tick_summary(ms):
+    return dict(ticks=len(ms), tick_ms_mean=float(np.mean(ms)) if ms else 0.0,
+                tick_ms_max=float(np.max(ms)) if ms else 0.0)
+
+
+def fleet_maintenance(torch, mods):
+    """8b: stop-the-world streaming against the budgeted scheduler on the
+    phase-7 fleet, then compaction and the demotion policy."""
+    fleet_lib, _build, Sched = mods["fleet"], mods["_build"], mods["Sched"]
+    check = mods["check_fleet_invariants"]
+    g = torch.Generator(device=DEV).manual_seed(7)
+    ids = torch.randint(0, FLEET_PAGES, (FLEET_T, FLEET_BATCH), generator=g,
+                        device=DEV, dtype=torch.int32)      # phase 7's ids
+    total = {}
+    for scalable in (False, True):
+        name = "scalable" if scalable else "vanilla"
+        torch.cuda.reset_peak_memory_stats()
+        stw = build_fleet(torch, fleet_lib, scalable, seed=8,
+                          extra_rows=2 * OVERWRITE)
+        budgeted = _clone_fleet(stw)
+        ref, _ = fleet_lib.read(stw, ids, method="vanilla")
+        lengths0 = stw.length.cpu()
+        free0 = fleet_lib.fleet_stats(stw)["quanta_free"]
+        rows0 = fleet_lib.fleet_stats(stw)["rows_allocated"]
+
+        _build.reset_launches()
+        stw_ms = _ms(torch, lambda: fleet_lib.stream_tenants(
+            stw, True, (lengths0 - 2).numpy()))
+        _check_streamed(torch, mods, stw, ref, ids, lengths0, free0,
+                        f"{name} stop-the-world")
+        stw_stats = fleet_lib.fleet_stats(stw)
+
+        sched = Sched(budgeted, max_tenants_per_tick=SCHED_TENANTS_PER_TICK,
+                      stream_chain_threshold=SCHED_THRESHOLD)
+        tick_ms = _drain_timed(torch, sched)
+        budgeted = sched.fleet
+        _check_streamed(torch, mods, budgeted, ref, ids, lengths0, free0,
+                        f"{name} scheduler")
+        sched_stats = sched.stats()
+
+        # compaction: overwrite clusters twice in the active layer, then GC
+        pages = torch.argsort(torch.rand((FLEET_T, FLEET_PAGES), generator=g,
+                                         device=DEV), dim=1)[:, :OVERWRITE]
+        for _ in range(2):
+            fleet_lib.write(stw, pages, torch.randn(
+                (FLEET_T, OVERWRITE, CLUSTER), generator=g, device=DEV))
+        fleet_lib.check_pool_capacity(stw)
+        ref2, _ = fleet_lib.read(stw, ids, method="auto")
+        alloc0 = stw.alloc_count.clone()
+        compact_ms = _ms(torch, lambda: fleet_lib.compact(stw))
+        got, _ = fleet_lib.read(stw, ids, method="auto")
+        require(_same(torch, got, ref2), f"{name}: compact changed the reads")
+        freed = alloc0 - stw.alloc_count
+        require(bool((freed >= OVERWRITE).all()),
+                f"{name}: compact freed fewer rows than were overwritten")
+        check(stw)
+        del got, ref2
+
+        demote = None
+        if not scalable:
+            # the demotion policy on the streamed fleet: a host tier sized
+            # for the spill, not for the whole pool
+            store = mods["TieredStore"](CLUSTER, torch.float32,
+                                        initial_rows=HOST_ROWS)
+            budget = int(DEMOTE_BUDGET_SHARE
+                         * fleet_lib.fleet_stats(budgeted)["rows_allocated"])
+            dsched = Sched(budgeted, store=store, device_page_budget=budget,
+                           demote_rows_per_tick=DEMOTE_PER_TICK)
+            dms = _drain_timed(torch, dsched)
+            budgeted = dsched.fleet
+            rows_after = fleet_lib.fleet_stats(budgeted)["rows_allocated"]
+            require(rows_after <= budget, f"rows {rows_after} above {budget}")
+            tiered, _ = fleet_lib.read_tiered(budgeted, store, ids, method="auto")
+            require(_same(torch, tiered, ref), "read_tiered after demotion differs")
+            check(budgeted, store=store)
+            demote = dict(budget_rows=budget, rows_after=rows_after,
+                          rows_demoted=dsched.rows_demoted,
+                          host_rows=store.host_rows_in_use(), **_tick_summary(dms))
+            del tiered, store, dsched
+        launches = dict(_build.LAUNCHES)       # read just after the run
+        for key in ("merge", "resolve_vanilla_fleet", "resolve_direct_fleet",
+                    "gather_fleet"):
+            require(launches[key] > 0, f"fleet maintenance: {key} never launched")
+        total = {key: total.get(key, 0) + v for key, v in launches.items()}
+        emit({"phase": "maintenance", "part": "fleet", "format": name,
+              "tenants": FLEET_T, "pool_rows": stw.spec.pool_capacity,
+              "rows_allocated_before": rows0,
+              "stop_the_world_ms": stw_ms,
+              "stop_the_world_quanta_free": stw_stats["quanta_free"],
+              "scheduler": dict(**_tick_summary(tick_ms),
+                                tenants_streamed=sched_stats["tenants_streamed"],
+                                quanta_free=sched_stats["quanta_free"]),
+              "quanta_free_before": free0,
+              "compact_ms": compact_ms, "compact_rows_freed": int(freed.sum()),
+              "demotion_policy": demote,
+              "reads_equal_reference": True, "invariants": True,
+              "launches": launches,
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+        del stw, budgeted, sched, ref
+        torch.cuda.empty_cache()
+    return total
+
+
+def serve_maintenance(torch, mods, cfg, params, prompts):
+    """8c: decode beside a maintenance scheduler, and park/resume."""
+    Engine, fleet_lib, _build = mods["Engine"], mods["fleet"], mods["_build"]
+    check_kv = mods["check_kv_invariants"]
+    g = torch.Generator(device=DEV).manual_seed(7)
+    ids = torch.randint(0, FLEET_PAGES, (FLEET_T, FLEET_BATCH), generator=g,
+                        device=DEV, dtype=torch.int32)
+    fl = build_fleet(torch, fleet_lib, False, seed=8)
+    fref, _ = fleet_lib.read(fl, ids, method="vanilla")
+
+    def engine(**extra):
+        eng = Engine(cfg, params, scalable=False, n_blocks=1024, block_size=16,
+                     max_blocks_per_seq=128, resolver="auto",
+                     decode_path="fused", **extra)
+        return eng, [eng.add_request(p) for p in prompts]
+
+    def decode(eng, n):
+        return [_ms(torch, eng.step) for _ in range(n)]
+
+    def finish(eng):
+        tokens = {s: list(t) for s, t in eng.active.items()}
+        for s in sorted(eng.active):
+            eng.finish_request(s)
+        require(eng.kv.blocks_in_use() == 0 and eng.kv.host_blocks_in_use() == 0,
+                "serve maintenance: blocks left after finishing")
+        return tokens
+
+    sched = mods["Sched"](fl, max_tenants_per_tick=1)
+    tick_ms, tick = [], sched.tick
+
+    def timed_tick():
+        out, ms = _timed(torch, tick)
+        tick_ms.append(ms)
+        return out
+
+    sched.tick = timed_tick
+    _build.reset_launches()
+    # the two engines step in turns, so host drift hits both alike
+    plain, _ = engine()
+    maint, _ = engine(scheduler=sched)
+    plain_ms, sched_ms = [], []
+    for _ in range(MAINT_STEPS):
+        plain_ms += decode(plain, 1)
+        sched_ms += decode(maint, 1)
+    streamed = maint.memory_stats()["maintenance"]["tenants_streamed"]
+    require(finish(maint) == finish(plain), "tokens differ with the scheduler")
+    require(streamed >= MAINT_STEPS, f"only {streamed} tenants streamed")
+    got, _ = fleet_lib.read(sched.fleet, ids, method="auto")
+    require(_same(torch, got, fref), "scheduler fleet read differs")
+    del plain, maint, got, fref, sched, fl
+    torch.cuda.empty_cache()
+
+    # park / resume the 512-token sequence against a run that never parks
+    eng, sids = engine()
+    decode(eng, 3 * PARK_STEPS)
+    never_parked = finish(eng)
+    del eng
+    eng, sids = engine()
+    parked = sids[PROMPT_LENGTHS.index(max(PROMPT_LENGTHS))]
+    promote_ms, promote = [], eng.kv.promote_seq
+
+    def timed_promote(sid):
+        out, ms = _timed(torch, lambda: promote(sid))
+        promote_ms.append(ms)
+        return out
+
+    eng.kv.promote_seq = timed_promote
+    decode(eng, PARK_STEPS)
+    spilled, demote_ms = _timed(torch, lambda: eng.park_request(parked))
+    host = eng.memory_stats()["host_blocks"]
+    require(spilled > 0 and host == spilled, f"park spilled {spilled} blocks")
+    check_kv(eng.kv)
+    decode(eng, PARK_STEPS)
+    eng.resume_request(parked)
+    check_kv(eng.kv)
+    decode(eng, 1)
+    require(eng.memory_stats()["host_blocks"] == 0, "host blocks after resume")
+    check_kv(eng.kv)
+    decode(eng, PARK_STEPS - 1)
+    tokens = finish(eng)
+    for s, t in tokens.items():
+        want = never_parked[s][:len(t)]
+        require(t == want, f"sid {s}: tokens differ across park/resume")
+    require(len(tokens[parked]) == 1 + 2 * PARK_STEPS, "parked sequence length")
+    launches = dict(_build.LAUNCHES)           # read just after the run
+    for key in ("resolve_vanilla_fleet", "resolve_direct_fleet",
+                "fused_chain_attention", "gather_fleet", "merge"):
+        require(launches[key] > 0, f"serve maintenance: {key} never launched")
+    emit({"phase": "maintenance", "part": "serve", "model": cfg.name,
+          "engine": "vanilla/fused", "steps": MAINT_STEPS,
+          "ms_per_step_plain": float(np.mean(plain_ms)),
+          "ms_per_step_with_scheduler": float(np.mean(sched_ms)),
+          "tick_ms_mean": float(np.mean(tick_ms)),
+          "tick_ms_max": float(np.max(tick_ms)), "tenants_streamed": streamed,
+          "tokens_equal_with_and_without_scheduler": True,
+          "park": dict(blocks_spilled=spilled, demote_ms=demote_ms,
+                       promote_ms=promote_ms, steps_parked=PARK_STEPS),
+          "tokens_equal_across_park_resume": True, "launches": launches})
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -864,6 +1286,12 @@ def main() -> int:
     from repro_torch.kernels.cow_gather import ref as cg_ref
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.stream_merge import ref as sm_ref
+    from repro_torch.kernels.stream_merge import stream_merge as sm
+    from repro_torch.core import chain
+    from repro_torch.core.invariants import (check_fleet_invariants,
+                                             check_kv_invariants)
+    from repro_torch.core.scheduler import MaintenanceScheduler
     from repro_torch.models import layers
     from repro_torch.models.transformer import init_params, prefill
     from repro_torch.serve.engine import Engine
@@ -889,7 +1317,10 @@ def main() -> int:
                 cr_ops=cr_ops, pa=pa, pa_ref=pa_ref, fmt=fmt, cg=cg,
                 cg_ref=cg_ref, cg_ops=cg_ops, store=store, fleet=fleet,
                 TieredStore=store.TieredStore,
-                readable_rows=store.readable_rows)
+                readable_rows=store.readable_rows, chain=chain, sm=sm,
+                sm_ref=sm_ref, Sched=MaintenanceScheduler,
+                check_fleet_invariants=check_fleet_invariants,
+                check_kv_invariants=check_kv_invariants)
 
     # 3. smoke-size reference: the card against the plain versions on the CPU
     t0 = time.perf_counter()
@@ -942,12 +1373,27 @@ def main() -> int:
     emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
     per_step_of["gather_fleet"] = fleet_per_read["gather_fleet"]
 
-    # launches on the main paths: the engines' runs, both store depths and
-    # both fleets (each counted from zero just before its run)
+    # 8. the maintenance plane: one disk, a fleet, serving beside it
+    t0 = time.perf_counter()
+    merge_rows, disk_launches, per_plan = disk_maintenance(torch, mods)
+    maint_launches = fleet_maintenance(torch, mods)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", dtype=layers.COMPUTE_DTYPE)
+    serve8_launches = serve_maintenance(torch, mods, cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "maintenance", "seconds": time.perf_counter() - t0})
+    per_step_of["merge"] = per_plan         # launches per plan_merge call
+
+    # launches on the main paths: the engines' runs, both store depths,
+    # both fleets and the maintenance runs (each counted from zero just
+    # before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
-                   + store_launches.get(k, 0) + fleet_launches.get(k, 0)
+                   + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
+                                              disk_launches, maint_launches,
+                                              serve8_launches))
                    for k in KERNEL_SOURCES}
-    rows += fleet_rows + store_rows
+    rows += fleet_rows + store_rows + merge_rows
     for row in rows:
         row["launches"] = launches_of[row["name"]]
         row["launches_per_step"] = per_step_of[row["name"]]

@@ -22,8 +22,11 @@ spare a copy of the (T, C, P, 2) index per operation.
 The read plane gathers the resolved pages through the ``cow_gather``
 fleet kernel (``read``, ``materialize``), and the host cold tier moves
 immutable snapshot layers between the device pool and a ``TieredStore``
-(``demote_tenants``, ``promote_tenants``, ``read_tiered``). Streaming,
-compaction, the golden registry and migration come in later slices.
+(``demote_tenants``, ``promote_tenants``, ``read_tiered``). The
+maintenance plane streams tenants (``stream_tenants``: ``chain.merge_tables``
+per tenant, whose merge plan runs the streaming-merge kernel K9) and
+repacks their leases (``compact``); ``core.scheduler`` budgets both beside
+serving. The golden registry and migration come in later slices.
 """
 
 from __future__ import annotations
@@ -620,6 +623,82 @@ def _reclaim(fleet: ChainFleet, sel: np.ndarray) -> ChainFleet:
         fleet.alloc_count[t] = n_live
     fleet.overflow = fleet.overflow & ~reclaimed
     return fleet
+
+
+def stream_tenants(fleet: ChainFleet, mask, merge_upto, *,
+                   reclaim: bool = True, registry=None) -> ChainFleet:
+    """Stream (merge layers ``[0, merge_upto]``) each selected tenant and
+    return the pool quanta this frees to the lease allocator.
+
+    The fleet-granularity analogue of ``chain.stream``: host-side
+    maintenance over the stacked (T, C, P) layout, built on the same
+    ``chain.merge_tables`` core (run in place on each tenant's views of
+    the fleet's tables) so chain and fleet semantics cannot drift.
+
+    Args:
+        fleet: the fleet state, updated in place and returned.
+        mask: (T,) bool host array, or a scalar broadcast over tenants —
+            which tenants to stream this call.
+        merge_upto: int or (T,) int — per tenant, merge layers
+            ``[0, merge_upto]`` into the base. Tenants whose
+            ``merge_upto`` does not fall strictly below their active
+            volume are skipped (a background job must tolerate racing
+            chain growth, where ``chain.stream`` raises), and so are
+            tenants holding demoted pages (merging would collapse COLD
+            entries across layers and strand their host rows).
+        reclaim: run the shared ``_reclaim`` repack afterwards (default).
+            Pass ``False`` for a metadata-only merge that frees nothing.
+        registry: the golden registry: not ported yet, raises
+            ``NotImplementedError``.
+
+    Returns:
+        The fleet. With ``reclaim=True``, rows orphaned by the merge leave
+        each tenant's lease footprint and freed quanta return to the
+        allocator free list; ``overflow`` clears only for tenants that
+        actually shrank, and ``snap_dropped`` clears only where streaming
+        made room below ``max_chain``.
+    """
+    _no_registry(registry, "stream_tenants")
+    spec = fleet.spec
+    t = spec.n_tenants
+    mask = np.broadcast_to(np.asarray(mask, bool), (t,))
+    upto = np.broadcast_to(np.asarray(merge_upto, np.int64), (t,))
+    lengths = fleet.length.cpu().numpy().copy()
+    cold = fleet.cold_count.cpu().numpy()
+    sel = mask & (upto >= 0) & (upto < lengths - 1) & (cold == 0)
+    snap_dropped = fleet.snap_dropped.cpu().numpy().copy()
+    scalable = fleet.scalable.cpu().numpy()
+    for i in np.flatnonzero(sel):
+        _, _, new_len = chain_lib.merge_tables(
+            fleet.l1[i], fleet.l2[i], int(lengths[i]), int(upto[i]),
+            scalable=bool(scalable[i]),
+        )
+        lengths[i] = new_len
+        snap_dropped[i] &= new_len >= spec.max_chain
+    fleet.length.copy_(torch.as_tensor(lengths.astype(np.int32)))
+    fleet.snap_dropped.copy_(torch.as_tensor(snap_dropped))
+    if not reclaim:
+        return fleet
+    return _reclaim(fleet, sel)
+
+
+def compact(fleet: ChainFleet, mask=None, *, registry=None) -> ChainFleet:
+    """Fleet-level GC: repack every (selected) tenant's live rows and
+    return the freed quanta to the allocator free list.
+
+    The fleet analogue of ``chain.compact_pool``: COW writes and streaming
+    orphan pool rows, and this is the background job that hands them
+    back. ``mask``: optional (T,) bool selecting the tenants to repack
+    (``None``: every tenant). ``registry`` (golden admission) is not
+    ported yet and raises ``NotImplementedError``. Updates the fleet in
+    place and returns it; ``overflow`` clears only for tenants whose rows
+    were actually reclaimed.
+    """
+    _no_registry(registry, "compact")
+    t = fleet.spec.n_tenants
+    sel = (np.ones(t, bool) if mask is None
+           else np.broadcast_to(np.asarray(mask, bool), (t,)))
+    return _reclaim(fleet, sel)
 
 
 # -- host cold tier: demote / promote / tiered read --------------------------

@@ -4,8 +4,11 @@ The read plane of ``repro.core.store``: whole-page reads of one virtual
 disk through its snapshot chain (``read``, the 'dd' op ``materialize``,
 ``allocated_mask``), the store constructor and its guards, and the host
 cold tier (``TieredStore``) behind a fleet's device pool. Writes and
-snapshots are ``core.chain``'s, re-exported here. Streaming, pool
-compaction and format conversion come with the maintenance plane.
+snapshots are ``core.chain``'s, re-exported here, and so are the
+maintenance ops: streaming (``stream``, whose merge plan runs the
+streaming-merge kernel K9), pool compaction (``compact_pool``) and format
+conversion (``convert_to_scalable``). Like every op of the port, they
+update the chain in place and return it.
 
 ``read`` resolves through the resolver registry of ``core.resolve``; the
 kernel methods (``"pallas_vanilla"``, ``"pallas_direct"``) also gather
@@ -173,6 +176,9 @@ def read(chain: Chain, page_ids, *, method: str = "auto"):
 
 write = chain_lib.write
 snapshot = chain_lib.snapshot
+stream = chain_lib.stream
+compact_pool = chain_lib.compact_pool
+convert_to_scalable = chain_lib.convert_to_scalable
 
 
 def create(

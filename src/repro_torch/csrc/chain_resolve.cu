@@ -25,7 +25,8 @@
 // plane. The walk keeps the same shape: one thread per page, coalesced
 // along N, from layer min(length, C) - 1 down to the first allocated layer
 // (layers >= C are invalid, and so are layers >= length); ptr is 0 on a
-// miss. The direct kernel is one elementwise pass over the active layer.
+// miss. That walk is first_hit_down (chain_walk.cuh), which the streaming
+// merge (K9, stream_merge.cu) shares. The direct kernel is one elementwise pass over the active layer.
 // It does not look at BFI_VALID: its caller decides what is trusted.
 //
 // Words are read as uint32_t; the layout comes from -D macros generated
@@ -33,6 +34,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "chain_walk.cuh"
 
 #ifndef FMT_FLAG_ALLOCATED
 #error "build through repro_torch.kernels._build: the format macros are missing"
@@ -100,19 +103,9 @@ __global__ void vanilla_kernel(const A* __restrict__ alloc,
                                int32_t* __restrict__ ptr, int C, int N) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= N) return;
-  const int top = min(length[0], C) - 1;
-  int o = -1;
-  int32_t v = 0;
-  for (int layer = top; layer >= 0; --layer) {
-    const size_t at = (size_t)layer * N + p;
-    if (alloc[at] != 0) {
-      o = layer;
-      v = ptrs[at];
-      break;
-    }
-  }
+  const int o = first_hit_down(alloc, min(length[0], C) - 1, N, p);
   owner[p] = o;
-  ptr[p] = v;
+  ptr[p] = o >= 0 ? ptrs[(size_t)o * N + p] : 0;
 }
 
 template <typename A>

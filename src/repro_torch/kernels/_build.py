@@ -33,7 +33,7 @@ from repro_torch.core import format as fmt
 
 KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
            "fused_chain_attention", "gather_fleet", "resolve_vanilla",
-           "resolve_direct", "gather")
+           "resolve_direct", "gather", "merge")
 
 #: Launches per kernel since the last ``reset_launches``.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
@@ -60,6 +60,7 @@ _SIGNATURES = {
     "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _P],
+    "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

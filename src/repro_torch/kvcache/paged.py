@@ -26,10 +26,27 @@ decisions from a *narrow* resolve of just the batch's write columns and
 returns a ``FusedStepPlan`` the fused attention kernel consumes directly,
 walking the chain inside the decode step.
 
+**Tiering.** A parked sequence's exclusively-owned KV blocks can spill to
+host memory (``demote_seq``): the data leaves ``pool_k``/``pool_v`` (the
+blocks return to the free list), the owning L2 entries are stamped with
+the ``FLAG_COLD`` residency bit, and the stacked resolve reports the
+cold positions. Promotion is lazy and on-demand: every table-producing
+path (``prepare_step*``, ``batched_tables``, ``block_table``, the write
+preps, ``fork``) calls ``promote_seq`` on involved sequences first, before
+it resolves, so a resumed sequence pays its transfer on the first step it
+actually joins. Shared-prefix blocks (refcount > 1) and blocks visible to
+forked descendants never spill: exclusivity is what makes the host copy
+the unique owner. The host copies are CPU tensors of the pool's dtype
+(numpy has no bfloat16), verified bytewise on both transfers.
+
+Never run ``fleet.stream_tenants``/``compact`` on this cache's fleet: it
+is a metadata plane whose pool rows are refcounted KV block ids shared
+across tenants by design, not leased rows.
+
 Port notes: the pools are updated in place (``commit_pools`` adopts the
 tensors a decode step updated), and the fleet is updated in place by
-``core.fleet``. Tiering (``demote_seq``/``promote_seq``), golden prefixes
-and live migration arrive in later slices.
+``core.fleet``. Golden prefixes and live migration arrive in later slices
+(``_Seq.golden`` is always False until then).
 """
 
 from __future__ import annotations
@@ -80,6 +97,8 @@ class _Seq:
     children: int = 0        # seqs (live or tombstoned) naming us as parent
     tenant: Optional[int] = None  # fleet row while unfreed; None once freed
     path: tuple = ()         # fork ancestry, root first, self last
+    cold: set = dataclasses.field(default_factory=set)  # host-spilled blks
+    golden: bool = False     # frozen shared-prefix base (golden slice)
 
 
 #: Initial fleet geometry; both axes grow by doubling on demand.
@@ -126,6 +145,11 @@ class PagedKVCache:
         # of that node's table: the fan-out set of a COW-prepare stamp
         self._occupants: dict[int, list[tuple[int, int]]] = {}
         self._grid = None      # cached (T, P) page-id grid for the resolve
+        # host tier: sid -> {block index -> (k, v) CPU tensors (L, bs, H, D)}
+        # for sequences whose exclusive blocks were demoted (demote_seq)
+        self._cold_kv: dict[int, dict[int, tuple]] = {}
+        self.demoted_blocks = 0   # lifetime spills (tier metrics)
+        self.promoted_blocks = 0  # lifetime un-spills
 
     # -- fleet geometry -------------------------------------------------------
 
@@ -240,6 +264,10 @@ class PagedKVCache:
 
     def fork(self, sid: int) -> int:
         parent = self._live_seq(sid)
+        # a parked parent promotes first: the fork shares its table by
+        # block id, and a spilled block's id is stale by definition
+        if parent.cold:
+            self.promote_seq(sid)
         child = self._next_sid
         self._next_sid += 1
         mb = self.cfg.max_blocks_per_seq
@@ -302,8 +330,11 @@ class PagedKVCache:
         self.fleet = fleet_lib.free_tenant(self.fleet, t)
         self._free_tenants.append(t)
         # a freed node never writes again, and nothing may keep stamping
-        # into its (soon reused) tenant row
+        # into its (soon reused) tenant row; its host-tier spill (exclusive
+        # by construction) has no other reader and is dropped with it
         self._occupants.pop(sid, None)
+        self._cold_kv.pop(sid, None)
+        seq.cold.clear()
         for anc_sid in seq.path[:-1]:
             occ = self._occupants.get(anc_sid)
             if occ is not None:
@@ -361,8 +392,12 @@ class PagedKVCache:
     # -- fleet-backed table materialization -----------------------------------
 
     def block_table(self, sid: int) -> torch.Tensor:
-        """Direct block table for the attention kernel (fleet-resolved)."""
+        """Direct block table for the attention kernel (fleet-resolved).
+        Promotes the sequence first if any of its blocks are host-spilled
+        (a stale cold block id must never reach the kernel)."""
         seq = self._live_seq(sid)
+        if seq.cold:
+            self.promote_seq(sid)
         table_r, _, lookups_r, _ = self._resolve_tenant(seq.tenant)
         self.lookup_count += self._count_lookups(seq, table_r, lookups_r)
         return torch.as_tensor(table_r, device=self.device)
@@ -409,6 +444,7 @@ class PagedKVCache:
         self._check_pad(len(sids), pad_to, pad_block)
         for sid in sids:
             self._live_seq(sid)          # freed sequences must raise
+        self._promote_cold(sids)
         tables, _, lookups = self._resolve_all()[:3]
         for sid in sids:
             seq = self._seqs[sid]
@@ -573,6 +609,8 @@ class PagedKVCache:
         (COW-copying an ancestor-owned block or allocating a fresh one);
         returns the pool block. Commit with ``advance``."""
         seq = self._live_seq(sid)
+        if seq.cold:
+            self.promote_seq(sid)
         table_r, owner_r, lookups_r, _ = self._resolve_tenant(seq.tenant)
         self.lookup_count += self._count_lookups(seq, table_r, lookups_r)
         writes = self._prepare_against([sid], table_r[None], owner_r[None],
@@ -587,6 +625,8 @@ class PagedKVCache:
         instead of O(T·C·P). Bit-identical to ``prepare_step([sid], ...)``."""
         self._check_pad(1, pad_to, pad_block)
         seq = self._live_seq(sid)
+        if seq.cold:
+            self.promote_seq(sid)
         table_r, owner_r, lookups_r, _ = self._resolve_tenant(seq.tenant)
         self.lookup_count += self._count_lookups(seq, table_r, lookups_r)
         writes = self._prepare_against([sid], table_r[None], owner_r[None],
@@ -605,6 +645,7 @@ class PagedKVCache:
         lengths)`` padded like ``batched_tables``. ``advance`` each sid
         after the decode step commits its token."""
         self._check_pad(len(sids), pad_to, pad_block)
+        self._promote_cold(sids)
         tables, owners, lookups, _ = self._resolve_all()
         for sid in sids:
             seq = self._live_seq(sid)
@@ -628,6 +669,7 @@ class PagedKVCache:
         consultations for walked forks.
         """
         self._check_pad(len(sids), pad_to, pad_block)
+        self._promote_cold(sids)
         bs = self.cfg.block_size
         cols = sorted({self._live_seq(sid).length // bs for sid in sids})
         # pad the column batch to the step's batch bucket, so the narrow
@@ -718,6 +760,8 @@ class PagedKVCache:
         start, end = seq.length, seq.length + nt
         if (end - 1) // bs >= self.cfg.max_blocks_per_seq:
             raise RuntimeError(f"sequence {sid} is at max_blocks_per_seq")
+        if seq.cold:
+            self.promote_seq(sid)
         table_r, owner_r, lookups_r, _ = self._resolve_tenant(seq.tenant)
         self.lookup_count += self._count_lookups(seq, table_r, lookups_r)
         tables, owners = table_r[None], owner_r[None]
@@ -740,19 +784,165 @@ class PagedKVCache:
         self.pool_v[:, slots[0], slots[1]] = v.to(self.cfg.dtype)
         seq.length = end
 
+    # -- tiering: host spill of parked sequences' exclusive blocks -------------
+
+    def _promote_cold(self, sids) -> None:
+        """Lazy promotion hook: un-spill every involved sequence *before*
+        the table-producing fleet resolve (promotion mutates the fleet,
+        so it must not run against an already-synced result)."""
+        for sid in sids:
+            if self._seqs[sid].cold:
+                self.promote_seq(sid)
+
+    def _demotable_blocks(self, seq: _Seq) -> list[int]:
+        """Logical block indexes of ``seq`` that may spill to host.
+
+        A block is demotable only when this sequence is provably its sole
+        reader: the entry sits in the sequence's own layer (``owner`` is
+        self), the pool block is refcounted exactly once *by this
+        sequence*, no other tenant stack holds a copy of any of this
+        node's layers (vanilla post-fork writes are stamped into
+        descendants' stacks without a refcount, so the refcount alone
+        cannot prove exclusivity), and it is not the active tail block
+        still receiving tokens — the COW-layer analogue of the fleet
+        rule that only immutable snapshot layers demote.
+        """
+        if any(t != seq.tenant for t, _ in self._occupants[seq.sid]):
+            return []
+        active = seq.length // self.cfg.block_size
+        out = []
+        for blk in range(self.cfg.max_blocks_per_seq):
+            b = int(seq.table[blk])
+            if (b >= 0 and blk != active and blk not in seq.cold
+                    and seq.owner[blk] in (-1, seq.sid)
+                    and b in seq.refs and int(self._ref[b]) == 1):
+                out.append(blk)
+        return out
+
+    def _stamp_cold(self, seq: _Seq, blks: list[int]) -> None:
+        """Mark ``seq``'s entries for ``blks`` host-resident: rewrite each
+        with ``FLAG_COLD`` set, keeping the (now stale) block id in the
+        ptr field as a breadcrumb. ``_demotable_blocks`` guarantees every
+        copy of the layer lives in the sequence's own tenant stack."""
+        w1 = (fmt.FLAG_BFI_VALID | (seq.sid & fmt.BFI_MASK)) if self.scalable else 0
+        sites = [(t, layer, blk) for t, layer in self._occupants[seq.sid]
+                 for blk in blks]
+        ent = np.asarray(
+            [(fmt.FLAG_ALLOCATED | fmt.FLAG_COLD | int(seq.table[blk]), w1)
+             for _, _, blk in sites], np.uint32)
+        ts, ls, ps = (np.asarray(col, np.int64) for col in zip(*sites))
+        self.fleet = fleet_lib.stamp_entries(self.fleet, ts, ls, ps, ent)
+
+    def _pool_rows(self, sel: torch.Tensor):
+        """Host copies of the pool blocks ``sel`` (K and V)."""
+        return self.pool_k[:, sel].cpu(), self.pool_v[:, sel].cpu()
+
+    def demote_seq(self, sid: int, *, max_blocks: int | None = None,
+                   verify: bool = True) -> int:
+        """Spill a parked sequence's exclusively-owned blocks to host.
+
+        Moves the K/V data of every demotable block (``_demotable_blocks``)
+        out of ``pool_k``/``pool_v`` in one batched device→host transfer,
+        returns the pool blocks to the free list, and stamps the owning
+        fleet entries with ``FLAG_COLD`` so the stacked resolve reports
+        the positions host-resident. ``verify`` re-reads the device copy
+        before the blocks are released and requires it bit-identical to
+        the staged host bytes. The sequence stays live throughout: any
+        later table-producing call promotes it transparently. Returns
+        the number of blocks spilled.
+        """
+        seq = self._live_seq(sid)
+        if seq.golden:
+            # a golden base's blocks back live forks bit-for-bit
+            return 0
+        blks = self._demotable_blocks(seq)
+        if max_blocks is not None:
+            blks = blks[:max_blocks]
+        if not blks:
+            return 0
+        bids = [int(seq.table[blk]) for blk in blks]
+        sel = torch.as_tensor(bids, dtype=torch.int64, device=self.device)
+        ks, vs = self._pool_rows(sel)
+        if verify:
+            k2, v2 = self._pool_rows(sel)
+            if not (fleet_lib._same_bytes(ks, k2) and fleet_lib._same_bytes(vs, v2)):
+                raise RuntimeError(f"demote_seq({sid}): device read not stable")
+        host = self._cold_kv.setdefault(sid, {})
+        for i, blk in enumerate(blks):
+            host[blk] = (ks[:, i], vs[:, i])
+            seq.cold.add(blk)
+        self._stamp_cold(seq, blks)
+        for b in bids:
+            seq.refs.discard(b)
+            self._ref[b] = 0
+            self._free.append(b)
+        self.demoted_blocks += len(blks)
+        return len(blks)
+
+    def promote_seq(self, sid: int) -> int:
+        """Un-spill every host-resident block of a sequence.
+
+        Allocates fresh pool blocks, restores the K/V data in one batched
+        host→device scatter, bit-verifies the landed bytes against the
+        host copy, and stamps the entries hot again through the normal
+        write protocol (which clears ``FLAG_COLD``). This is what a
+        resumed sequence pays, lazily, on the first decode step it
+        actually joins. Returns the number of blocks promoted.
+        """
+        seq = self._live_seq(sid)
+        if not seq.cold:
+            return 0
+        blks = sorted(seq.cold)
+        host = self._cold_kv[sid]
+        nbs = [self._alloc(seq) for _ in blks]
+        sel = torch.as_tensor(nbs, dtype=torch.int64, device=self.device)
+        ks = torch.stack([host[blk][0] for blk in blks], dim=1)
+        vs = torch.stack([host[blk][1] for blk in blks], dim=1)
+        self.pool_k[:, sel] = ks.to(self.device)
+        self.pool_v[:, sel] = vs.to(self.device)
+        # bit-verify readback on the (rare) promote-on-resume edge — the
+        # residency contract, not a per-step cost
+        back_k, back_v = self._pool_rows(sel)  # fleetlint: disable=FL002
+        if not (fleet_lib._same_bytes(ks, back_k) and fleet_lib._same_bytes(vs, back_v)):
+            raise RuntimeError(
+                f"promote_seq({sid}): host→device transfer corrupted data")
+        writes = []
+        for blk, nb in zip(blks, nbs):
+            seq.table[blk] = nb
+            host.pop(blk)
+            writes.append((seq.sid, blk, nb))
+        seq.cold.clear()
+        if not host:
+            self._cold_kv.pop(sid, None)
+        self._stamp_fleet(writes)
+        self.promoted_blocks += len(blks)
+        return len(blks)
+
+    def host_blocks_in_use(self) -> int:
+        """Blocks currently resident in the host tier (spilled K/V)."""
+        return sum(len(d) for d in self._cold_kv.values())
+
     # -- reads (reference path; kernels/paged_attention is the fast path) ------
 
     def gather(self, sid: int):
-        """Materialize (L, T, H, D) K/V for a sequence (test oracle)."""
+        """Materialize (L, T, H, D) K/V for a sequence (test oracle).
+        Spilled blocks read straight from the host tier: the oracle must
+        not perturb residency by promoting."""
         seq = self._live_seq(sid)
         table, _, _ = self._resolve_oracle(sid)
         bs = self.cfg.block_size
         n_blk = -(-seq.length // bs) if seq.length else 0
+        L, H, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
         blocks = torch.as_tensor(np.asarray(table[:n_blk], np.int64),
                                  device=self.device)
-        L, H, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
-        k = self.pool_k[:, blocks].reshape(L, n_blk * bs, H, D)[:, :seq.length]
-        v = self.pool_v[:, blocks].reshape(L, n_blk * bs, H, D)[:, :seq.length]
+        k = self.pool_k[:, blocks]                     # (L, n_blk, bs, H, D)
+        v = self.pool_v[:, blocks]
+        for b, (hk, hv) in self._cold_kv.get(sid, {}).items():
+            if b < n_blk:
+                k[:, b] = hk.to(self.device)
+                v[:, b] = hv.to(self.device)
+        k = k.reshape(L, n_blk * bs, H, D)[:, :seq.length]
+        v = v.reshape(L, n_blk * bs, H, D)[:, :seq.length]
         return k, v
 
     def seq_length(self, sid: int) -> int:

@@ -23,8 +23,20 @@ decode paths exist (``decode_path``, default ``"auto"``):
 
 ``"auto"`` keeps the JAX package's selection rule (fused iff
 ``max_blocks_per_seq`` is a multiple of 128) so both packages pick the
-same path. Park/resume, golden prefixes, migration and the maintenance
-scheduler arrive in later slices.
+same path.
+
+The engine can also drive a fleet maintenance plane: pass a
+``core.scheduler.MaintenanceScheduler`` and every ``step()`` (an idle one
+too) ends with one budgeted maintenance tick — background streaming and
+GC running *beside* the serving path instead of stopping the world
+(paper §6.4).
+
+Tiering: ``park_request`` pulls a sequence out of the decode batch and
+spills its exclusively-owned KV blocks to host memory
+(``PagedKVCache.demote_seq``); ``resume_request`` just re-activates it —
+promotion is *lazy*, paid by the first ``step()`` whose batch includes the
+sequence (the cache promotes before it resolves). Golden prefixes and
+migration arrive in later slices.
 """
 
 from __future__ import annotations
@@ -47,8 +59,9 @@ from repro_torch.serve.paged_decode import (
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *, scalable: bool = True,
                  n_blocks: int = 512, block_size: int = 16,
-                 max_blocks_per_seq: int = 64, resolver: str = "auto",
-                 decode_path: str = "auto", device="cuda"):
+                 max_blocks_per_seq: int = 64, scheduler=None,
+                 resolver: str = "auto", decode_path: str = "auto",
+                 device="cuda"):
         if cfg.family not in ("dense", "moe"):
             raise ValueError("paged serving engine supports attention LMs")
         if decode_path not in ("auto", "fused", "tables"):
@@ -80,9 +93,14 @@ class Engine:
             device=self.device,
         )
         self.active: dict[int, list[int]] = {}  # sid -> generated tokens
+        self.parked: dict[int, list[int]] = {}  # sid -> tokens, off-batch
         # Scratch block absorbing the in-step pool writes of padded batch
         # rows, so a padded decode can never touch a live sequence's blocks.
         self._pad_block = self.kv.reserve_block()
+        # Optional MaintenanceScheduler (core.scheduler) ticked between
+        # decode steps — the background half of the serving loop.
+        self.scheduler = scheduler
+        self.last_maintenance: dict | None = None
 
     def _prefill_seq(self, prompt_tokens) -> tuple[int, int]:
         """Full-prompt prefill into a fresh sequence: one model prefill,
@@ -102,15 +120,37 @@ class Engine:
         return sid
 
     def fork_request(self, sid: int) -> int:
-        child = self.kv.fork(sid)
-        self.active[child] = list(self.active.get(sid) or [])
+        child = self.kv.fork(sid)   # promotes a parked parent first
+        tokens = self.active.get(sid) or self.parked.get(sid) or []
+        self.active[child] = list(tokens)
         return child
 
     def finish_request(self, sid: int) -> None:
         """Retire a finished sequence and release its blocks to the pool
-        (tombstoned while live forks pin it)."""
-        del self.active[sid]
+        (tombstoned while live forks pin it). Parked sequences may finish
+        too: their host-tier spill is dropped with them, never promoted."""
+        if sid in self.active:
+            del self.active[sid]
+        else:
+            del self.parked[sid]
         self.kv.free_seq(sid)
+
+    def park_request(self, sid: int) -> int:
+        """Suspend a sequence: drop it from the decode batch and spill its
+        exclusively-owned KV blocks to the host tier, freeing device pool
+        blocks for other admissions. Shared blocks (live forks, common
+        prefixes) stay hot and stay shared. Returns the number of blocks
+        spilled (0 is fine: parking is always legal, spilling is
+        best-effort)."""
+        self.parked[sid] = self.active.pop(sid)
+        return self.kv.demote_seq(sid)
+
+    def resume_request(self, sid: int) -> None:
+        """Re-activate a parked sequence. Promotion is deliberately NOT
+        done here: the first ``step()`` including the sequence promotes
+        it before its resolve, so a resume costs nothing until the
+        sequence actually decodes."""
+        self.active[sid] = self.parked.pop(sid)
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -168,18 +208,34 @@ class Engine:
 
     def step(self) -> dict[int, int]:
         """Decode one token for every active sequence — one fleet-batched
-        dispatch over the batch padded to a size bucket."""
+        dispatch over the batch padded to a size bucket — then run one
+        maintenance tick when a scheduler is attached."""
         sids = sorted(self.active)
         if not sids:
+            # an idle engine is the cheapest time for background work —
+            # keep draining the maintenance backlog while polling
+            self._maintain()
             return {}
         out = self._decode(sids, [self.active[s][-1] for s in sids])
         for sid, tok in out.items():
             self.active[sid].append(tok)
+        self._maintain()
         return out
 
+    def _maintain(self) -> None:
+        """One budgeted maintenance slice between decode steps: stream/GC
+        a few tenants instead of ever stopping the world."""
+        if self.scheduler is not None:
+            self.last_maintenance = self.scheduler.tick()
+
     def memory_stats(self) -> dict:
-        return dict(
+        stats = dict(
             blocks_in_use=self.kv.blocks_in_use(),
+            host_blocks=self.kv.host_blocks_in_use(),
             lookups=self.kv.lookup_count,
             n_seqs=len(self.active),
+            n_parked=len(self.parked),
         )
+        if self.scheduler is not None:
+            stats["maintenance"] = self.scheduler.stats()
+        return stats

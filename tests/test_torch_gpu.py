@@ -6,7 +6,8 @@ JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-K1/K2/K6/K7 (chain resolve) and K5/K8 (page gather) must be bit-exact;
+K1/K2/K6/K7 (chain resolve), K5/K8 (page gather) and K9 (streaming
+merge) must be bit-exact;
 K3/K4 (attention) within the
 tolerances of ``tests/test_kernels.py``: f32 2e-5, bf16 2e-2. The f32
 bound holds on the card because the kernels accumulate in f32 and the
@@ -26,6 +27,8 @@ from repro_torch.kernels.cow_gather import cow_gather as cg  # noqa: E402
 from repro_torch.kernels.cow_gather import ref as cg_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as pa  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.stream_merge import ref as sm_ref  # noqa: E402
+from repro_torch.kernels.stream_merge import stream_merge as sm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -219,3 +222,26 @@ def test_single_chain_resolve_kernels_bit_exact(cuda, c, n, alloc_dtype):
     torch.cuda.synchronize()
     want = cr_ref.resolve_direct_ref(alloc[c - 1], bfi, ptrs[0])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("k,n", [(1, 1000), (7, 33), (64, 4097), (512, 2_000)])
+@pytest.mark.parametrize("alloc_dtype", [torch.int32, torch.bool])
+def test_merge_kernel_bit_exact(cuda, k, n, alloc_dtype):
+    """K9: K = 1 and K = 512, N not a multiple of 32, an all-unallocated
+    and an all-allocated page column, bool and int32 allocation maps."""
+    rng = np.random.default_rng(k * n)
+    alloc = rng.random((k, n)) < 3.0 / k
+    alloc[:, 0] = False
+    alloc[:, -1] = True
+    ptrs = torch.as_tensor(
+        rng.integers(0, 2**32, (k, n), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32), device=cuda)
+    a = torch.as_tensor(alloc, device=cuda).to(alloc_dtype)
+    before = _build.LAUNCHES["merge"]
+    got = sm.merge_cuda(a, ptrs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["merge"] == before + 1
+    want = sm_ref.merge_ref(a, ptrs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[2][0]) == -1 and int(got[2][-1]) == k - 1

@@ -1,22 +1,30 @@
 """The port's single-chain store (``core/store.py``) against ``repro.core.store``.
 
-The op sequences of ``tests/test_core_chain.py``'s read tests replay on
-both packages from the same numpy inputs; after every op the chain state
-must match bit for bit, and ``read``, ``materialize`` and
-``allocated_mask`` must give the same bytes and the same ``ResolveResult``
-(``lookups`` included) for all five resolver methods. Also the host cold
-tier's ``TieredStore`` API and the numpy converters.
+The op sequences of ``tests/test_core_chain.py``'s read and maintenance
+tests replay on both packages from the same numpy inputs; after every op
+(write, snapshot, ``stream`` with and without data movement and on an
+exhausted pool, ``compact_pool``, ``convert_to_scalable``) the chain
+state — L1/L2 words, pool bytes, cursor, length, flags and format — must
+match bit for bit, and ``read``, ``materialize`` and ``allocated_mask``
+must give the same bytes and the same ``ResolveResult`` (``lookups``
+included) for all five resolver methods. Also ``plan_merge``, the host
+cold tier's ``TieredStore`` API and the numpy converters.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core import chain as jchain  # noqa: E402
+from repro.core import format as jfmt  # noqa: E402
 from repro.core import store as jstore  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import chain as tchain  # noqa: E402
 from repro_torch.core import store as tstore  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
@@ -46,6 +54,7 @@ def _state_equal(jc, tc):
         np.testing.assert_array_equal(_np(getattr(tc, f)), _np(getattr(jc, f)),
                                       err_msg=f)
     assert tstore.chain_length(tc) == jstore.chain_length(jc)
+    assert tc.scalable == jc.scalable
 
 
 def _reads_equal(jc, tc, ids):
@@ -86,6 +95,44 @@ class Pair:
         self.jc = jstore.snapshot(self.jc)
         self.tc = tstore.snapshot(self.tc)
         self.check()
+
+    def clone(self) -> "Pair":
+        """An independent copy: the port's ops work in place, so a case
+        that runs two ops on one state clones it first."""
+        out = object.__new__(Pair)
+        out.jc = self.jc
+        out.tc = dataclasses.replace(
+            self.tc, **{f: getattr(self.tc, f).clone()
+                        for f in convert.CHAIN_FIELDS})
+        return out
+
+    def stream(self, merge_upto, **kw):
+        self.jc = jstore.stream(self.jc, merge_upto, **kw)
+        self.tc = tstore.stream(self.tc, merge_upto, **kw)
+        self.check()
+
+    def compact(self):
+        self.jc = jstore.compact_pool(self.jc)
+        self.tc = tstore.compact_pool(self.tc)
+        self.check()
+
+    def convert(self):
+        self.jc = jstore.convert_to_scalable(self.jc)
+        self.tc = tstore.convert_to_scalable(self.tc)
+        self.check()
+
+    def strip_extension(self):
+        """The on-disk vanilla view: word1 all zero."""
+        self.jc = dataclasses.replace(self.jc,
+                                      l2=jfmt.strip_extension(self.jc.l2))
+        self.tc.l2[..., 1] = 0
+        self.check()
+
+    def grow(self, rng, layers, writes):
+        for _ in range(layers):
+            self.write(rng.choice(N_PAGES, writes, replace=False),
+                       rng.standard_normal((writes, PAGE)))
+            self.snapshot()
 
 
 def test_write_read_roundtrip():
@@ -231,3 +278,148 @@ def test_tiered_store_api_matches():
         demoted_rows=js.demoted_rows, promoted_rows=js.promoted_rows)
     assert back.stats() == js.stats()
     np.testing.assert_array_equal(back.alloc(5), js.clone().alloc(5))
+
+
+# -- maintenance: stream, compact_pool, convert_to_scalable ------------------
+
+
+@pytest.mark.parametrize("scalable", [True, False])
+@pytest.mark.parametrize("copy_data", [False, True])
+def test_stream_preserves_content_and_shortens_chain(scalable, copy_data):
+    rng = np.random.default_rng(1)
+    p = Pair(scalable=scalable)
+    p.grow(rng, 5, 16)
+    before = _bytes(tstore.materialize(p.tc))
+    p.stream(2, copy_data=copy_data)
+    assert tstore.chain_length(p.tc) == 4
+    np.testing.assert_array_equal(_bytes(tstore.materialize(p.tc)), before)
+
+
+def test_stream_twice_from_one_state():
+    """Both ``copy_data`` values from the same chain (the JAX case streams
+    one value twice; the port's in-place op streams a clone)."""
+    rng = np.random.default_rng(11)
+    p = Pair()
+    p.grow(rng, 5, 16)
+    for copy_data in (False, True):
+        q = p.clone()
+        q.stream(2, copy_data=copy_data)
+
+
+def test_stream_pool_exhaustion_flags_overflow_not_raise():
+    """On a full pool the copy is dropped, the merge degrades to metadata
+    only and ``overflow`` is set; GC then a retry clears it."""
+    p = Pair(max_chain=4, pool_capacity=16)
+    ids = np.arange(8)
+    p.write(ids, np.ones((8, PAGE)))
+    p.snapshot()
+    p.write(ids, 2 * np.ones((8, PAGE)))             # pool now full
+    p.snapshot()
+    before = _bytes(tstore.materialize(p.tc))
+    p.stream(1, copy_data=True)
+    assert bool(p.tc.overflow) and tstore.chain_length(p.tc) == 2
+    np.testing.assert_array_equal(_bytes(tstore.materialize(p.tc)), before)
+    p.compact()
+    p.stream(0, copy_data=True)
+    assert not bool(p.tc.overflow)
+
+
+def test_stream_copy_data_preserves_stripped_vanilla_image():
+    """bfi-invalid upper entries keep their own pointers on the copy path."""
+    p = Pair(scalable=False)
+    ids = np.arange(8)
+    p.write(ids, np.ones((8, PAGE)))
+    p.snapshot()
+    p.write(ids, 2 * np.ones((8, PAGE)))
+    p.snapshot()
+    p.write([30], np.ones((1, PAGE)))
+    p.strip_extension()
+    p.stream(0, copy_data=True)
+    out, _ = tstore.read(p.tc, torch.as_tensor(ids), method="vanilla")
+    np.testing.assert_array_equal(out.numpy(), 2.0)
+
+
+def test_convert_to_scalable_enables_direct():
+    p = Pair(scalable=False)
+    ids = torch.tensor([3, 9], dtype=torch.int32)
+    p.write([3, 9], np.ones((2, PAGE)))
+    p.snapshot()
+    p.write([9], 2 * np.ones((1, PAGE)))
+    _, res = tstore.read(p.tc, ids, method="direct")
+    assert not bool(res.found.all())
+    p.convert()
+    out, res2 = tstore.read(p.tc, ids, method="direct")
+    assert bool(res2.found.all()) and p.tc.scalable
+    np.testing.assert_array_equal(
+        _bytes(out), _bytes(tstore.read(p.tc, ids, method="vanilla")[0]))
+
+
+def test_snapshot_cap_clears_only_when_streaming_makes_room():
+    p = Pair(max_chain=3)
+    p.write([1], np.ones((1, PAGE)))
+    p.snapshot()
+    p.snapshot()
+    p.snapshot()                                     # dropped
+    assert bool(p.tc.snap_dropped)
+    q = p.clone()
+    q.stream(0)
+    assert bool(q.tc.snap_dropped)                   # still full
+    p.stream(1)
+    assert not bool(p.tc.snap_dropped)               # room made
+
+
+@pytest.mark.parametrize("scalable", [True, False])
+def test_compact_pool_preserves_reads(scalable):
+    rng = np.random.default_rng(2)
+    p = Pair(scalable=scalable)
+    p.grow(rng, 6, 24)
+    p.stream(3, copy_data=False)
+    cursor = int(p.tc.pool_cursor)
+    before = _bytes(tstore.materialize(p.tc))
+    p.compact()
+    np.testing.assert_array_equal(_bytes(tstore.materialize(p.tc)), before)
+    assert int(p.tc.pool_cursor) <= cursor
+
+
+@pytest.mark.parametrize("scalable", [True, False])
+def test_maintenance_sequence_replays(scalable):
+    """stream (both kinds) / compact / convert / write interleaved."""
+    rng = np.random.default_rng(3)
+    p = Pair(scalable=scalable, max_chain=12, pool_capacity=400)
+    p.grow(rng, 7, 20)
+    p.stream(4, copy_data=True)
+    p.compact()
+    p.grow(rng, 3, 12)
+    p.stream(1, copy_data=False)
+    p.convert()
+    p.write(rng.choice(N_PAGES, 9, replace=False), rng.standard_normal((9, PAGE)))
+    p.compact()
+
+
+@pytest.mark.parametrize("merge_upto", [0, 2, 5])
+def test_plan_merge_matches_jax(merge_upto):
+    """The merged words and ``found`` equal the JAX plan bit for bit,
+    including pages no merged layer allocates (JAX takes layer 0's words
+    there, allocated or not) and ZERO clusters."""
+    rng = np.random.default_rng(merge_upto)
+    c, n = 8, 96
+    l2 = jfmt.pack_entry(
+        jnp.asarray(rng.integers(0, 1 << 20, (c, n)), jnp.uint32),
+        jnp.asarray(rng.integers(0, c, (c, n)), jnp.uint32),
+        allocated=jnp.asarray(rng.random((c, n)) < 0.2),
+        bfi_valid=jnp.asarray(rng.random((c, n)) < 0.5),
+        zero=jnp.asarray(rng.random((c, n)) < 0.1),
+    )
+    jm, jf = jchain.plan_merge(l2, merge_upto)
+    tm, tf = tchain.plan_merge(torch.from_numpy(_np(l2).copy()), merge_upto)
+    assert not np.asarray(jf).all()                  # some pages unallocated
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tm.numpy(), _np(jm))
+
+
+def test_snapshot_cost_model_and_geometry():
+    p = Pair()
+    spec_j, spec_t = p.jc.spec, p.tc.spec
+    assert tchain.snapshot_cost_model(spec_t) == jchain.snapshot_cost_model(spec_j)
+    assert spec_t.n_slices == spec_j.n_slices
+    assert spec_t.index_bytes_per_snapshot() == spec_j.index_bytes_per_snapshot()
