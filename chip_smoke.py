@@ -29,7 +29,15 @@ Phases, each printing its own lines:
    pools, L2 words, chain lengths and decode batch) against its plain
    version (K1/K2 bit-exact, K3/K4 within bf16 2e-2; K3 and K4 bit-identical
    to each other), timed with CUDA events (L2 flushed before each call),
-   with the least time the card could take (bound) beside it.
+   with the least time the card could take (bound) beside it. K3/K4's
+   rows carry the split they ran with (pages per split, grid, working
+   blocks: at least the card's SMs) and a long-context shape: 8 rows of
+   2,048 tokens through 128 distinct blocks each of the 1,024-block pool,
+   K4 through a 64-deep chain, held against the plain versions and timed
+   against the bytes bound, with scaled_dot_product_attention over the
+   K/V gathered dense timed beside them (``dense_sdpa_ms``, a yardstick).
+   K3 is also timed at 1-16 pages a split beside the planner's pick, at
+   four shapes up to batch 512 (``split_sweep`` on its row).
 6. store — one 16 GiB virtual disk (262,144 clusters of 64 KiB, float32
    pages of 16,384) in both formats with the same content: a base layer
    at 25 % fill, then 64 random clusters per layer with a snapshot
@@ -104,6 +112,12 @@ STEPS, WARMUP, PROFILED = 16, 2, 2   # of the 16 steps, 12 are timed
 SPIN_CYCLES = 2_000_000        # about 1 ms of card clock (kernel timing)
 PROMPT_LENGTHS = (64, 192, 320, 512)
 CHAIN_DEPTH = 64
+# K3/K4 at the long context against their plain versions (bf16): outputs
+# there have a spread of ~0.036, so the abs limit is a few bf16 ulps near
+# 0.2 (a sound run differs by one, 0.00098), and the relative L2 error is
+# bounded too (a dropped page of 128 moves it by ~0.2)
+LONG_CONTEXT_TOL, LONG_CONTEXT_REL_TOL = 4e-3, 1e-2
+SWEEP_SPLITS = (1, 2, 4, 8, 16)  # pages per split K3 is timed at (phase 5)
 # phase 6: one virtual disk (benchmarks/paper_figs.py frames a page as a
 # 64 KiB Qcow2 cluster); 16 GiB so two images and two full reads share
 # one 80 GB card
@@ -306,7 +320,8 @@ def serve_phase(torch, mods, cfg, params, prompts):
 
 
 SERVE_GROUPS = {"attention (K3/K4)": ("paged_attention_kernel",
-                                      "fused_chain_attention_kernel"),
+                                      "fused_chain_attention_kernel",
+                                      "attention_combine_kernel"),
                 "chain resolve (K1/K2)": ("fleet_kernel",),
                 "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
 READ_GROUPS = {"gather (K5/K8)": ("gather_rows_kernel",),
@@ -383,13 +398,15 @@ def timed_ms(torch, fn, n, flush):
     finds a layer's pool slice cold: 36 layers of weights pass between).
     A spin of about a millisecond on the card precedes each call, so the
     host has enqueued the whole call before the first event is reached
-    and the events time the device work, not the host's launch latency."""
+    and the events time the device work, not the host's launch latency.
+    ``flush`` is a buffer of 64 MiB, zeroed (which leaves the L2 full of
+    dirty lines the call must write back), or a function that flushes."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(n):
-        flush.zero_()
+        flush() if callable(flush) else flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -526,11 +543,194 @@ def kernel_phase(torch, mods, state):
         rows.append(row)
     require(torch.equal(outs["paged_attention"][0], outs["fused_chain_attention"][0]),
             "paged_attention and fused_chain_attention differ on the same rows")
+    split = {"paged_attention": split_report(pa, q, hkv, s["tables"].shape[1], bs,
+                                             len_h),
+             "fused_chain_attention": split_report(pa, q, hkv, p, bs, len_h)}
+    for row in rows:
+        if row["name"] in split:
+            row.update(split[row["name"]])
+            row["device_ms_by_pass"] = attention_passes(torch, runs[row["name"]][0],
+                                                        flush)
+            require(row["working_blocks"] >= pa.sm_count(dev),
+                    f"{row['name']}: {row['working_blocks']} working blocks "
+                    "do not cover the SMs")
     emit({"phase": "kernels", "shapes": {
         "fleet_T_C_P": [t, c, p], "pool_nb_bs_hkv_d": [nb, bs, hkv, d],
         "batch": b, "kv_lengths": len_h.tolist()},
-        "k3_equals_k4_bitwise": True})
+        "k3_equals_k4_bitwise": True, "split": split})
+    long = long_context(torch, mods, flush)
+    for row in rows:
+        if row["name"] in long:
+            row["long_context"] = long[row["name"]]
+        if row["name"] == "paged_attention":
+            row["split_sweep"] = split_sweep(torch, mods, flush)
     return rows
+
+
+ATTENTION_PASSES = {"split pass": ("paged_attention_kernel",
+                                   "fused_chain_attention_kernel"),
+                    "combine": ("attention_combine_kernel",)}
+
+
+def attention_passes(torch, kern, flush, tries=3):
+    """Device ms per K3/K4 call by pass (the split pass, the combine), from
+    torch.profiler over 20 calls, each after an L2 flush as in timed_ms.
+    A trace that holds neither pass (the profiler now and then returns no
+    device events) is taken again, up to ``tries`` times; after that the
+    passes are None, not zero."""
+    for _ in range(tries):
+        prof = profile_calls(torch, lambda: (flush.zero_(), kern()), 20, 1.0,
+                             ATTENTION_PASSES)
+        by_pass = {k: prof["device_ms_by_group"][k] for k in ATTENTION_PASSES}
+        if all(by_pass.values()):
+            return by_pass
+    return {k: None for k in ATTENTION_PASSES}
+
+
+def split_report(pa, q, hkv, n_pages, bs, lengths):
+    """The split K3/K4 chose for this call, and the blocks that did work."""
+    b, h, _ = q.shape
+    plan = pa.plan(b, h, hkv, n_pages, bs, q.dtype, pa.sm_count(q.device))
+    return dict(pages_per_split=plan.pages_per_split, grid=list(plan.grid),
+                working_blocks=plan.working_blocks(lengths, bs, n_pages))
+
+
+def long_context(torch, mods, flush):
+    """K3/K4 at a long context: 8 rows of 2,048 tokens, each through 128
+    distinct blocks of the engine's 1,024-block pool at one layer (bf16,
+    bs 16, 2 KV heads of 128), and for K4 a 64-deep chain (65 layers of
+    word0; each page's owner drawn from the 65 layers, older copies below
+    it). Each is held against its plain version and timed against its
+    bytes bound; scaled_dot_product_attention over the same K/V gathered
+    dense is timed beside them as a yardstick (``dense_sdpa_ms``: it
+    computes no paged function and the port never calls it)."""
+    pa, pa_ref, fmt, cfg = mods["pa"], mods["pa_ref"], mods["fmt"], mods["cfg"]
+    b, n_pages, bs, nb, depth, chain = 8, 128, 16, 1024, CHAIN_DEPTH + 1, 128
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=DEV).manual_seed(2)
+    pool_k, pool_v = (torch.randn((nb, bs, hkv, d), generator=g, device=DEV)
+                      .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((b, h, d), generator=g, device=DEV).to(torch.bfloat16)
+    rng = np.random.default_rng(2)
+    tables_h = rng.permutation(nb).reshape(b, n_pages).astype(np.int32)
+    owner = rng.integers(0, depth, (b, n_pages))
+    words = np.zeros((b, chain, n_pages), np.uint32)
+    layer = np.arange(chain)[None, :, None]
+    older = (layer < owner[:, None, :]) & (rng.random(words.shape) < 0.3)
+    words[older] = fmt.FLAG_ALLOCATED | rng.integers(0, nb, int(older.sum()))
+    bi, ji = np.indices((b, n_pages))
+    words[bi, owner, ji] = fmt.FLAG_ALLOCATED | tables_h.astype(np.uint32)
+    w0 = torch.as_tensor(words.view(np.int32), device=DEV)
+    tables = torch.as_tensor(tables_h, device=DEV)
+    lengths = torch.full((b,), n_pages * bs, dtype=torch.int32, device=DEV)
+    chain_lengths = torch.full((b,), depth, dtype=torch.int32, device=DEV)
+    tenants = torch.arange(b, dtype=torch.int32, device=DEV)
+    require(torch.equal(pa_ref.fused_tables_ref(w0, chain_lengths, tenants), tables),
+            "long-context chain does not resolve to its tables")
+
+    elt = pool_k.element_size()
+    kv_bytes = b * n_pages * bs * hkv * d * elt * 2
+    qo_bytes = 2 * b * h * d * elt
+    ops = 4 * h * d * b * n_pages * bs
+    walk = walk_words(words.view(np.int32), np.full(b, depth),
+                      {t: np.arange(n_pages) for t in range(b)},
+                      fmt.FLAG_ALLOCATED_I32)
+    runs = {
+        "paged_attention": (
+            lambda: pa.paged_attention_cuda(q, pool_k, pool_v, tables, lengths),
+            lambda: pa_ref.paged_attention_ref(q, pool_k, pool_v, tables, lengths),
+            kv_bytes + qo_bytes + 4 * (b * n_pages + b)),
+        "fused_chain_attention": (
+            lambda: pa.fused_chain_attention_cuda(q, pool_k, pool_v, w0,
+                                                  chain_lengths, tenants, lengths),
+            lambda: pa_ref.fused_chain_attention_ref(q, pool_k, pool_v, w0,
+                                                     chain_lengths, tenants,
+                                                     lengths),
+            kv_bytes + qo_bytes + 4 * (walk + 3 * b)),
+    }
+    kd, vd = (x[tables.long()].reshape(b, n_pages * bs, hkv, d).transpose(1, 2)
+              .contiguous() for x in (pool_k, pool_v))
+    qd = q[:, :, None, :]
+    def dense():
+        return torch.nn.functional.scaled_dot_product_attention(qd, kd, vd,
+                                                                enable_gqa=True)
+
+    def clean():
+        """A flush that reads: the L2 is left clean, so the call's time
+        holds none of the write-backs the zeroing flush adds."""
+        flush.sum(dtype=torch.int32)
+
+    dense_ms = timed_ms(torch, dense, 50, flush)
+    out, outs = {}, {}
+    for name, (kern, plain, nbytes) in runs.items():
+        row, outs[name] = measure(torch, name, kern, plain, nbytes, ops,
+                                  LONG_CONTEXT_TOL, flush)
+        want = plain().float()
+        rel = float((outs[name][0].float() - want).norm() / want.norm())
+        require(rel <= LONG_CONTEXT_REL_TOL,
+                f"long context: {name} relative error {rel}")
+        out[name] = dict(
+            batch=b, tokens_per_row=n_pages * bs, ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], bytes=nbytes, max_abs_err=row["max_abs_err"],
+            rel_err=rel, tol=LONG_CONTEXT_TOL, rel_tol=LONG_CONTEXT_REL_TOL,
+            dense_sdpa_ms=dense_ms,
+            ms_clean_l2=timed_ms(torch, kern, 50, clean),
+            dense_sdpa_ms_clean_l2=timed_ms(torch, dense, 50, clean),
+            device_ms_by_pass=attention_passes(torch, kern, flush),
+            **split_report(pa, q, hkv, n_pages, bs, [n_pages * bs] * b))
+    require(torch.equal(outs["paged_attention"][0], outs["fused_chain_attention"][0]),
+            "long context: paged_attention and fused_chain_attention differ")
+    emit({"phase": "kernels", "shape": "long_context", "k3_equals_k4_bitwise": True,
+          **{k: v for k, v in out.items()}})
+    return out
+
+
+def split_sweep(torch, mods, flush):
+    """K3 at every pages-per-split in ``SWEEP_SPLITS``, beside the one the
+    planner picks from shapes, at four shapes (bf16, head dim 128, pages of
+    16 tokens, M = 128, every row through pool blocks of its own):
+    Qwen2.5-3B's 16 query heads over 2 KV heads at the engine's decode
+    batch, at the long context and at batch 512 (rows of 1-2,048 tokens),
+    and 32 query heads over 4 KV heads at batch 64. Each call is held
+    against the plain version and timed as in ``measure``."""
+    pa, pa_ref = mods["pa"], mods["pa_ref"]
+    g = torch.Generator(device=DEV).manual_seed(3)
+    rng = np.random.default_rng(3)
+    d, bs, m = 128, 16, 128
+    shapes = {
+        "engine": (8, 16, 2, [80, 208, 336, 528, 80, 208, 336, 1]),
+        "long_context": (8, 16, 2, [2048] * 8),
+        "batch512": (512, 16, 2, rng.integers(1, 2049, 512).tolist()),
+        "batch64_4kv": (64, 32, 4, rng.integers(1, 2049, 64).tolist()),
+    }
+    out = {}
+    for shape, (b, h, hkv, lens) in shapes.items():
+        nb = b * m
+        pool_k, pool_v = (torch.randn((nb, bs, hkv, d), generator=g, device=DEV)
+                          .to(torch.bfloat16) for _ in range(2))
+        q = torch.randn((b, h, d), generator=g, device=DEV).to(torch.bfloat16)
+        tables = (torch.randperm(nb, generator=g, device=DEV).reshape(b, m)
+                  .to(torch.int32))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        want = pa_ref.paged_attention_ref(q, pool_k, pool_v, tables, lengths).float()
+        res = dict(batch=b, heads=h, kv_heads=hkv, pages=int(
+            sum(-(-n // bs) for n in lens)), planner_picks=pa.plan(
+                b, h, hkv, m, bs, q.dtype, pa.sm_count(q.device)).pages_per_split,
+            max_abs_err=0.0, ms={})
+        for pps in SWEEP_SPLITS:
+            def call():
+                return pa.paged_attention_cuda(q, pool_k, pool_v, tables, lengths,
+                                               pages_per_split=pps)
+            err = float((call().float() - want).abs().max())
+            require(err <= 2e-2, f"split sweep {shape}, {pps} pages a split: "
+                    f"error {err}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["ms"][pps] = timed_ms(torch, call, 30, flush)
+        out[shape] = res
+        del pool_k, pool_v, want
+    emit({"phase": "kernels", "split_sweep": out})
+    return out
 
 
 # -- phase 6: one virtual disk, dd and YCSB-C --------------------------------

@@ -5,37 +5,64 @@
 //   paged_attention        <- paged_attention_pallas       (_paged_attn_kernel)
 //   fused_chain_attention  <- fused_chain_attention_pallas (_fused_chain_attn_kernel)
 //
-// What bounds them on the card: device-memory bytes. A decode step reads
-// each KV position once per KV head and does about 4 * G flops per element
-// read (G = query heads per KV head), far below the card's ratio of
-// operations to bytes.
+// What bounds them on the card: device-memory bytes. Per position and KV
+// head a decode step reads 4*D bytes of bf16 K and V and does 4*G*D flops
+// (G query heads per KV head): 8 flops a byte at G = 8, against the card's
+// ridge of ~295. What costs time short of that bound is too few bytes in
+// flight: a batch of 8 rows and 2 KV heads is 16 (row, head) pairs for
+// 132 SMs.
 //
-// What the design does about it: one block per (batch row, KV head), so
-// the G query heads of a GQA group share every K/V block load (for
-// Qwen2.5-3B, G = 8: one read serves eight heads). The TPU grid's
-// sequential kv-block axis becomes a loop inside the block: the online
-// softmax state (m, l, acc) stays in fp32 shared memory for the whole
-// sweep and never touches device memory, and the loop stops at
-// ceil(length / block_size) instead of visiting every table column.
-// K/V rows are loaded 128 threads wide, contiguous along the head
-// dimension, so the loads coalesce.
+// What the design does about it:
+// - Split the KV range over the SMs (flash-decoding). A block is one warp
+//   and owns (split, KV head x head tile, batch row): `pps` pages of one
+//   row and one KV head. It leaves its partial (m, l, acc) in f32 scratch;
+//   attention_combine_kernel then folds a row's splits in a fixed order
+//   (256 threads a (row, head), the splits' loads spread over them).
+//   Splits past a row's last page return at once, and the combine reads
+//   only the ceil(pages / pps) splits that worked. The split comes from
+//   the wrapper's planner, from shapes only (kernels/paged_attention/
+//   paged_attention.py).
+// - Pages reach shared memory by cp.async, 16 bytes a copy, into a ring of
+//   up to three 16-token stages, so a block's next tile is in flight while
+//   its current one is computed. At one 16-token page a split (the
+//   planner's choice up to as many (row, KV head) pairs as SMs) the ring
+//   has one stage, and the overlap comes from the 16 one-warp blocks an SM
+//   holds; two pages a split, or pages of 32 tokens, give it two or three.
+//   Positions past the split and holes are zero-filled, never read.
+// - bf16 runs on the tensor cores: mma.sync.m16n8k16 (bf16 in, f32
+//   accumulate). S = Q K^T with the head tile (up to 16 query heads, the
+//   rest zero) as the m16 rows and tokens as n8 tiles; the score fragments
+//   become P's A fragments in registers (P rounded to bf16, l summed in
+//   f32), and O += P V reads V with ldmatrix.trans. K and V stay bf16 in
+//   shared memory. The online softmax runs on all 32 lanes: each lane holds
+//   two rows and reduces across its quad with shuffles.
+// - f32 keeps CUDA-core FFMA in the same split structure (TF32 would break
+//   the f32 tolerance): a lane owns one token of the tile for the scores
+//   and D/32 output columns for PV, head tiles of 8.
+// - K4 resolves only its own split's pages, each with the warp-cooperative
+//   first-hit walk (warp_first_hit_row, chain_walk.cuh): 32 layers a load.
 //
-// The attention body is written once (attend) and both kernels call it;
-// they differ only in where the block's pool rows come from. The tables
-// kernel copies tables[b, j] clamped at 0 (as paged_attention.py:97); the
-// fused kernel walks the tenant's (C, P) word0 stack first (the K1 walk of
-// chain_resolve.cu, over the pages in parallel) and parks the resolved
-// rows, -1 for holes, in shared memory. On the same rows the two kernels
-// therefore give bit-identical outputs.
+// The attention body is written once per dtype and both kernels call it;
+// they differ only in where the split's pool rows come from. The tables
+// kernel reads tables[b, j] clamped at 0 (paged_attention.py:57-58, :97)
+// and masks by length alone; the fused kernel walks the tenant's (C, P)
+// word0 stack from min(chain_lengths[t], C) - 1 down and marks holes -1.
+// Both use the same split of every row and the same combine, so on the
+// same rows they give bit-identical outputs.
 //
-// Numerics follow the Pallas kernels: fp32 scores, -inf for masked
-// positions, the isfinite guards on m, out = acc / max(l, 1e-30) in the
-// input type, so an all-masked row comes out as zeros.
+// Numerics follow the Pallas kernels: fp32 scores divided by sqrt(D),
+// -inf for masked positions and holes, the isfinite guards on m, and
+// out = acc / max(l, 1e-30) in the input type, so an all-masked row comes
+// out as zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "chain_walk.cuh"
 
 #ifndef FMT_FLAG_ALLOCATED
 #error "build through repro_torch.kernels._build: the format macros are missing"
@@ -43,178 +70,552 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 16;       // tokens a stage: the k depth of m16n8k16
+constexpr int kMaxStages = 3;
+constexpr int kHeadTileBf16 = 16;  // the m16 rows of the mma
+constexpr int kHeadTileF32 = 8;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+typedef __nv_bfloat16 bf16;
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch and XLA
 }
 
-// Shared-memory floats the attention body needs (the row list follows).
-__host__ __device__ inline int attend_floats(int G, int D, int bs) {
-  return G * D          // q
-       + bs * (D + 1)   // k, rows padded by one to spread the dot's banks
-       + bs * D         // v
-       + G * bs         // scores, then probabilities
-       + G * D          // acc
-       + 3 * G;         // m, l, alpha
+// -- PTX helpers --------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// The block's attention over `nblk` pool rows parked in `rows` (-1 =
-// hole). Block = (batch row b, KV head kvh); its G query heads are
-// kvh*G .. kvh*G+G-1.
-template <typename T>
-__device__ void attend(const T* __restrict__ q, const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v, const int* rows, int nblk,
-                       int kvlen, T* __restrict__ out, int b, int kvh, int H,
-                       int Hkv, int D, int nb, int bs, float* smem) {
-  const int G = H / Hkv;
-  const int KS = D + 1;
-  float* qs = smem;
-  float* ks = qs + G * D;
-  float* vs = ks + bs * KS;
-  float* ps = vs + bs * D;
-  float* acc = ps + G * bs;
-  float* m = acc + G * D;
-  float* l = m + G;
-  float* alpha = l + G;
-  const int tid = threadIdx.x;
+// 16 bytes global -> shared; zero-fill (nothing read) where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most `pending` groups of this thread are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
 
-  const size_t qbase = ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    qs[i] = to_f32<T>(q[qbase + i]);
-    acc[i] = 0.f;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Programmatic dependent launch: the combine may start launching once every
+// split block got here (or exited), and waits for the split pass's memory
+// before it reads the partials.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// -- the split --------------------------------------------------------------
+
+// Positions a row attends over: those < length that a table column holds.
+__host__ __device__ __forceinline__ int row_tokens(int len, int pages, int bs) {
+  const int n = len < pages * bs ? len : pages * bs;
+  return n > 0 ? n : 0;
+}
+
+// What one block attends over: tokens [s0, s1) of row b, pages pg0.., the
+// ng query heads h0.. of KV head kvh.
+struct Split {
+  int b, split, kvh, h0, ng, s0, s1, pg0, npg;
+  int H, Hkv, bs, NS, stages;
+};
+
+// Fills the block's split from its grid position; false if it has no work.
+__device__ __forceinline__ bool make_split(Split& s, int ntok, int G, int head_tile,
+                                           int pps) {
+  const int ngt = (G + head_tile - 1) / head_tile;
+  s.b = blockIdx.z;
+  s.split = blockIdx.x;
+  s.kvh = blockIdx.y / ngt;
+  const int g0 = (blockIdx.y % ngt) * head_tile;
+  s.h0 = s.kvh * G + g0;
+  s.ng = min(head_tile, G - g0);
+  s.pg0 = s.split * pps;
+  s.s0 = s.pg0 * s.bs;
+  s.s1 = min(s.s0 + pps * s.bs, ntok);
+  s.npg = (s.s1 + s.bs - 1) / s.bs - s.pg0;
+  return s.s0 < s.s1;
+}
+
+// Shared-memory bytes of the attention body (the split's row list follows).
+template <typename T, int D>
+__host__ __device__ constexpr int body_bytes(int stages) {
+  return sizeof(T) == 2
+             ? stages * 2 * kTile * (D + 8) * 2
+             : stages * kTile * (2 * D + 4) * 4 +
+                   4 * (kHeadTileF32 * D + kHeadTileF32 * kTile + kHeadTileF32);
+}
+
+// Stage tile [pos0, pos0 + kTile) of the split: K rows at stride KS, V rows
+// at stride VS (elements). Positions >= s1 and holes are zero-filled.
+template <typename T, int D, int KS, int VS>
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* __restrict__ pool_k,
+                                          const T* __restrict__ pool_v, const int* rows,
+                                          int pos0, const Split& s) {
+  constexpr int kElems = 16 / sizeof(T);
+  constexpr int kChunks = D / kElems;  // 16-byte copies a token row
+  for (int c = threadIdx.x; c < kTile * kChunks; c += 32) {
+    const int tok = c / kChunks, ch = c - tok * kChunks;
+    const int pos = pos0 + tok;
+    const int row = pos < s.s1 ? rows[pos / s.bs - s.pg0] : -1;
+    const bool ok = row >= 0;
+    const size_t off =
+        ok ? ((((size_t)row * s.bs + pos % s.bs) * s.Hkv + s.kvh) * D + ch * kElems) : 0;
+    cp_async16(ks + tok * KS + ch * kElems, pool_k + off, ok);
+    cp_async16(vs + tok * VS + ch * kElems, pool_v + off, ok);
   }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
+}
+
+__device__ __forceinline__ bool attends(const Split& s, const int* rows, int pos) {
+  return pos < s.s1 && rows[pos / s.bs - s.pg0] >= 0;
+}
+
+// -- bf16: tensor cores -------------------------------------------------------
+
+template <int D>
+__device__ void attend_split(const bf16* __restrict__ q, const bf16* __restrict__ pool_k,
+                             const bf16* __restrict__ pool_v, const int* rows,
+                             const Split& s, float* __restrict__ m_part,
+                             float* __restrict__ l_part, float* __restrict__ acc_part,
+                             unsigned char* smem) {
+  constexpr int KS = D + 8;  // padded rows: ldmatrix without bank conflicts
+  constexpr int kStage = 2 * kTile * KS;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int lane = threadIdx.x, grp = lane >> 2, qd = lane & 3;
+  const int mat = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and row of a lane
+  const int ntiles = (s.s1 - s.s0 + kTile - 1) / kTile;
+
+  for (int t = 0; t < s.stages; ++t) {
+    if (t < ntiles)
+      load_tile<bf16, D, KS, KS>(ring + t * kStage, ring + t * kStage + kTile * KS, pool_k,
+                                 pool_v, rows, s.s0 + t * kTile, s);
+    cp_async_commit();
   }
+
+  // Q as A fragments: rows grp and grp + 8 of the head tile (zero past ng)
+  const bool v0 = grp < s.ng, v1 = grp + 8 < s.ng;
+  const bf16* q0 = q + ((size_t)s.b * s.H + s.h0 + grp) * D;
+  const bf16* q1 = q0 + 8 * D;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int k = kk * 16 + 2 * qd;
+    qa[kk][0] = v0 ? *reinterpret_cast<const uint32_t*>(q0 + k) : 0u;
+    qa[kk][1] = v1 ? *reinterpret_cast<const uint32_t*>(q1 + k) : 0u;
+    qa[kk][2] = v0 ? *reinterpret_cast<const uint32_t*>(q0 + k + 8) : 0u;
+    qa[kk][3] = v1 ? *reinterpret_cast<const uint32_t*>(q1 + k + 8) : 0u;
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   const float scale = sqrtf((float)D);
-  __syncthreads();
 
-  for (int j = 0; j < nblk; ++j) {
-    const int row = rows[j];
-    const bool hole = row < 0;
-    const int rs = min(max(row, 0), nb - 1);  // JAX clamps the pool gather
-    for (int i = tid; i < bs * D; i += blockDim.x) {
-      const int s = i / D, d = i - s * D;
-      const size_t off = (((size_t)rs * bs + s) * Hkv + kvh) * D + d;
-      ks[s * KS + d] = to_f32<T>(pool_k[off]);
-      vs[i] = to_f32<T>(pool_v[off]);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait(s.stages - 1);
+    __syncwarp();
+    const bf16* kt = ring + (t % s.stages) * kStage;
+    const bf16* vt = kt + kTile * KS;
+
+    // S = Q K^T over the tile's two n8 token tiles
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + ((mat >> 1) * 8 + mr) * KS + kk * 16 + (mat & 1) * 8);
+      mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
+      mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
     }
-    __syncthreads();
-    for (int i = tid; i < G * bs; i += blockDim.x) {
-      const int g = i / bs, s = i - g * bs;
-      float sc = -INFINITY;
-      if (!hole && j * bs + s < kvlen) {
-        float dot = 0.f;
-        const float* qg = qs + g * D;
-        const float* kr = ks + s * KS;
-        for (int d = 0; d < D; ++d) dot += qg[d] * kr[d];
-        sc = dot / scale;
+
+    // online softmax: element e of token tile nt is row grp + 8 * (e >> 1),
+    // token nt * 8 + 2 * qd + (e & 1)
+    const int pos0 = s.s0 + t * kTile;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = attends(s, rows, pos0 + nt * 8 + 2 * qd + (e & 1));
+        sc[nt][e] = ok ? sc[nt][e] / scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
       }
-      ps[i] = sc;
+    float alpha[2], m_safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      m_safe[r] = isfinite(m_new) ? m_new : 0.f;
+      alpha[r] = isfinite(m_r[r]) ? expf(m_r[r] - m_safe[r]) : 0.f;
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
     }
-    __syncthreads();
-    for (int g = tid; g < G; g += blockDim.x) {
-      float* pg = ps + g * bs;
-      float mx = -INFINITY;
-      for (int s = 0; s < bs; ++s) mx = fmaxf(mx, pg[s]);
-      const float m_prev = m[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float a = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-      float sum = 0.f;
-      for (int s = 0; s < bs; ++s) {
-        const float sc = pg[s];
-        const float p = isfinite(sc) ? expf(sc - m_safe) : 0.f;
-        pg[s] = p;
-        sum += p;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[nt][e];
+        const float p = isfinite(x) ? expf(x - m_safe[e >> 1]) : 0.f;
+        l_r[e >> 1] += p;
+        sc[nt][e] = p;
       }
-      l[g] = l[g] * a + sum;
-      m[g] = m_new;
-      alpha[g] = a;
+    // the score fragments are P's A fragment (16 rows x 16 tokens)
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+
+    // O = O * alpha + P V
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
     }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += blockDim.x) {
-      const int g = i / D, d = i - g * D;
-      const float* pg = ps + g * bs;
-      float pv = 0.f;
-      for (int s = 0; s < bs; ++s) pv += pg[s] * vs[s * D + d];
-      acc[i] = acc[i] * alpha[g] + pv;
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vt + ((mat & 1) * 8 + mr) * KS + (2 * dp + (mat >> 1)) * 8);
+      mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+      mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
     }
-    __syncthreads();
+    __syncwarp();  // every lane is done with this stage before it refills
+    if (t + s.stages < ntiles)
+      load_tile<bf16, D, KS, KS>(ring + (t % s.stages) * kStage,
+                                 ring + (t % s.stages) * kStage + kTile * KS, pool_k,
+                                 pool_v, rows, s.s0 + (t + s.stages) * kTile, s);
+    cp_async_commit();
   }
+  cp_async_wait(0);
+  launch_dependents();
 
-  for (int i = tid; i < G * D; i += blockDim.x) {
+  const size_t base = ((size_t)s.b * s.NS + s.split) * s.H + s.h0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(kFull, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(kFull, l_r[r], 2);
+  }
+  if (qd == 0) {
+    if (v0) m_part[base + grp] = m_r[0], l_part[base + grp] = l_r[0];
+    if (v1) m_part[base + grp + 8] = m_r[1], l_part[base + grp + 8] = l_r[1];
+  }
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int d = i * 8 + 2 * qd;
+    if (v0)
+      *reinterpret_cast<float2*>(acc_part + (base + grp) * D + d) = make_float2(o[i][0], o[i][1]);
+    if (v1)
+      *reinterpret_cast<float2*>(acc_part + (base + grp + 8) * D + d) =
+          make_float2(o[i][2], o[i][3]);
+  }
+}
+
+// -- f32: CUDA-core FFMA --------------------------------------------------------
+
+template <int D>
+__device__ void attend_split(const float* __restrict__ q, const float* __restrict__ pool_k,
+                             const float* __restrict__ pool_v, const int* rows,
+                             const Split& s, float* __restrict__ m_part,
+                             float* __restrict__ l_part, float* __restrict__ acc_part,
+                             unsigned char* smem) {
+  constexpr int KS = D + 4;  // float4 reads of 8 token rows hit 8 distinct bank quads
+  constexpr int kStage = kTile * (KS + D);
+  constexpr int GT = kHeadTileF32;
+  constexpr int ND = (D + 31) / 32;  // output columns a lane owns
+  float* ring = reinterpret_cast<float*>(smem);
+  float* qs = ring + s.stages * kStage;  // [GT][D]
+  float* ps = qs + GT * D;               // [GT][kTile] probabilities
+  float* al = ps + GT * kTile;           // [GT] alpha
+  const int lane = threadIdx.x, tok = lane & 15, half = lane >> 4;
+  const int ntiles = (s.s1 - s.s0 + kTile - 1) / kTile;
+
+  for (int t = 0; t < s.stages; ++t) {
+    if (t < ntiles)
+      load_tile<float, D, KS, D>(ring + t * kStage, ring + t * kStage + kTile * KS, pool_k,
+                                 pool_v, rows, s.s0 + t * kTile, s);
+    cp_async_commit();
+  }
+  for (int i = lane; i < GT * D; i += 32) {
     const int g = i / D;
-    out[qbase + i] = from_f32<T>(acc[i] / fmaxf(l[g], 1e-30f));
+    qs[i] = g < s.ng ? q[((size_t)s.b * s.H + s.h0) * D + i] : 0.f;
   }
-}
 
-template <typename T>
-__global__ void paged_attention_kernel(const T* __restrict__ q,
-                                       const T* __restrict__ pool_k,
-                                       const T* __restrict__ pool_v,
-                                       const int32_t* __restrict__ tables,
-                                       const int32_t* __restrict__ lengths,
-                                       T* __restrict__ out, int H, int Hkv,
-                                       int D, int nb, int bs, int M) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
-  const int G = H / Hkv;
-  int* rows = (int*)(smem + attend_floats(G, D, bs));
-  const int len = lengths[b];
-  const int nblk = len > 0 ? min(M, (len + bs - 1) / bs) : 0;
-  // table entries are clamped to 0 for the load; masking comes from the
-  // length alone (paged_attention.py:57-58, :97)
-  for (int j = threadIdx.x; j < nblk; j += blockDim.x)
-    rows[j] = max(tables[(size_t)b * M + j], 0);
-  __syncthreads();
-  attend<T>(q, pool_k, pool_v, rows, nblk, len, out, b, kvh, H, Hkv, D, nb,
-            bs, smem);
-}
+  // a lane scores token `tok` for heads half, half + 2, half + 4, half + 6;
+  // its m and l are those heads' (equal on the 16 lanes of a half)
+  float acc[GT][ND];
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int j = 0; j < ND; ++j) acc[g][j] = 0.f;
+  float m_g[4], l_g[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_g[i] = -INFINITY, l_g[i] = 0.f;
+  const float scale = sqrtf((float)D);
 
-template <typename T>
-__global__ void fused_chain_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ pool_k,
-    const T* __restrict__ pool_v, const uint32_t* __restrict__ w0,
-    const int32_t* __restrict__ chain_lengths,
-    const int32_t* __restrict__ tenants, const int32_t* __restrict__ kv_lengths,
-    T* __restrict__ out, int H, int Hkv, int D, int nb, int bs, int Tn, int C,
-    int P) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
-  const int G = H / Hkv;
-  int* rows = (int*)(smem + attend_floats(G, D, bs));
-  const int t = min(max(tenants[b], 0), Tn - 1);
-  const int kvlen = kv_lengths[b];
-  const int nblk = kvlen > 0 ? min(P, (kvlen + bs - 1) / bs) : 0;
-  const int top = min(chain_lengths[t], C) - 1;
-  // the fused chain walk: the block's threads resolve its pages in
-  // parallel, first hit from the tenant's active layer down
-  for (int j = threadIdx.x; j < nblk; j += blockDim.x) {
-    const uint32_t* col = w0 + (size_t)t * C * P + j;
-    int r = -1;
-    for (int layer = top; layer >= 0; --layer) {
-      const uint32_t w = col[(size_t)layer * P];
-      if (w & FMT_FLAG_ALLOCATED) {
-        r = (int)(w & FMT_PTR_MASK);
-        break;
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait(s.stages - 1);
+    __syncwarp();
+    const float* kt = ring + (t % s.stages) * kStage;
+    const float* vt = kt + kTile * KS;
+
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int d = 0; d < D; d += 4) {
+      const float4 k4 = *reinterpret_cast<const float4*>(kt + tok * KS + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qs + (half + 2 * i) * D + d);
+        dot[i] = fmaf(q4.x, k4.x, dot[i]);
+        dot[i] = fmaf(q4.y, k4.y, dot[i]);
+        dot[i] = fmaf(q4.z, k4.z, dot[i]);
+        dot[i] = fmaf(q4.w, k4.w, dot[i]);
       }
     }
-    rows[j] = r;
+    const bool ok = attends(s, rows, s.s0 + t * kTile + tok);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = ok ? dot[i] / scale : -INFINITY;
+      float mx = x;
+#pragma unroll
+      for (int o = 8; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m_g[i], mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float a = isfinite(m_g[i]) ? expf(m_g[i] - m_safe) : 0.f;
+      const float p = isfinite(x) ? expf(x - m_safe) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int o = 8; o; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      l_g[i] = l_g[i] * a + sum;
+      m_g[i] = m_new;
+      ps[(half + 2 * i) * kTile + tok] = p;
+      if (tok == 0) al[half + 2 * i] = a;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float a = al[g];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) {
+          float pv = 0.f;
+#pragma unroll
+          for (int k = 0; k < kTile; ++k) pv = fmaf(ps[g * kTile + k], vt[k * D + d], pv);
+          acc[g][j] = acc[g][j] * a + pv;
+        }
+      }
+    }
+    __syncwarp();
+    if (t + s.stages < ntiles)
+      load_tile<float, D, KS, D>(ring + (t % s.stages) * kStage,
+                                 ring + (t % s.stages) * kStage + kTile * KS, pool_k, pool_v,
+                                 rows, s.s0 + (t + s.stages) * kTile, s);
+    cp_async_commit();
   }
+  cp_async_wait(0);
+  launch_dependents();
+
+  const size_t base = ((size_t)s.b * s.NS + s.split) * s.H + s.h0;
+  if (tok == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int g = half + 2 * i;
+      if (g < s.ng) m_part[base + g] = m_g[i], l_part[base + g] = l_g[i];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      if (g < s.ng && d < D) acc_part[(base + g) * D + d] = acc[g][j];
+    }
+}
+
+template <typename T>
+__host__ __device__ constexpr int head_tile() {
+  return sizeof(T) == 2 ? kHeadTileBf16 : kHeadTileF32;
+}
+
+// -- the two kernels and the combine --------------------------------------------
+
+// One-warp blocks an SM should hold: 16 caps a thread at 128 registers, so
+// a batch of 8 rows x 2 KV heads x 128 pages (2,048 blocks) is one wave;
+// D = 256 keeps its registers instead.
+template <int D>
+constexpr int kBlocksPerSm = D <= 128 ? 16 : 8;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32, kBlocksPerSm<D>)
+    paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
+                           const T* __restrict__ pool_v, const int32_t* __restrict__ tables,
+                           const int32_t* __restrict__ lengths, float* __restrict__ m_part,
+                           float* __restrict__ l_part, float* __restrict__ acc_part, int H,
+                           int Hkv, int nb, int bs, int M, int pps, int NS, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Split s{};
+  s.H = H, s.Hkv = Hkv, s.bs = bs, s.NS = NS, s.stages = stages;
+  // lane i reads the split's table column i beside the length: the load
+  // does not wait for it (pps <= 32)
+  const int j = blockIdx.x * pps + threadIdx.x;
+  const int entry = threadIdx.x < pps && j < M ? tables[(size_t)blockIdx.z * M + j] : 0;
+  if (!make_split(s, row_tokens(lengths[blockIdx.z], M, bs), H / Hkv, head_tile<T>(), pps))
+    return;  // past the row's last page
+  int* rows = reinterpret_cast<int*>(smem + body_bytes<T, D>(stages));
+  // table entries are clamped to 0 for the load (and to the pool, as the
+  // JAX gather); masking comes from the length alone
+  if (threadIdx.x < s.npg) rows[threadIdx.x] = min(max(entry, 0), nb - 1);
+  __syncwarp();
+  attend_split<D>(q, pool_k, pool_v, rows, s, m_part, l_part, acc_part, smem);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32, kBlocksPerSm<D>) fused_chain_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ pool_k, const T* __restrict__ pool_v,
+    const uint32_t* __restrict__ w0, const int32_t* __restrict__ chain_lengths,
+    const int32_t* __restrict__ tenants, const int32_t* __restrict__ kv_lengths,
+    float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ acc_part,
+    int H, int Hkv, int nb, int bs, int Tn, int C, int P, int pps, int NS, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Split s{};
+  s.H = H, s.Hkv = Hkv, s.bs = bs, s.NS = NS, s.stages = stages;
+  const int tenant = tenants[blockIdx.z];  // read beside the length
+  if (!make_split(s, row_tokens(kv_lengths[blockIdx.z], P, bs), H / Hkv, head_tile<T>(),
+                  pps))
+    return;
+  int* rows = reinterpret_cast<int*>(smem + body_bytes<T, D>(stages));
+  const int t = min(max(tenant, 0), Tn - 1);
+  const int top = min(chain_lengths[t], C) - 1;
+  const uint32_t* col = w0 + (size_t)t * C * P + s.pg0;
+  // the fused chain walk, for this split's pages only
+  for (int i = 0; i < s.npg; ++i) {
+    const int r = warp_first_hit_row(col + i, top, P);
+    if (threadIdx.x == 0) rows[i] = r < 0 ? -1 : min(r, nb - 1);
+  }
+  __syncwarp();
+  attend_split<D>(q, pool_k, pool_v, rows, s, m_part, l_part, acc_part, smem);
+}
+
+constexpr int kCombineThreads = 256;
+
+// A block-wide max or sum; every thread gets the same value, reduced in a
+// fixed order. `red` holds one float per warp.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const float x = __shfl_xor_sync(kFull, v, o);
+    v = kMax ? fmaxf(v, x) : v + x;
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  attend<T>(q, pool_k, pool_v, rows, nblk, kvlen, out, b, kvh, H, Hkv, D, nb,
-            bs, smem);
+  float r = red[0];
+  for (int w = 1; w < kCombineThreads / 32; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  __syncthreads();
+  return r;
+}
+
+// Shared-memory floats of the combine: the slices' partial sums, the
+// reduce scratch and the splits' weights.
+__host__ __device__ __forceinline__ int combine_floats(int NS) {
+  return 4 * kCombineThreads + kCombineThreads / 32 + NS;
+}
+
+// Folds a row's splits: block = (row, query head). Only the splits that
+// worked are read. The weights w_s = exp(m_s - max m) (0 where m_s is
+// -inf) go to shared memory; then thread (slice, c) sums w_s * acc_s over
+// the splits s = slice, slice + slices, ... for output columns 4c..4c+3,
+// and the slices are added in slice order. The order is fixed, so the
+// result is deterministic and the same for K3 and K4.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+    attention_combine_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
+                             const float* __restrict__ acc_part,
+                             const int32_t* __restrict__ lengths, T* __restrict__ out, int H,
+                             int D, int bs, int pages, int pps, int NS) {
+  extern __shared__ __align__(16) float csm[];
+  float* part = csm;                           // [slices][D], float4 aligned
+  float* red = part + 4 * kCombineThreads;     // [warps]
+  float* w = red + kCombineThreads / 32;       // [NS]
+  const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
+  const int span = pps * bs;
+  const int n = (row_tokens(lengths[b], pages, bs) + span - 1) / span;
+  const size_t base = (size_t)b * NS * H + h;
+  wait_for_primary();
+
+  float mx = -INFINITY;
+  for (int i = tid; i < n; i += kCombineThreads) mx = fmaxf(mx, m_part[base + (size_t)i * H]);
+  mx = block_reduce<true>(mx, red);
+  const float m_safe = isfinite(mx) ? mx : 0.f;
+  float l = 0.f;
+  for (int i = tid; i < n; i += kCombineThreads) {
+    const size_t k = base + (size_t)i * H;
+    const float m = m_part[k];
+    const float wi = isfinite(m) ? expf(m - m_safe) : 0.f;
+    w[i] = wi;
+    l += l_part[k] * wi;
+  }
+  l = block_reduce<false>(l, red);  // its barrier also publishes w
+
+  const int cols = D / 4, slices = kCombineThreads / cols;
+  const int c = tid % cols, slice = tid / cols;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int i = slice; i < n; i += slices) {
+    const float wi = w[i];
+    const float4 v =
+        *reinterpret_cast<const float4*>(acc_part + (base + (size_t)i * H) * D + 4 * c);
+    a.x = fmaf(v.x, wi, a.x);
+    a.y = fmaf(v.y, wi, a.y);
+    a.z = fmaf(v.z, wi, a.z);
+    a.w = fmaf(v.w, wi, a.w);
+  }
+  reinterpret_cast<float4*>(part + slice * D)[c] = a;
+  __syncthreads();
+  for (int d = tid; d < D; d += kCombineThreads) {
+    float acc = 0.f;
+    for (int sl = 0; sl < slices; ++sl) acc += part[sl * D + d];
+    out[((size_t)b * H + h) * D + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  }
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel first.
@@ -222,73 +623,136 @@ template <typename K>
 int allow_smem(K kernel, size_t smem) {
   (void)cudaGetLastError();
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-}  // namespace
+// What the wrapper's planner decided, and the launch shape it implies.
+struct Plan {
+  int pps, NS, stages;
+  dim3 grid;
+  size_t smem, combine_smem;
+};
 
-extern "C" int paged_attention(const void* q, const void* pool_k,
-                               const void* pool_v, const void* tables,
-                               const void* lengths, void* out, int B, int H,
-                               int Hkv, int D, int nb, int bs, int M,
-                               int dtype, void* stream) {
+template <typename T, int D>
+Plan make_plan(int B, int H, int Hkv, int bs, int pages, int pps) {
   const int G = H / Hkv;
-  const size_t smem = attend_floats(G, D, bs) * sizeof(float) + M * sizeof(int);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    int e = allow_smem(paged_attention_kernel<float>, smem);
-    if (e) return e;
-    paged_attention_kernel<float><<<B * Hkv, kThreads, smem, st>>>(
-        (const float*)q, (const float*)pool_k, (const float*)pool_v,
-        (const int32_t*)tables, (const int32_t*)lengths, (float*)out, H, Hkv,
-        D, nb, bs, M);
-  } else if (dtype == 1) {
-    int e = allow_smem(paged_attention_kernel<__nv_bfloat16>, smem);
-    if (e) return e;
-    paged_attention_kernel<__nv_bfloat16><<<B * Hkv, kThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool_k,
-        (const __nv_bfloat16*)pool_v, (const int32_t*)tables,
-        (const int32_t*)lengths, (__nv_bfloat16*)out, H, Hkv, D, nb, bs, M);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int ngt = (G + head_tile<T>() - 1) / head_tile<T>();
+  Plan p;
+  p.pps = pps;
+  p.NS = (pages + pps - 1) / pps;
+  p.stages = std::min(kMaxStages, (pps * bs + kTile - 1) / kTile);
+  p.grid = dim3(p.NS, Hkv * ngt, B);
+  p.smem = body_bytes<T, D>(p.stages) + pps * sizeof(int);
+  p.combine_smem = combine_floats(p.NS) * sizeof(float);
+  return p;
 }
 
-extern "C" int fused_chain_attention(const void* q, const void* pool_k,
-                                     const void* pool_v, const void* w0,
-                                     const void* chain_lengths,
-                                     const void* tenants,
-                                     const void* kv_lengths, void* out, int B,
-                                     int H, int Hkv, int D, int nb, int bs,
-                                     int Tn, int C, int P, int dtype,
-                                     void* stream) {
-  const int G = H / Hkv;
-  const size_t smem = attend_floats(G, D, bs) * sizeof(float) + P * sizeof(int);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    int e = allow_smem(fused_chain_attention_kernel<float>, smem);
-    if (e) return e;
-    fused_chain_attention_kernel<float><<<B * Hkv, kThreads, smem, st>>>(
-        (const float*)q, (const float*)pool_k, (const float*)pool_v,
-        (const uint32_t*)w0, (const int32_t*)chain_lengths,
-        (const int32_t*)tenants, (const int32_t*)kv_lengths, (float*)out, H,
-        Hkv, D, nb, bs, Tn, C, P);
-  } else if (dtype == 1) {
-    int e = allow_smem(fused_chain_attention_kernel<__nv_bfloat16>, smem);
-    if (e) return e;
-    fused_chain_attention_kernel<__nv_bfloat16><<<B * Hkv, kThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool_k,
-        (const __nv_bfloat16*)pool_v, (const uint32_t*)w0,
-        (const int32_t*)chain_lengths, (const int32_t*)tenants,
-        (const int32_t*)kv_lengths, (__nv_bfloat16*)out, H, Hkv, D, nb, bs, Tn,
-        C, P);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// The combine, launched as a programmatic dependent of the split pass on
+// the same stream, so its launch overlaps the split pass's last blocks.
+template <typename T>
+int launch_combine(const Plan& p, const float* m_part, const float* l_part,
+                   const float* acc_part, const int32_t* lengths, T* out, int B, int H, int D,
+                   int bs, int pages, cudaStream_t st) {
+  int e = allow_smem(attention_combine_kernel<T>, p.combine_smem);
+  if (e) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H);
+  cfg.blockDim = dim3(kCombineThreads);
+  cfg.dynamicSmemBytes = p.combine_smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, attention_combine_kernel<T>, m_part, l_part, acc_part,
+                                 lengths, out, H, D, bs, pages, p.pps, p.NS);
+}
+
+template <typename T, int D>
+int launch_tables(const void* q, const void* pool_k, const void* pool_v, const void* tables,
+                  const void* lengths, float* m_part, float* l_part, float* acc_part,
+                  void* out, int B, int H, int Hkv, int nb, int bs, int M, int pps,
+                  cudaStream_t st) {
+  const Plan p = make_plan<T, D>(B, H, Hkv, bs, M, pps);
+  int e = allow_smem(paged_attention_kernel<T, D>, p.smem);
+  if (e) return e;
+  paged_attention_kernel<T, D><<<p.grid, 32, p.smem, st>>>(
+      (const T*)q, (const T*)pool_k, (const T*)pool_v, (const int32_t*)tables,
+      (const int32_t*)lengths, m_part, l_part, acc_part, H, Hkv, nb, bs, M, pps, p.NS,
+      p.stages);
+  if ((e = (int)cudaGetLastError())) return e;
+  return launch_combine<T>(p, m_part, l_part, acc_part, (const int32_t*)lengths, (T*)out, B,
+                           H, D, bs, M, st);
+}
+
+template <typename T, int D>
+int launch_fused(const void* q, const void* pool_k, const void* pool_v, const void* w0,
+                 const void* chain_lengths, const void* tenants, const void* kv_lengths,
+                 float* m_part, float* l_part, float* acc_part, void* out, int B, int H,
+                 int Hkv, int nb, int bs, int Tn, int C, int P, int pps, cudaStream_t st) {
+  const Plan p = make_plan<T, D>(B, H, Hkv, bs, P, pps);
+  int e = allow_smem(fused_chain_attention_kernel<T, D>, p.smem);
+  if (e) return e;
+  fused_chain_attention_kernel<T, D><<<p.grid, 32, p.smem, st>>>(
+      (const T*)q, (const T*)pool_k, (const T*)pool_v, (const uint32_t*)w0,
+      (const int32_t*)chain_lengths, (const int32_t*)tenants, (const int32_t*)kv_lengths,
+      m_part, l_part, acc_part, H, Hkv, nb, bs, Tn, C, P, pps, p.NS, p.stages);
+  if ((e = (int)cudaGetLastError())) return e;
+  return launch_combine<T>(p, m_part, l_part, acc_part, (const int32_t*)kv_lengths, (T*)out,
+                           B, H, D, bs, P, st);
+}
+
+// dtype 0 = f32, 1 = bf16; D one of 16, 32, 64, 128, 256 (the wrapper checks)
+#define DISPATCH(LAUNCH, ...)                                  \
+  switch (dtype * 1000 + D) {                                  \
+    case 16: return LAUNCH<float, 16>(__VA_ARGS__);            \
+    case 32: return LAUNCH<float, 32>(__VA_ARGS__);            \
+    case 64: return LAUNCH<float, 64>(__VA_ARGS__);            \
+    case 128: return LAUNCH<float, 128>(__VA_ARGS__);          \
+    case 256: return LAUNCH<float, 256>(__VA_ARGS__);          \
+    case 1016: return LAUNCH<bf16, 16>(__VA_ARGS__);           \
+    case 1032: return LAUNCH<bf16, 32>(__VA_ARGS__);           \
+    case 1064: return LAUNCH<bf16, 64>(__VA_ARGS__);           \
+    case 1128: return LAUNCH<bf16, 128>(__VA_ARGS__);          \
+    case 1256: return LAUNCH<bf16, 256>(__VA_ARGS__);          \
+    default: return (int)cudaErrorInvalidValue;                \
   }
-  return (int)cudaGetLastError();
+
+}  // namespace
+
+// scratch: f32 acc (B, NS, H, D), then m and l (B, NS, H) each, with
+// NS = ceil(M / pps); the wrapper allocates it
+extern "C" int paged_attention(const void* q, const void* pool_k, const void* pool_v,
+                               const void* tables, const void* lengths, void* scratch,
+                               void* out, int B, int H, int Hkv, int D, int nb, int bs, int M,
+                               int pps, int dtype, void* stream) {
+  if (pps < 1 || pps > 32) return (int)cudaErrorInvalidValue;  // a lane a page
+  const size_t ns = (M + pps - 1) / pps;
+  float* acc_part = (float*)scratch;
+  float* m_part = acc_part + (size_t)B * ns * H * D;
+  float* l_part = m_part + (size_t)B * ns * H;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_tables, q, pool_k, pool_v, tables, lengths, m_part, l_part, acc_part, out, B,
+           H, Hkv, nb, bs, M, pps, st)
+}
+
+extern "C" int fused_chain_attention(const void* q, const void* pool_k, const void* pool_v,
+                                     const void* w0, const void* chain_lengths,
+                                     const void* tenants, const void* kv_lengths,
+                                     void* scratch, void* out, int B, int H, int Hkv, int D,
+                                     int nb, int bs, int Tn, int C, int P, int pps, int dtype,
+                                     void* stream) {
+  if (pps < 1 || pps > 32) return (int)cudaErrorInvalidValue;
+  const size_t ns = (P + pps - 1) / pps;
+  float* acc_part = (float*)scratch;
+  float* m_part = acc_part + (size_t)B * ns * H * D;
+  float* l_part = m_part + (size_t)B * ns * H;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH(launch_fused, q, pool_k, pool_v, w0, chain_lengths, tenants, kv_lengths, m_part,
+           l_part, acc_part, out, B, H, Hkv, nb, bs, Tn, C, P, pps, st)
 }

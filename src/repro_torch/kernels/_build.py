@@ -49,14 +49,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: argtypes of every C launcher; each returns its cudaGetLastError() code.
-#: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``).
+#: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``);
+#: ``paged_attention``/``fused_chain_attention`` launch a split pass and its
+#: combine, counted as one launch.
 _SIGNATURES = {
     "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _P],
     "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
-    "fused_chain_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _P],
+    "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
+    "fused_chain_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _P],
@@ -116,7 +118,7 @@ def build() -> Path:
         os.replace(lib_tmp, out)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["ptxas"] = [ln.strip() for log in logs for ln in log.splitlines()
-                           if "ptxas info" in ln]
+                           if "ptxas info" in ln or "spill" in ln]
     return out
 
 

@@ -4,30 +4,133 @@ The counterparts of ``repro.kernels.paged_attention.paged_attention``'s
 ``paged_attention_pallas`` (attention through a materialized block table)
 and ``fused_chain_attention_pallas`` (attention that walks the stacked
 fleet index itself): hand-written CUDA C++ in ``csrc/paged_attention.cu``,
-built for Hopper by ``kernels._build``. Both kernels share one attention
-body, so on the same pool rows they give bit-identical outputs.
+built for Hopper by ``kernels._build``.
 
-The wrappers take CUDA tensors only, check what the kernels take
-(bf16 or f32 activations and pools, int32 indices, contiguous), allocate
-the output, launch on the current stream without synchronising, and count
-the launch. ``ops`` dispatches CPU tensors to the plain versions in ``ref``.
+What bounds them on the card is device-memory bytes: per position and KV
+head, 4·D bytes of bf16 K/V for 4·G·D flops, 8 flops a byte at G = 8
+against the card's ridge of ~295. Short of that bound, what costs time is
+too little in flight: a batch of 8 rows over 2 KV heads is 16 (row, head)
+pairs for 132 SMs. So:
+
+- **Split over the SMs** (flash-decoding): a one-warp block attends over
+  ``pages_per_split`` pages of one row and one KV head and leaves f32
+  partials ``(m, l, acc)`` in scratch this wrapper allocates; a combine
+  kernel folds a row's splits in a fixed order under the same guards. The
+  split comes from ``plan`` below, from shapes only: no host sync, no grid
+  that depends on lengths.
+- **Async pages:** ``cp.async`` 16-byte copies into a ring of up to three
+  16-token stages, so a block's next tile loads while this one computes.
+  At one page of 16 tokens a split (the engine's batch, the long context)
+  the ring has one stage and the overlap comes from the 16 one-warp blocks
+  an SM holds; two pages a split or pages of 32 tokens give it two or
+  three.
+- **Tensor cores for bf16** (``mma.sync.m16n8k16``, f32 accumulate), with
+  the softmax on all 32 lanes through shuffles; **f32 keeps FFMA** (TF32
+  would break its 2e-5 tolerance).
+- **K4's walk is warp-cooperative** and covers only its split's pages:
+  32 layers a load, ``__ballot_sync`` + ``__ffs`` for the top-most hit.
+
+K3 ≡ K4 bitwise: one attention body and one combine serve both, and both
+take their split from the same planner, which never looks at M or P, so on
+the same pool rows they partition every row identically and agree bit for
+bit. (K4's grid spans ``ceil(P / pps)`` splits and K3's ``ceil(M / pps)``:
+the difference is idle blocks only.)
+
+The wrappers take CUDA tensors only, check what the kernels take (bf16 or
+f32 activations and pools, int32 indices, contiguous, a head dim the
+kernels are built for), allocate scratch and output, launch on the current
+stream without synchronising, and count one launch however many CUDA
+kernels the pass uses. ``ops`` dispatches CPU tensors to the plain
+versions in ``ref``.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the CUDA source instantiates
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: query heads one block serves: the mma's 16 rows (bf16), 8 for FFMA (f32)
+HEAD_TILE = {torch.bfloat16: 16, torch.float32: 8}
+#: tokens a ring stage holds, and the most stages
+TILE, MAX_STAGES = 16, 3
+#: pages a split once the batch's (row, KV head) pairs outnumber the SMs
+WIDE_PAGES_PER_SPLIT = 2
 #: the most dynamic shared memory a Hopper block may use
 _SMEM_LIMIT = 232_448
 
 
-def _smem_bytes(g: int, d: int, bs: int, n_rows: int) -> int:
-    """Mirror of ``attend_floats`` in the CUDA source, plus the row list."""
-    floats = g * d + bs * (d + 1) + bs * d + g * bs + g * d + 3 * g
-    return 4 * floats + 4 * n_rows
+def pages_per_split(batch: int, n_kv_heads: int, n_sms: int) -> int:
+    """Pages one block attends over, from shapes only.
+
+    One page a block while the batch's (row, KV head) pairs do not
+    outnumber the SMs: then even short rows spread over the card (at batch
+    8 and 2 KV heads, a row of 80 tokens is 10 blocks). Beyond that, two:
+    ``chip_smoke.py``'s split sweep (phase 5) times 1-16 pages a split, and
+    at batch 512 over 2 KV heads and batch 64 over 4 two pages beat one by
+    10-13 % (half the partials, a two-stage ring) and beat 4, 8 and 16,
+    where one warp walks more pages in turn.
+    """
+    return 1 if batch * n_kv_heads <= n_sms else WIDE_PAGES_PER_SPLIT
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """The launch the kernels make for one call."""
+
+    pages_per_split: int
+    splits: int          # the grid's split axis: ceil(pages / pages_per_split)
+    stages: int          # ring stages a block uses
+    grid: tuple[int, int, int]   # (splits, KV heads x head tiles, batch)
+
+    def working_blocks(self, lengths, block_size: int, n_pages: int) -> int:
+        """Blocks that attend over something, for host-side ``lengths``
+        (the rest return at once). For reports and tests only: the
+        kernels never need it."""
+        span = self.pages_per_split * block_size
+        splits = sum(-(-max(0, min(int(n), n_pages * block_size)) // span)
+                     for n in lengths)
+        return splits * self.grid[1]
+
+
+def plan(batch: int, n_heads: int, n_kv_heads: int, n_pages: int,
+         block_size: int, dtype: torch.dtype, n_sms: int,
+         pps: int | None = None) -> SplitPlan:
+    """The split, grid and ring of one call; K3 passes its M, K4 its P.
+    ``pps`` overrides the planner's pages per split (for measurements)."""
+    pps = pps or pages_per_split(batch, n_kv_heads, n_sms)
+    tiles = -(-(n_heads // n_kv_heads) // HEAD_TILE[dtype])
+    splits = -(-n_pages // pps)
+    stages = min(MAX_STAGES, -(-pps * block_size // TILE))
+    return SplitPlan(pps, splits, stages, (splits, n_kv_heads * tiles, batch))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+#: threads of the combine kernel
+COMBINE_THREADS = 256
+
+
+def _smem_bytes(dtype: torch.dtype, d: int, p: SplitPlan) -> tuple[int, int]:
+    """Mirror of the CUDA source's shared memory: the split pass
+    (``body_bytes`` plus the row list) and the combine
+    (``combine_floats``)."""
+    if dtype == torch.bfloat16:
+        body = p.stages * 2 * TILE * (d + 8) * 2
+    else:
+        gt = HEAD_TILE[torch.float32]
+        body = p.stages * TILE * (2 * d + 4) * 4 + 4 * (gt * d + gt * TILE + gt)
+    combine = 4 * (4 * COMBINE_THREADS + COMBINE_THREADS // 32 + p.splits)
+    return body + 4 * p.pages_per_split, combine
 
 
 def _check(name, q, pool_k, pool_v, ints):
@@ -46,34 +149,50 @@ def _check(name, q, pool_k, pool_v, ints):
     b, h, d = q.shape
     if pool_k.shape != pool_v.shape or pool_k.dim() != 4 or pool_k.shape[3] != d:
         raise ValueError(f"{name}: pools must be (nb, bs, Hkv, {d})")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     hkv = pool_k.shape[2]
     if h % hkv:
         raise ValueError(f"{name}: {h} query heads over {hkv} KV heads")
     return b, h, d, hkv
 
 
-def paged_attention_cuda(q, pool_k, pool_v, tables, lengths):
+def _launch_plan(name, q, hkv, n_pages, bs, pps=None):
+    b, h, d = q.shape
+    p = plan(b, h, hkv, n_pages, bs, q.dtype, sm_count(q.device), pps)
+    smem = max(_smem_bytes(q.dtype, d, p))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: {smem} B of shared memory needed")
+    # f32 partials: acc (B, splits, H, D), then m and l (B, splits, H)
+    scratch = torch.empty(b * p.splits * h * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    return p, scratch
+
+
+def paged_attention_cuda(q, pool_k, pool_v, tables, lengths, *,
+                         pages_per_split=None):
     """q: (B, H, D); pool_k/v: (nb, bs, Hkv, D); tables: (B, M) int32;
     lengths: (B,) int32. Returns (B, H, D) in q.dtype. Table entries are
     clamped to 0 for the load and masking comes from ``lengths`` alone,
-    as in the Pallas kernel."""
+    as in the Pallas kernel. ``pages_per_split`` overrides the planner's
+    (``chip_smoke.py`` times each)."""
     b, h, d, hkv = _check("paged_attention", q, pool_k, pool_v,
                           (tables, lengths))
     nb, bs = pool_k.shape[:2]
     m = tables.shape[1]
     if tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError("paged_attention: tables (B, M), lengths (B,)")
-    smem = _smem_bytes(h // hkv, d, bs, m)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: {smem} B of shared memory needed")
     out = torch.empty_like(q)
-    if b == 0:
-        return out
+    if b == 0 or m == 0:
+        return out.zero_()
+    p, scratch = _launch_plan("paged_attention", q, hkv, m, bs,
+                              pages_per_split)
     lib = _build.library()
     code = lib.paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, hkv, d, nb, bs, m,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, h, hkv, d,
+        nb, bs, m, p.pages_per_split, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("paged_attention", code)
     return out
 
@@ -95,17 +214,16 @@ def fused_chain_attention_cuda(q, pool_k, pool_v, w0, chain_lengths, tenants,
             or kv_lengths.shape != (b,):
         raise ValueError("fused_chain_attention: chain_lengths (T,), "
                          "tenants/kv_lengths (B,)")
-    smem = _smem_bytes(h // hkv, d, bs, p)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_chain_attention: {smem} B of shared memory needed")
     out = torch.empty_like(q)
-    if b == 0:
-        return out
+    if b == 0 or p == 0:
+        return out.zero_()
+    sp, scratch = _launch_plan("fused_chain_attention", q, hkv, p, bs)
     lib = _build.library()
     code = lib.fused_chain_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), w0.data_ptr(),
         chain_lengths.data_ptr(), tenants.data_ptr(), kv_lengths.data_ptr(),
-        out.data_ptr(), b, h, hkv, d, nb, bs, t, c, p, _DTYPES[q.dtype],
+        scratch.data_ptr(), out.data_ptr(), b, h, hkv, d, nb, bs, t, c, p,
+        sp.pages_per_split, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("fused_chain_attention", code)
     return out

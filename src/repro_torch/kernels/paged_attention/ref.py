@@ -5,6 +5,8 @@ Line for line the oracles of ``repro.kernels.paged_attention.ref``:
 ``fused_chain_attention_ref`` composes the stacked first-hit chain walk
 (``kernels.chain_resolve.ref``) with it, so the fused kernel is held
 against two already-pinned versions rather than a third one.
+``paged_attention_split_ref`` is the CUDA kernels' two-pass algorithm
+(per-split partials, then the combine) in plain PyTorch; only tests use it.
 """
 
 from __future__ import annotations
@@ -66,3 +68,51 @@ def fused_chain_attention_ref(q, pool_k, pool_v, w0, chain_lengths,
     table-consuming one. Returns (B, H, D) in q.dtype."""
     tables = fused_tables_ref(w0, chain_lengths, tenants)
     return paged_attention_ref(q, pool_k, pool_v, tables, kv_lengths)
+
+
+def paged_attention_split_ref(q, pool_k, pool_v, tables, lengths,
+                              pages_per_split):
+    """``paged_attention_ref`` computed as the CUDA kernels compute it:
+    each split of ``pages_per_split`` table columns yields f32 partials
+    ``(m, l, acc)`` (m = -inf where the split attends to nothing), then the
+    splits are folded: weights exp(m_s - max m) under the
+    same isfinite guards, out = Σ w·acc / max(Σ w·l, 1e-30). Masks as the
+    oracle does (length and -1 entries). Returns (B, H, D) in q.dtype."""
+    b, h, d = q.shape
+    nb, bs, hkv, _ = pool_k.shape
+    m = tables.shape[1]
+    g = h // hkv
+    pps = pages_per_split
+    ns = -(-m // pps)
+    pad = torch.full((b, ns * pps - m), -1, dtype=tables.dtype,
+                     device=tables.device)
+    tab = torch.cat([tables, pad], dim=1)
+    safe = tab.to(torch.int64).clamp(0, nb - 1)
+    span = pps * bs
+    k = pool_k[safe].reshape(b, ns, span, hkv, d).float()
+    v = pool_v[safe].reshape(b, ns, span, hkv, d).float()
+    pos = torch.arange(ns * span, device=q.device)[None, :]
+    mask = (pos < lengths.to(torch.int64)[:, None]) & \
+        torch.repeat_interleave(tab >= 0, bs, dim=1)
+    mask = mask.reshape(b, ns, 1, 1, span)
+
+    qg = q.reshape(b, hkv, g, d).float()
+    scores = torch.einsum("bhgd,bnshd->bnhgs", qg, k) / math.sqrt(d)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m_s = scores.amax(dim=-1)                               # (B, ns, Hkv, G)
+    m_safe = torch.where(torch.isfinite(m_s), m_s, 0.0)
+    p = torch.where(torch.isfinite(scores),
+                    torch.exp(scores - m_safe[..., None]), 0.0)
+    l_s = p.sum(-1)
+    acc_s = torch.einsum("bnhgs,bnshd->bnhgd", p, v)
+
+    m_all = m_s.amax(dim=1, keepdim=True)
+    m_all = torch.where(torch.isfinite(m_all), m_all, 0.0)
+    w = torch.where(torch.isfinite(m_s), torch.exp(m_s - m_all), 0.0)
+    l_tot = torch.zeros_like(l_s[:, 0])
+    acc = torch.zeros_like(acc_s[:, 0])
+    for i in range(ns):                                     # split order
+        l_tot = l_tot + l_s[:, i] * w[:, i]
+        acc = acc + acc_s[:, i] * w[:, i, ..., None]
+    out = acc / l_tot.clamp(min=1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)

@@ -74,14 +74,8 @@ def test_resolve_kernels_bit_exact(cuda, t, c, p):
 
 
 def tables_case(rng, b, h, hkv, d, bs, m, nb, dtype, device):
-    q, pk, pv = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
-                 .to(device, dtype)
-                 for s in ((b, h, d), (nb, bs, hkv, d), (nb, bs, hkv, d)))
-    lengths = np.array([1, bs * m // 2 + 1, bs * m, 0][:b], np.int32)
-    tables = np.where(np.arange(m)[None, :] * bs < lengths[:, None],
-                      rng.integers(0, nb, (b, m)), -1).astype(np.int32)
-    return q, pk, pv, torch.as_tensor(tables, device=device), torch.as_tensor(
-        lengths, device=device)
+    return lengths_case(rng, [1, bs * m // 2 + 1, bs * m, 0][:b], h, hkv, d, bs,
+                        m, nb, dtype, device)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -130,12 +124,16 @@ def test_fused_attention_kernel(cuda, dtype, t, c, p, h, hkv, d, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_and_tables_kernels_bit_identical(cuda, dtype):
-    """K3 and K4 share one attention body: fed the rows the walk resolves
-    (no holes), they agree bit for bit."""
+@pytest.mark.parametrize("long_rows", [False, True])
+def test_fused_and_tables_kernels_bit_identical(cuda, dtype, long_rows):
+    """K3 and K4 share one attention body, one split and one combine: fed
+    the rows the walk resolves (no holes), they agree bit for bit, also on
+    rows of 2,048 tokens over 128 splits."""
     q, pk, pv, w0, cl, tn, kl = fused_case(np.random.default_rng(9), 5, 65, 128,
                                            8, 256, 16, 16, 2, 128, dtype, cuda,
                                            density=1.0)
+    if long_rows:
+        kl.fill_(128 * 16)
     tables = pa_ref.fused_tables_ref(w0, cl, tn)
     assert (tables >= 0).all()
     fused = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
@@ -153,6 +151,97 @@ def test_all_masked_fused_row_is_zero(cuda):
     got = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
     torch.cuda.synchronize()
     assert torch.count_nonzero(got[1]) == 0
+
+
+def _close_to_plain(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def lengths_case(rng, lengths, h, hkv, d, bs, m, nb, dtype, device):
+    """K3's inputs for the given row lengths: each row's pages drawn from
+    the pool, -1 past its last page."""
+    b = len(lengths)
+    q, pk, pv = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+                 .to(device, dtype)
+                 for s in ((b, h, d), (nb, bs, hkv, d), (nb, bs, hkv, d)))
+    lengths = np.asarray(lengths, np.int32)
+    tables = np.where(np.arange(m)[None, :] * bs < lengths[:, None],
+                      rng.integers(0, nb, (b, m)), -1).astype(np.int32)
+    return q, pk, pv, torch.as_tensor(tables, device=device), torch.as_tensor(
+        lengths, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_attention_split_widths(cuda, dtype, hkv, d, bs):
+    """K3 over every KV-head count, head dim and page size: a length-0 row,
+    a row ending on a split boundary, a row ending mid-page, a full row."""
+    m = 64
+    args = lengths_case(np.random.default_rng(hkv * d + bs), [0, bs, bs * 7 + 3,
+                        bs * m], 4 * hkv, hkv, d, bs, m, 256, dtype, cuda)
+    got = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    _close_to_plain(got, pa_ref.paged_attention_ref(*args), dtype)
+    assert torch.count_nonzero(got[0]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["long", "batch1", "batch64", "batch64x4kv",
+                                   "batch512", "group32", "head16"])
+def test_paged_attention_split_shapes(cuda, dtype, shape):
+    """K3 where the split matters: rows of 2,048 tokens (M 128, bs 16, one
+    page a split), batch 1, batch 64 with per-row lengths (the shape the
+    suffix prefill hands K3), batches whose (row, KV head) pairs outnumber
+    the SMs (two pages a split, a two-stage ring), 32 query heads a KV head
+    (two mma head tiles), and the smoke config's head dim 16."""
+    rng = np.random.default_rng(len(shape))
+    h, hkv, d, bs, m = 16, 2, 128, 16, 128
+    if shape == "long":
+        lengths = [2048] * 8
+    elif shape == "batch1":
+        lengths = [1500]
+    elif shape in ("batch64", "batch64x4kv"):
+        lengths = rng.integers(0, 2049, 64)
+        hkv = 4 if shape == "batch64x4kv" else 2
+    elif shape == "batch512":
+        lengths = rng.integers(0, 2049, 512)
+    elif shape == "group32":
+        h, hkv, lengths = 32, 1, [0, 17, 300, 2048]
+    else:
+        h, hkv, d, bs, lengths = 4, 2, 16, 4, [0, 5, 4 * 128, 77]
+    args = lengths_case(rng, lengths, h, hkv, d, bs, m, 2048, dtype, cuda)
+    before = _build.LAUNCHES["paged_attention"]
+    got = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_attention"] == before + 1
+    _close_to_plain(got, pa_ref.paged_attention_ref(*args), dtype)
+    split = pa.pages_per_split(len(lengths), hkv, pa.sm_count(cuda))
+    assert (shape in ("batch64x4kv", "batch512")) == (split > 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [8, 512])
+def test_fused_attention_long_chain_and_split_of_holes(cuda, dtype, batch):
+    """K4 on rows of 2,048 tokens through a 65-layer chain, where one row's
+    tenant owns none of the pages of one whole split (one page a split at
+    batch 8, two at batch 512)."""
+    rng = np.random.default_rng(batch)
+    q, pk, pv, w0, cl, tn, kl = fused_case(rng, 6, 65, 128, batch, 2048, 16,
+                                           16, 2, 128, dtype, cuda, density=0.3)
+    cl.fill_(65)
+    kl.copy_(torch.as_tensor(rng.integers(1500, 2049, batch).astype(np.int32)))
+    split = pa.pages_per_split(batch, 2, pa.sm_count(cuda))
+    hole = slice(3 * split, 4 * split)
+    w0[int(tn[0]), :, hole] = 0
+    tables = pa_ref.fused_tables_ref(w0, cl, tn)
+    assert (tables[0, hole] == -1).all()
+    got = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
+    torch.cuda.synchronize()
+    _close_to_plain(got, pa_ref.fused_chain_attention_ref(
+        q, pk, pv, w0, cl, tn, kl), dtype)
 
 
 def _same_bytes(a, b):

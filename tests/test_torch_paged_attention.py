@@ -38,12 +38,14 @@ def _close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
-def tables_case(seed, b, h, hkv, d, bs, m, nb=64):
+def tables_case(seed, b, h, hkv, d, bs, m, nb=64, lengths=None):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, d))
     pk = rng.standard_normal((nb, bs, hkv, d))
     pv = rng.standard_normal((nb, bs, hkv, d))
-    lengths = np.array([1, bs * m // 2 + 1, bs * m][:b], np.int32)
+    if lengths is None:
+        lengths = [1, bs * m // 2 + 1, bs * m][:b]
+    lengths = np.array(lengths, np.int32)
     tables = np.where(np.arange(m)[None, :] * bs < lengths[:, None],
                       rng.integers(0, nb, (b, m)), -1).astype(np.int32)
     return q, pk, pv, tables, lengths
@@ -165,3 +167,108 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpa.fused_chain_attention_cuda(*targs)
 
+
+
+# -- the CUDA kernels' split algorithm, in plain PyTorch ----------------------
+
+
+def split_case(seed, h, hkv, d, bs, m, pps):
+    """Rows of length 0, one ending exactly on the first split boundary, a
+    full row and one ending mid-page."""
+    return tables_case(seed, 4, h, hkv, d, bs, m, lengths=[
+        0, min(pps, m) * bs, bs * m, bs * m // 2 + 1])
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("pps", [1, 3, 8, "M"])
+@pytest.mark.parametrize("h,hkv,d,bs,m", [
+    (8, 2, 64, 16, 12),   # GQA 4:1
+    (16, 1, 32, 8, 9),    # MQA
+])
+def test_split_ref_matches_jax(dt, pps, h, hkv, d, bs, m):
+    """Per-split partials folded in split order == the JAX oracle, for one
+    page a split up to the whole table; the length-0 row is zeros."""
+    _, jdt, tdt, tol = DTYPES[dt]
+    pps = m if pps == "M" else pps
+    q, pk, pv, tables, lengths = split_case(h + m + pps, h, hkv, d, bs, m, pps)
+    (jq, tq), (jk, tk), (jv, tv) = (_arr(x, jdt, tdt) for x in (q, pk, pv))
+    want = jref.paged_attention_ref(jq, jk, jv, jnp.asarray(tables),
+                                    jnp.asarray(lengths))
+    got = tref.paged_attention_split_ref(tq, tk, tv, torch.as_tensor(tables),
+                                         torch.as_tensor(lengths), pps)
+    assert got.dtype == tdt
+    _close(got, want.astype(jnp.float32), tol)
+    assert torch.count_nonzero(got[0]) == 0
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("pps", [1, 3, 8, "P"])
+def test_split_ref_fused_composition_with_a_split_of_holes(dt, pps):
+    """The fused composition on the split algorithm: a split whose pages
+    are all holes contributes nothing, as in the JAX oracle."""
+    t, c, p, bs = 3, 6, 24, 8
+    pps = p if pps == "P" else pps
+    q, pk, pv, w0, cl, tn, kl = fused_case(31 + pps, t, c, p, 3, 32, bs, 8, 2, 64)
+    lo = pps if pps < p else 0
+    w0[:, :, lo:lo + pps] = 0            # no layer owns this split's pages
+    kl[:] = p * bs
+    jargs, targs, tol = _fused_both((q, pk, pv, w0, cl, tn, kl), dt)
+    want = jref.fused_chain_attention_ref(*jargs)
+    tables = tref.fused_tables_ref(targs[3], targs[4], targs[5])
+    assert (tables[:, lo:lo + pps] == -1).all()
+    got = tref.paged_attention_split_ref(targs[0], targs[1], targs[2], tables,
+                                         targs[6], pps)
+    _close(got, want.astype(jnp.float32), tol)
+
+
+# -- the split planner ---------------------------------------------------------
+
+# the serving engine's decode batch (chip_smoke.py phase 4): rows of 80-528
+# tokens after 16 steps, padded to 8 with a length-1 row
+ENGINE_LENGTHS = [80, 208, 336, 528, 80, 208, 336, 1]
+
+
+def test_planner_depends_on_shapes_only_and_agrees_for_k3_and_k4():
+    """K3 plans with its table width M, K4 with its page axis P: the pages
+    a split covers are the same, so the two partition every row alike."""
+    for b, hkv in [(1, 1), (8, 2), (64, 2), (256, 8), (4096, 8)]:
+        k3 = tpa.plan(b, 8 * hkv, hkv, 128, 16, torch.bfloat16, 132)
+        k4 = tpa.plan(b, 8 * hkv, hkv, 256, 16, torch.bfloat16, 132)
+        assert k3.pages_per_split == k4.pages_per_split \
+            == tpa.pages_per_split(b, hkv, 132)
+        assert k4.splits == -(-256 // k4.pages_per_split)
+        assert k3.pages_per_split in (1, tpa.WIDE_PAGES_PER_SPLIT)
+        assert k3 == tpa.plan(b, 8 * hkv, hkv, 128, 16, torch.bfloat16, 132)
+
+
+def test_planner_takes_two_pages_a_split_once_the_pairs_outnumber_the_sms():
+    """One page a split up to as many (row, KV head) pairs as SMs, then
+    two; the suffix prefill's batch 64 over 2 KV heads stays at one."""
+    assert tpa.pages_per_split(64, 2, 132) == 1
+    assert tpa.pages_per_split(66, 2, 132) == 1
+    assert tpa.pages_per_split(67, 2, 132) == tpa.WIDE_PAGES_PER_SPLIT == 2
+    assert tpa.pages_per_split(64, 4, 132) == 2
+    assert tpa.pages_per_split(4096, 8, 132) == 2
+
+
+def test_planner_fills_the_card_at_the_engine_state():
+    """Batch 8, 2 KV heads, M 128 (Qwen2.5-3B's decode): the blocks that
+    attend over something cover the card's 132 SMs."""
+    p = tpa.plan(8, 16, 2, 128, 16, torch.bfloat16, 132)
+    assert p.pages_per_split == 1 and p.grid == (128, 2, 8)
+    assert p.working_blocks(ENGINE_LENGTHS, 16, 128) >= 132
+    long = p.working_blocks([2048] * 8, 16, 128)
+    assert long == 8 * 2 * 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32])
+def test_planner_ring_and_shared_memory(dtype, bs):
+    """Stages never exceed the tiles of a split, and every head dim the
+    kernels are built for fits a block's shared memory at every batch."""
+    for b in (1, 8, 64, 4096):
+        for d in tpa.HEAD_DIMS:
+            p = tpa.plan(b, 16, 2, 128, bs, dtype, 132)
+            assert 1 <= p.stages <= min(tpa.MAX_STAGES,
+                                        -(-p.pages_per_split * bs // tpa.TILE))
+            assert max(tpa._smem_bytes(dtype, d, p)) <= tpa._SMEM_LIMIT
