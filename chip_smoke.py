@@ -37,7 +37,12 @@ Phases, each printing its own lines:
    against the bytes bound, with scaled_dot_product_attention over the
    K/V gathered dense timed beside them (``dense_sdpa_ms``, a yardstick).
    K3 is also timed at 1-16 pages a split beside the planner's pick, at
-   four shapes up to batch 512 (``split_sweep`` on its row).
+   four shapes up to batch 512 (``split_sweep`` on its row). K1 runs on
+   the strided ``l2[..., 0]`` of the packed words (its bound 8 bytes a
+   walked entry), with its time on the contiguous plane beside it and its
+   ms with each walk forced (a thread or a warp a page) beside the
+   planner's pick (``walk_sweep`` on its row; phase 7 adds the fleet's
+   shapes).
 6. store — one 16 GiB virtual disk (262,144 clusters of 64 KiB, float32
    pages of 16,384) in both formats with the same content: a base layer
    at 25 % fill, then 64 random clusters per layer with a snapshot
@@ -56,16 +61,25 @@ Phases, each printing its own lines:
    for bit. Cold tier: two 16,384-row ``demote_tenants`` calls on the odd
    tenants, then the device read is zeros exactly where cold,
    ``read_tiered`` and the read after ``promote_tenants`` equal the read
-   before, and ``free_tenant(store=)`` returns every host row. K5 is held
-   against its plain version and timed on the vanilla fleet's read.
+   before, and ``free_tenant(store=)`` returns every host row.
+   ``fleet.read(auto)`` and ``fleet.read(pallas_vanilla)`` are profiled
+   with K1, K2, K5 and the plane copies apart. K5 is held against its plain
+   version and timed on the vanilla fleet's read; K1 likewise at the
+   fleet's shape on the strided words (beside the contiguous plane and the
+   copy it no longer pays), then swept over its walks at P = 16-16,384.
 8. maintenance — (a) one disk: the phase-6 disk at depth 500 (pool of
    196,608 rows), one format at a time, ``store.stream(chain, 498,
    copy_data=True)``, then ``compact_pool``, then on the vanilla image
    ``convert_to_scalable``; after each step every read (page chunks,
    every method the format serves) is bit-identical to the read before
    streaming, and YCSB-C's mean walk falls from ~470 lookups to at most 2.
-   K9 is held against its plain version on the disk's own (499, 262,144)
-   planes and timed; ``plan_merge`` and its plane copies are timed apart.
+   ``plan_merge`` (one launch of K9's word entry on the packed words) is
+   timed on the host clock and with CUDA events, and held bit-exact against the planes-then-
+   ``merge_ref`` composition it replaced; K9's word entry on the disk's own
+   (499, 262,144, 2) words and its planes entry on the bool planes are
+   each held against their plain versions and timed against their own
+   bounds, with the word entry at 4 and 8 layers a batch and the planes
+   entry at each (pages a thread, layers a batch) beside them.
    (b) a fleet: the phase-7 fleet, one format at a time, streamed
    stop-the-world (``stream_tenants``, one call) and, on a copy, budgeted
    (``MaintenanceScheduler``, 4 tenants a tick, drained); after each,
@@ -137,6 +151,7 @@ FLEET_T, FLEET_PAGES, FLEET_CHAIN, FLEET_Q = 64, 16_384, 512, 64
 FLEET_BASE, FLEET_LAYER_WRITES, FLEET_BATCH = 2_048, 4, 1_024
 FLEET_MAX_DEPTH = 500
 DEMOTE_ROWS, DEMOTE_CALLS = 16_384, 2
+FLEET_SWEEP_PAGES = (16, 64, 256, 1_024, 16_384)   # K1's walk sweep (phase 7)
 # phase 8: maintenance. The streamed disk needs room for the copy:
 # 97,472 rows in use + about 89,000 merged pages moved to fresh rows
 MAINT_DISK_POOL = 196_608        # 12.9 GB
@@ -325,34 +340,52 @@ SERVE_GROUPS = {"attention (K3/K4)": ("paged_attention_kernel",
                 "chain resolve (K1/K2)": ("fleet_kernel",),
                 "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
 READ_GROUPS = {"gather (K5/K8)": ("gather_rows_kernel",),
-               "chain resolve (K1/K2/K6/K7)": ("fleet_kernel", "vanilla_kernel",
-                                              "direct_kernel"),
-               "copies": ("copy", "Copy", "elementwise", "index", "Index",
-                          "gather", "scatter", "where", "fill")}
+               "walk (K1)": ("vanilla_fleet_kernel",),
+               "direct (K2)": ("direct_fleet_kernel",),
+               "single-chain resolve (K6/K7)": ("vanilla_kernel", "direct_kernel"),
+               # a strided .contiguous() (K2's two word planes) or a cast
+               "plane copies": ("direct_copy_kernel",),
+               "other copies and indexing": ("copy", "Copy", "elementwise", "index",
+                                             "Index", "gather", "scatter", "where",
+                                             "fill")}
 
 
-def profile_calls(torch, fn, n, wall_ms, groups):
+def profile_calls(torch, fn, n, wall_ms, groups, tries=1):
     """Kernel time by kernel over ``n`` calls of ``fn`` under torch.profiler.
     The device idle share compares the device time per call with the
-    unprofiled ``wall_ms`` (the profiler slows the host, not the kernels)."""
+    unprofiled ``wall_ms`` (the profiler slows the host, not the kernels).
+    The profiler now and then drops device events: a call whose ``fn``
+    does the same work every time passes ``tries`` > 1, and a trace with
+    no device events, or with a kernel seen a number of times that is not
+    a multiple of ``n``, is taken again, up to ``tries`` times
+    (``complete`` says whether the last one was whole). A kernel's ms a
+    call is its mean ms an event times its events a call, ``count / n``
+    rounded up, so a trace that lost fewer than half of a kernel's events
+    still counts each launch once."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            out = fn()
-            del out
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                out = fn()
+                del out
+            torch.cuda.synchronize()
         # device events only: a CPU op also reports the device time of the
         # kernels it launched, which would count them twice
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        complete = bool(events) and all(e.count % n == 0 for e in events)
+        if complete:
+            break
+    by_kernel = {}
+    for e in events:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / n
+        per_call = us / 1e3 / e.count * -(-e.count // n)
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + per_call
     device_ms = sum(by_kernel.values())
     by_group = {g: 0.0 for g in groups}
     by_group["other"] = 0.0
@@ -366,13 +399,14 @@ def profile_calls(torch, fn, n, wall_ms, groups):
         device_idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
         device_ms_by_group=by_group,
         top_kernels=[[k[:80], v] for k, v in top],
+        complete=complete, traces_taken=attempt + 1,
     )
 
 
 def capture_state(torch, eng):
     """The engine's own state for the kernel phase: layer 0's pools, the
-    fleet's L2 words and chain lengths, and the decode batch (padded as
-    the engine pads it)."""
+    fleet's packed L2 words (and their word planes), chain lengths, and the
+    decode batch (padded as the engine pads it)."""
     kv = eng.kv
     sids = sorted(eng.active)
     pad_to = eng._bucket(len(sids))
@@ -383,7 +417,8 @@ def capture_state(torch, eng):
                                           dtype=torch.int32, device=kv.device)
     return dict(
         pool_k=kv.pool_k[0].clone(), pool_v=kv.pool_v[0].clone(),
-        w0=kv.fleet.l2[..., 0].contiguous(), w1=kv.fleet.l2[..., 1].contiguous(),
+        l2=kv.fleet.l2.clone(), w0=kv.fleet.l2[..., 0].contiguous(),
+        w1=kv.fleet.l2[..., 1].contiguous(),
         chain_lengths=kv.fleet.length.clone(), tables=tables, lengths=lengths,
         tenants=tenants,
     )
@@ -486,7 +521,7 @@ def kernel_phase(torch, mods, state):
                     ).to(s["pool_k"].dtype)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     alloc_bit = mods["fmt"].FLAG_ALLOCATED_I32
-    w0, w1, cl = s["w0"], s["w1"], s["chain_lengths"]
+    l2, w0, w1, cl = s["l2"], s["w0"], s["w1"], s["chain_lengths"]
     kv_len = s["lengths"]
     t, c, p = w0.shape
     nb, bs, hkv, d = s["pool_k"].shape
@@ -497,9 +532,12 @@ def kernel_phase(torch, mods, state):
                               s["tenants"].cpu().numpy())
 
     # data-dependent byte counts: what these inputs need, each read once
-    k1_bytes = 4 * (walk_words(w0_h, cl_h, {i: np.arange(p) for i in range(t)},
-                               alloc_bit)
-                    + t + 2 * t * p)
+    # K1 reads word0 in place at a stride of 2: word1 shares its sectors,
+    # 8 bytes a walked entry (4 on the contiguous plane)
+    k1_walked = walk_words(w0_h, cl_h, {i: np.arange(p) for i in range(t)},
+                           alloc_bit)
+    k1_bytes = 8 * k1_walked + 4 * (t + 2 * t * p)
+    k1_plane_bytes = 4 * (k1_walked + t + 2 * t * p)
     k2_bytes = 4 * (2 * t * p + t + 3 * t * p)
     nblk = np.minimum(-(-len_h // bs), tables_h.shape[1])
     slots = {(int(tables_h[r, j]), o) for r in range(b) for j in range(nblk[r])
@@ -518,8 +556,9 @@ def kernel_phase(torch, mods, state):
 
     runs = {
         "resolve_vanilla_fleet": (
-            lambda: cr.resolve_vanilla_fleet_cuda(w0, cl),
-            lambda: cr_ref.resolve_vanilla_fleet_ref(w0, cl), k1_bytes, 0, None),
+            lambda: cr.resolve_vanilla_fleet_cuda(l2[..., 0], cl),
+            lambda: cr_ref.resolve_vanilla_fleet_ref(l2[..., 0], cl), k1_bytes, 0,
+            None),
         "resolve_direct_fleet": (
             lambda: cr.resolve_direct_fleet_cuda(w0, w1, cl),
             lambda: cr_ref.resolve_direct_fleet_ref(w0, w1, cl), k2_bytes, 0, None),
@@ -543,6 +582,15 @@ def kernel_phase(torch, mods, state):
         rows.append(row)
     require(torch.equal(outs["paged_attention"][0], outs["fused_chain_attention"][0]),
             "paged_attention and fused_chain_attention differ on the same rows")
+    # K1 on the contiguous plane too, comparable with the first version's
+    # row, and with each walk forced (the sweep goes on in phase 7)
+    plane, _ = measure(torch, "resolve_vanilla_fleet",
+                       lambda: cr.resolve_vanilla_fleet_cuda(w0, cl),
+                       lambda: cr_ref.resolve_vanilla_fleet_ref(w0, cl),
+                       k1_plane_bytes, 0, None, flush)
+    rows[0].update(walk=cr.fleet_walk(t, p), words_walked=k1_walked,
+                   plane_ms=plane["ms"], plane_bound_ms=plane["bound_ms"],
+                   walk_sweep={"engine": walk_sweep(torch, mods, l2, cl, flush)})
     split = {"paged_attention": split_report(pa, q, hkv, s["tables"].shape[1], bs,
                                              len_h),
              "fused_chain_attention": split_report(pa, q, hkv, p, bs, len_h)}
@@ -556,6 +604,7 @@ def kernel_phase(torch, mods, state):
                     "do not cover the SMs")
     emit({"phase": "kernels", "shapes": {
         "fleet_T_C_P": [t, c, p], "pool_nb_bs_hkv_d": [nb, bs, hkv, d],
+        "k1_words_walked": k1_walked, "k1_walk": rows[0]["walk"],
         "batch": b, "kv_lengths": len_h.tolist()},
         "k3_equals_k4_bitwise": True, "split": split})
     long = long_context(torch, mods, flush)
@@ -733,6 +782,30 @@ def split_sweep(torch, mods, flush):
     return out
 
 
+def walk_sweep(torch, mods, l2, lengths, flush, n=30):
+    """K1 on the strided ``l2[..., 0]`` of (T, C, P, 2) words with each walk
+    forced (a thread a page with U loads in flight, a warp a page with 32
+    layers a load), beside the planner's pick, each call held bit-exact
+    against the plain version; the bound counts 8 bytes a walked entry."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    t, c, p, _ = l2.shape
+    w0 = l2[..., 0]
+    want = cr_ref.resolve_vanilla_fleet_ref(w0, lengths)
+    top = lengths.clamp(max=c).to(torch.int64)[:, None]
+    walked = int(torch.where(want[0] >= 0, top - want[0], top).sum())
+    res = dict(T_C_P=[t, c, p], pages=t * p, planner_picks=cr.fleet_walk(t, p),
+               words_walked=walked,
+               bound_ms=1e3 * (8 * walked + 4 * t + 8 * t * p) / HBM_BYTES_PER_S,
+               ms={})
+    for walk in cr.WALKS:
+        def call():
+            return cr.resolve_vanilla_fleet_cuda(w0, lengths, walk=walk)
+        require(all(torch.equal(a, b) for a, b in zip(call(), want)),
+                f"K1 {walk} walk at {[t, c, p]} is not bit-exact")
+        res["ms"][walk] = timed_ms(torch, call, n, flush)
+    return res
+
+
 # -- phase 6: one virtual disk, dd and YCSB-C --------------------------------
 
 
@@ -824,7 +897,7 @@ def store_phase(torch, mods):
             if depth == max(DISK_DEPTHS) and key in PROFILED_DD:
                 dd[key]["profile"] = profile_calls(
                     torch, lambda: store.materialize(c, method=m), 2, ms,
-                    READ_GROUPS)
+                    READ_GROUPS, tries=3)
         del ref
         # YCSB-C: one batch of uniform random clusters, every method
         yref, _ = store.read(sca, ycsb, method="direct")
@@ -987,7 +1060,7 @@ def fleet_phase(torch, mods):
                         device=DEV, dtype=torch.int32)
     out_bytes = FLEET_T * FLEET_BATCH * CLUSTER * 4
     odd = list(range(1, FLEET_T, 2))
-    total, measured = {}, None
+    total, measured, k1 = {}, None, None
     for scalable in (False, True):
         name = "scalable" if scalable else "vanilla"
         torch.cuda.reset_peak_memory_stats()
@@ -1005,7 +1078,15 @@ def fleet_phase(torch, mods):
         van_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids, method="vanilla"), 3)
         read_profile = profile_calls(
             torch, lambda: fleet_lib.read(fl, ids, method="auto"), 2, auto_ms,
-            READ_GROUPS)
+            READ_GROUPS, tries=3)
+        walk_read, _ = fleet_lib.read(fl, ids, method="pallas_vanilla")
+        require(_same(torch, walk_read, pre), f"{name}: pallas_vanilla read differs")
+        del walk_read
+        pv_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids,
+                                                       method="pallas_vanilla"), 3)
+        pv_profile = profile_calls(
+            torch, lambda: fleet_lib.read(fl, ids, method="pallas_vanilla"), 2,
+            pv_ms, READ_GROUPS, tries=3)
         store = TieredStore(CLUSTER, torch.float32, initial_rows=2 * DEMOTE_ROWS)
         demote = []
         for _ in range(DEMOTE_CALLS):
@@ -1054,6 +1135,8 @@ def fleet_phase(torch, mods):
               "read_vanilla_ms": van_ms,
               "read_vanilla_GBps": out_bytes / van_ms / 1e6,
               "read_auto_profile": read_profile,
+              "read_pallas_vanilla_ms": pv_ms,
+              "read_pallas_vanilla_profile": pv_profile,
               "auto_equals_vanilla": True, "demote": demote, "promote": promote,
               "device_read_zero_where_cold": True, "tiered_equals_before": True,
               "promoted_equals_before": True, "host_rows_after_free": 0,
@@ -1061,9 +1144,10 @@ def fleet_phase(torch, mods):
               "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
         if not scalable:
             measured = fleet_kernel(torch, mods, fl.pool, res, flush)
+            k1 = fleet_walk(torch, mods, fl, flush)
         del fl, pre, res, store
         torch.cuda.empty_cache()
-    return measured, total, per_read
+    return measured, total, per_read, k1
 
 
 def fleet_kernel(torch, mods, pool, res, flush):
@@ -1079,6 +1163,44 @@ def fleet_kernel(torch, mods, pool, res, flush):
         library=lambda: torch.index_select(pool, 0, safe_rows.view(-1)),
         n_kernel=10, n_plain=3)
     return [row]
+
+
+def fleet_walk(torch, mods, fl, flush):
+    """K1 at the fleet read's shape on the strided ``l2[..., 0]`` against
+    its plain version, timed, beside K1 on the contiguous plane and the
+    plane copy it no longer pays; then the walk sweep at this fleet's T and
+    C over P = 16 ... 16,384 (the first P pages of every tenant)."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    l2, lengths = fl.l2, fl.length
+    t, c, p, _ = l2.shape
+    w0 = l2[..., 0]
+    want = cr_ref.resolve_vanilla_fleet_ref(w0, lengths)
+    top = lengths.clamp(max=c).to(torch.int64)[:, None]
+    walked = int(torch.where(want[0] >= 0, top - want[0], top).sum())
+    del want
+    row, _ = measure(torch, "resolve_vanilla_fleet",
+                     lambda: cr.resolve_vanilla_fleet_cuda(w0, lengths),
+                     lambda: cr_ref.resolve_vanilla_fleet_ref(w0, lengths),
+                     8 * walked + 4 * t + 8 * t * p, 0, None, flush,
+                     n_kernel=10, n_plain=3)
+    plane = w0.contiguous()
+    plane_ms = timed_ms(torch, lambda: cr.resolve_vanilla_fleet_cuda(plane, lengths),
+                        10, flush)
+    del plane
+    copy_ms = timed_ms(torch, lambda: w0.contiguous(), 5, flush)
+    out = dict(T_C_P=[t, c, p], walk=cr.fleet_walk(t, p), words_walked=walked,
+               ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+               max_abs_err=row["max_abs_err"], plane_ms=plane_ms,
+               plane_bound_ms=1e3 * (4 * walked + 4 * t + 8 * t * p)
+               / HBM_BYTES_PER_S, plane_copy_ms=copy_ms)
+    sweep = {}
+    for pp in FLEET_SWEEP_PAGES:
+        sub = l2 if pp == p else l2[:, :, :pp].contiguous()
+        sweep[f"fleet_P{pp}"] = walk_sweep(torch, mods, sub, lengths, flush,
+                                           n=10 if pp == p else 30)
+        del sub
+    emit({"phase": "fleet", "k1_fleet_shape": out, "k1_walk_sweep": sweep})
+    return dict(fleet_shape=out, walk_sweep=sweep)
 
 
 # -- phase 8: the maintenance plane -------------------------------------------
@@ -1151,17 +1273,30 @@ def disk_maintenance(torch, mods):
         ref = store.materialize(chain, method="vanilla")
         walk_before = _mean_walk(store, chain, ycsb)
 
-        # the merge plan apart: its plane copies, the whole plan, and K9 on
-        # this disk's own planes against its plain version (not the main
-        # path: launch counts are zeroed after)
+        # the merge plan apart: the whole plan (one launch of K9's word
+        # entry), the plane copies the plan made before it read the words in
+        # place, and K9's two entries on this disk's own words and planes
+        # against their plain versions (not the main path: launch counts
+        # are zeroed after)
         sub = chain.l2[:k]
+        merged, plan_found = chain_lib.plan_merge(chain.l2, k - 1)   # warm-up
         planes_ms = _host_ms(torch, lambda: (fmt.entry_allocated(sub),
                                              fmt.entry_ptr(sub)), 3)
-        plan_ms = _host_ms(torch, lambda: chain_lib.plan_merge(chain.l2, k - 1), 3)
+        plan_ms = _host_ms(torch, lambda: chain_lib.plan_merge(chain.l2, k - 1), 5)
+        plan_device_ms = timed_ms(
+            torch, lambda: chain_lib.plan_merge(chain.l2, k - 1), 20, flush)
         alloc, ptrs = fmt.entry_allocated(sub), fmt.entry_ptr(sub)
-        merged, plan_found = chain_lib.plan_merge(chain.l2, k - 1)
+        # the composition plan_merge replaced: planes, merge_ref, the gather
+        # at max(src, 0)
+        c_found, _, c_src = sm_ref.merge_ref(alloc, ptrs)
+        pick = c_src.clamp(min=0).to(torch.int64)[None, :, None].expand(1, -1, 2)
+        require(torch.equal(merged, torch.gather(sub, 0, pick)[0])
+                and torch.equal(plan_found, c_found),
+                "plan_merge differs from the planes-then-merge_ref composition")
+        del pick
         found, ptr, src = sm.merge_cuda(alloc, ptrs)
-        require(torch.equal(found, plan_found), "K9 found differs from plan_merge")
+        require(torch.equal(found, plan_found) and torch.equal(src, c_src),
+                "K9 planes entry differs from plan_merge")
         require(torch.equal(ptr[found], fmt.entry_ptr(merged)[found]),
                 "K9 ptr differs from the merged entries' ptr")
         if not scalable:
@@ -1169,17 +1304,28 @@ def disk_maintenance(torch, mods):
             walked = int(torch.where(src >= 0, k - src, k).sum())
             esz = alloc.element_size()
             n = alloc.shape[1]
-            full = (esz + 4) * k * n + 9 * n
-            row, _ = measure(torch, "merge", lambda: sm.merge_cuda(alloc, ptrs),
-                             lambda: sm_ref.merge_ref(alloc, ptrs),
-                             esz * walked + 4 * hits + 9 * n, 0, None, flush)
-            row["bound_full_scan_ms"] = 1e3 * full / HBM_BYTES_PER_S
-            row["bound_full_scan_bytes"] = full
+            # the word entry: 8 bytes a walked entry (a 32-byte sector holds
+            # four whole entries, so word1 comes with word0), 13 out a page
+            row, _ = measure(torch, "merge", lambda: sm.merge_entries_cuda(sub),
+                             lambda: sm_ref.merge_entries_ref(sub),
+                             8 * walked + 13 * n, 0, None, flush)
+            planes, _ = measure(torch, "merge", lambda: sm.merge_cuda(alloc, ptrs),
+                                lambda: sm_ref.merge_ref(alloc, ptrs),
+                                esz * walked + 4 * hits + 9 * n, 0, None, flush)
+            row.update(
+                entries_unroll=sm.ENTRIES_UNROLL,
+                bound_full_scan_ms=1e3 * (8 * k * n + 13 * n) / HBM_BYTES_PER_S,
+                planes_ms=planes["ms"], planes_bound_ms=planes["bound_ms"],
+                planes_plain_ms=planes["plain_ms"], planes_bytes=planes["bytes"],
+                planes_config=list(sm.planes_config(alloc)),
+                planes_bound_full_scan_ms=1e3 * ((esz + 4) * k * n + 9 * n)
+                / HBM_BYTES_PER_S,
+                **merge_sweeps(torch, sm, sub, alloc, ptrs, flush))
             measured = [row]
             emit({"phase": "maintenance", "part": "disk", "kernel_shapes": {
                 "merge_K_N": [k, n], "alloc_dtype": str(alloc.dtype),
                 "words_walked": walked, "hits": hits}})
-        del sub, alloc, ptrs, merged, plan_found, found, ptr, src
+        del sub, alloc, ptrs, merged, plan_found, found, ptr, src, c_found, c_src
 
         _build.reset_launches()
         cursor0 = int(chain.pool_cursor)
@@ -1212,7 +1358,8 @@ def disk_maintenance(torch, mods):
         total = {key: total.get(key, 0) + v for key, v in launches.items()}
         out[name] = dict(
             build_seconds=build_s, stream_ms=stream_ms, plan_merge_ms=plan_ms,
-            plane_copies_ms=planes_ms, rows_moved=moved,
+            plan_merge_device_ms=plan_device_ms, plane_copies_ms=planes_ms,
+            rows_moved=moved,
             GB_copied=moved * CLUSTER * 4 / 1e9, compact_ms=compact_ms,
             live_rows=live, convert_ms=convert_ms,
             ycsb_mean_lookups_before=walk_before,
@@ -1225,9 +1372,33 @@ def disk_maintenance(torch, mods):
         del chain, ref
         torch.cuda.empty_cache()
     if measured:
-        measured[0]["plan_merge_ms"] = out["vanilla"]["plan_merge_ms"]
-        measured[0]["plane_copies_ms"] = out["vanilla"]["plane_copies_ms"]
+        for key in ("plan_merge_ms", "plan_merge_device_ms", "plane_copies_ms"):
+            measured[0][key] = out["vanilla"][key]
     return measured, total, per_call
+
+
+def merge_sweeps(torch, sm, sub, alloc, ptrs, flush):
+    """K9's word entry at 4 and 8 layers a batch, and its planes entry on
+    the bool planes at each (pages a thread, layers a batch) built, each
+    call held bit-exact against the first."""
+    want_e = sm.merge_entries_cuda(sub, unroll=4)
+    unroll = {}
+    for u in (4, 8):
+        def call():
+            return sm.merge_entries_cuda(sub, unroll=u)
+        require(all(torch.equal(a, b) for a, b in zip(call(), want_e)),
+                f"K9 word entry at {u} layers a batch differs")
+        unroll[u] = timed_ms(torch, call, 20, flush)
+    want_p = sm.merge_cuda(alloc, ptrs, vec=1, unroll=8)
+    planes = {}
+    for v in sm.VECS:
+        for u in sm.UNROLLS:
+            def call():
+                return sm.merge_cuda(alloc, ptrs, vec=v, unroll=u)
+            require(all(torch.equal(a, b) for a, b in zip(call(), want_p)),
+                    f"K9 planes entry at {v} pages x {u} layers differs")
+            planes[f"{v}x{u}"] = timed_ms(torch, call, 20, flush)
+    return dict(unroll_sweep=unroll, planes_sweep=planes)
 
 
 def _clone_fleet(fl):
@@ -1569,7 +1740,8 @@ def main() -> int:
 
     # 7. a fleet of disks: fleet.read and the host cold tier
     t0 = time.perf_counter()
-    fleet_rows, fleet_launches, fleet_per_read = fleet_phase(torch, mods)
+    fleet_rows, fleet_launches, fleet_per_read, k1_fleet = fleet_phase(torch,
+                                                                       mods)
     emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
     per_step_of["gather_fleet"] = fleet_per_read["gather_fleet"]
 
@@ -1593,6 +1765,8 @@ def main() -> int:
                                               disk_launches, maint_launches,
                                               serve8_launches))
                    for k in KERNEL_SOURCES}
+    rows[0]["fleet_shape"] = k1_fleet["fleet_shape"]      # K1's row
+    rows[0]["walk_sweep"].update(k1_fleet["walk_sweep"])
     rows += fleet_rows + store_rows + merge_rows
     for row in rows:
         row["launches"] = launches_of[row["name"]]

@@ -214,18 +214,15 @@ def plan_merge(l2: torch.Tensor, merge_upto: int):
 
     ``l2``: (C, n_pages, 2). Returns ``(merged (n_pages, 2), found
     (n_pages,) bool)``: per page, the entry of the topmost merged layer
-    that has it allocated. The owner scan is K9 (``stream_merge.ops.merge``)
-    over the allocation and pointer planes of the merged layers; ``merged``
-    is then gathered from the layer K9 names, layer 0 where it names none
-    (as ``jnp.take_along_axis`` at ``max(owner, 0)`` does in the JAX
-    package, so the words match bit for bit). Table-level helper shared by
-    ``stream`` and the fleet's ``stream_tenants``.
+    that has it allocated, layer 0's where none has (as
+    ``jnp.take_along_axis`` at ``max(owner, 0)`` does in the JAX package,
+    so the words match bit for bit). One launch of K9's word entry
+    (``stream_merge.ops.merge_entries``) reads the merged layers' packed
+    words in place and writes the plan: no plane copy, no gather.
+    Table-level helper shared by ``stream`` and the fleet's
+    ``stream_tenants``.
     """
-    k = merge_upto + 1
-    sub = l2[:k]                                         # (k, n_pages, 2)
-    found, _, src = merge_ops.merge(fmt.entry_allocated(sub), fmt.entry_ptr(sub))
-    pick = src.clamp(min=0).to(torch.int64)[None, :, None].expand(1, -1, 2)
-    merged = torch.gather(sub, 0, pick)[0]
+    merged, found, _ = merge_ops.merge_entries(l2[:merge_upto + 1])
     return merged, found
 
 

@@ -149,11 +149,13 @@ def _take(maps: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def resolve_vanilla_stacked(l2: torch.Tensor, lengths: torch.Tensor,
                             page_ids: torch.Tensor) -> ResolveResult:
     """Kernel-backed first-hit walk for a whole fleet in one launch: the
-    kernel resolves every tenant's full page table, then the batch is a
-    per-tenant gather. Bit-identical to ``resolve_vanilla_tables``."""
+    kernel resolves every tenant's full page table, reading word0 in place
+    through the strided ``l2[..., 0]`` view (no plane copy), then the
+    batch is a per-tenant gather. Bit-identical to
+    ``resolve_vanilla_tables``."""
     ids = page_ids.to(torch.int64)
     owner_map, hit_map = _kernel_ops.resolve_vanilla_fleet(
-        l2[..., 0].contiguous(), lengths.to(torch.int32).contiguous())
+        l2[..., 0], lengths.to(torch.int32).contiguous())
     owner = _take(owner_map, ids)
     hit = _take(hit_map, ids)
     found = owner >= 0

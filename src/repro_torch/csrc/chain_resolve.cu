@@ -8,26 +8,38 @@
 //   resolve_vanilla        <- resolve_vanilla_pallas       (_vanilla_kernel)
 //   resolve_direct         <- resolve_direct_pallas        (_direct_kernel)
 //
-// What bounds them on the card: device-memory bytes. Each page does a few
-// integer ops per 4-byte word it reads, far below the card's ratio of
-// operations to bytes.
+// What bounds them on the card: device-memory bytes, and for the fleet
+// walk the latency of getting them. Each page does a few integer ops per
+// 4-byte word it reads, far below the card's ratio of operations to bytes.
 //
-// What the design does about it: one thread per (tenant, page), with
-// neighbouring threads on neighbouring pages, so every layer's words are
-// read coalesced along P. The TPU kernel's fori_loop visits all C layers
-// of every lane tile; here each thread walks down from its tenant's active
-// layer and stops at its first ALLOCATED word, so a walk reads only the
-// layers above the owner (plus one word on a hit). The direct kernel reads
-// the active layer's two words and nothing else.
+// The fleet walk (K1) reads word0 where the fleet keeps it: either a
+// contiguous (T, C, P) plane or the strided view l2[..., 0] of the packed
+// (T, C, P, 2) words (an element stride of 2), so the caller copies no
+// plane out first. At a stride of 2, word1 comes with word0 (a 32-byte
+// sector holds four whole entries): 8 bytes a walked entry. It has two
+// walks, picked by the wrapper from T, C and P alone (no length is read,
+// so there is no sync):
+//   - many pages (a fleet read, T x P in the millions): one thread a
+//     (tenant, page), neighbouring threads on neighbouring pages so every
+//     layer's loads are coalesced along P, walking down from the tenant's
+//     active layer in batches of U layers whose loads are all issued before
+//     any is tested (batched_first_hit, chain_walk.cuh): U loads in flight
+//     a thread instead of one, at most U - 1 words read past the owner.
+//   - few pages (the decode state, T x P in the thousands, a handful of
+//     blocks for 132 SMs): one warp a (tenant, page), 128 layers a round
+//     (four loads a lane in flight) with __ballot_sync + __ffs
+//     (warp_first_hit), so a 65-layer chain costs one round of loads, not
+//     65 dependent loads.
+// The direct kernel reads the active layer's two words and nothing else.
 //
 // The single-chain kernels take the chain as separate planes, as the TPU
 // kernels do: an allocation map (int32 or bool, tested != 0) and a pointer
-// plane. The walk keeps the same shape: one thread per page, coalesced
-// along N, from layer min(length, C) - 1 down to the first allocated layer
-// (layers >= C are invalid, and so are layers >= length); ptr is 0 on a
-// miss. That walk is first_hit_down (chain_walk.cuh), which the streaming
-// merge (K9, stream_merge.cu) shares. The direct kernel is one elementwise pass over the active layer.
-// It does not look at BFI_VALID: its caller decides what is trusted.
+// plane. One thread per page, coalesced along N, from layer
+// min(length, C) - 1 down to the first allocated layer (layers >= C are
+// invalid, and so are layers >= length); ptr is 0 on a miss. That walk is
+// first_hit_down (chain_walk.cuh). The direct kernel is one elementwise
+// pass over the active layer. It does not look at BFI_VALID: its caller
+// decides what is trusted.
 //
 // Words are read as uint32_t; the layout comes from -D macros generated
 // from repro_torch/core/format.py (kernels/_build.py).
@@ -45,6 +57,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
+constexpr int kWalkBatch = 8;   // U: layers whose loads a thread issues at once
+
+// Many pages: one thread a (tenant, page). ES: word0's element stride.
+template <int ES>
 __global__ void vanilla_fleet_kernel(const uint32_t* __restrict__ w0,
                                      const int32_t* __restrict__ lengths,
                                      int32_t* __restrict__ owner,
@@ -56,19 +72,35 @@ __global__ void vanilla_fleet_kernel(const uint32_t* __restrict__ w0,
   const int p = (int)(i % P);
   // layers >= length are dead, and so are layers >= C
   const int top = min(lengths[t], C) - 1;
-  const uint32_t* col = w0 + (size_t)t * C * P + p;
-  int o = -1;
-  uint32_t h = 0u;
-  for (int layer = top; layer >= 0; --layer) {
-    const uint32_t w = col[(size_t)layer * P];
-    if (w & FMT_FLAG_ALLOCATED) {
-      o = layer;
-      h = w;
-      break;
-    }
-  }
+  const uint32_t* col = w0 + ((size_t)t * C * P + p) * ES;
+  const size_t stride = (size_t)P * ES;
+  uint32_t w = 0u;
+  const int o = batched_first_hit<kWalkBatch>(
+      top, [&](int layer) { return __ldg(col + (size_t)layer * stride); },
+      [](uint32_t x) { return (x & FMT_FLAG_ALLOCATED) != 0u; }, &w);
   owner[i] = o;
-  hit[i] = h;
+  hit[i] = o >= 0 ? w : 0u;
+}
+
+// Few pages: one warp a (tenant, page).
+template <int ES>
+__global__ void warp_vanilla_fleet_kernel(const uint32_t* __restrict__ w0,
+                                          const int32_t* __restrict__ lengths,
+                                          int32_t* __restrict__ owner,
+                                          uint32_t* __restrict__ hit,
+                                          int T, int C, int P) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (i >= (long long)T * P) return;     // whole warps leave together
+  const int t = (int)(i / P);
+  const int p = (int)(i % P);
+  const int top = min(lengths[t], C) - 1;
+  const uint32_t* col = w0 + ((size_t)t * C * P + p) * ES;
+  uint32_t w;
+  const int o = warp_first_hit(col, top, (size_t)P * ES, &w);
+  if ((threadIdx.x & 31) == 0) {
+    owner[i] = o;
+    hit[i] = w;
+  }
 }
 
 __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
@@ -128,15 +160,35 @@ unsigned int blocks_for(int T, int P) {
 
 }  // namespace
 
+// elem_stride: word0's element stride, 1 (a (T, C, P) plane) or 2 (the
+// l2[..., 0] view of (T, C, P, 2) words). walk: 0 one thread a page, 1 one
+// warp a page.
 extern "C" int resolve_vanilla_fleet(const void* w0, const void* lengths,
                                      void* owner, void* hit, int T, int C,
-                                     int P, void* stream) {
+                                     int P, int elem_stride, int walk,
+                                     void* stream) {
   (void)cudaGetLastError();
-  vanilla_fleet_kernel<<<blocks_for(T, P), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint32_t*)w0, (const int32_t*)lengths, (int32_t*)owner,
-      (uint32_t*)hit, T, C, P);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* w = (const uint32_t*)w0;
+  const int32_t* ln = (const int32_t*)lengths;
+  int32_t* o = (int32_t*)owner;
+  uint32_t* h = (uint32_t*)hit;
+  const long long n = (long long)T * P;
+  if (elem_stride != 1 && elem_stride != 2) return (int)cudaErrorInvalidValue;
+  const bool strided = elem_stride == 2;
+  if (walk == 0) {
+    const unsigned int blocks = blocks_for(T, P);
+    if (strided) vanilla_fleet_kernel<2><<<blocks, kThreads, 0, st>>>(w, ln, o, h, T, C, P);
+    else vanilla_fleet_kernel<1><<<blocks, kThreads, 0, st>>>(w, ln, o, h, T, C, P);
+    return (int)cudaGetLastError();
+  }
+  const unsigned int blocks = (unsigned int)((n + kThreads / 32 - 1) / (kThreads / 32));
+  if (walk == 1) {
+    if (strided) warp_vanilla_fleet_kernel<2><<<blocks, kThreads, 0, st>>>(w, ln, o, h, T, C, P);
+    else warp_vanilla_fleet_kernel<1><<<blocks, kThreads, 0, st>>>(w, ln, o, h, T, C, P);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int resolve_direct_fleet(const void* w0, const void* w1,

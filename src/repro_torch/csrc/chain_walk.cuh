@@ -1,15 +1,16 @@
-// First-hit walks down a snapshot chain. first_hit_down is the
-// single-chain walk shared by K6 (chain_resolve.cu, resolve_vanilla) and
-// K9 (stream_merge.cu, merge); warp_first_hit_row, below, is K4's.
+// First-hit walks down a snapshot chain. first_hit_down is K6's
+// single-chain walk (chain_resolve.cu, resolve_vanilla); warp_first_hit_row
+// is K4's; batched_first_hit (K1's many-pages walk and K9's word entry) and
+// warp_first_hit (K1's few-pages walk) follow them.
 //
 // One thread owns page p of a chain stored as (C, N) planes. It walks
 // down from layer `top` and stops at the first layer whose allocation
 // entry is non-zero; that is the page's owner (-1 if no layer has it).
 // "First hit going down" is "last write wins going up", so the same walk
-// resolves a read (K6, top = length - 1) and plans a streaming merge (K9,
-// top = K - 1 of the merged layers). Neighbouring threads hold
-// neighbouring pages, so each layer's loads are coalesced along N, and a
-// page stops reading at its owner: only the layers above it are read.
+// resolves a read (top = length - 1) and plans a streaming merge (top =
+// K - 1 of the merged layers). Neighbouring threads hold neighbouring
+// pages, so each layer's loads are coalesced along N, and a page stops
+// reading at its owner: only the layers above it are read.
 
 #pragma once
 
@@ -45,5 +46,75 @@ __device__ __forceinline__ int warp_first_hit_row(const uint32_t* __restrict__ c
       return (int)(hw & FMT_PTR_MASK);
     }
   }
+  return -1;
+}
+
+// The batched first-hit walk of one page: U layers' loads are issued
+// before any of them is tested, so a thread keeps U loads in flight
+// instead of one (a dependent load per layer is latency-bound: at full
+// occupancy an SM then has ~2 KB in flight, and the card needs ~15 KB an
+// SM to stream at its memory rate). `load(layer)` returns the page's
+// entry of that layer, `hit(entry)` whether that layer owns the page.
+// Loads below layer 0 are clamped to layer 0 (the same sector, no extra
+// traffic) and never tested. Returns the owner (-1 on a miss); `*out` gets
+// the owner's entry, or on a miss layer 0's entry, which the last batch
+// loaded (its last slot is layer 0 whenever it reaches below layer 0).
+// A page reads at most U - 1 entries past its owner.
+template <int U, typename W, typename Load, typename Hit>
+__device__ __forceinline__ int batched_first_hit(int top, Load load, Hit hit,
+                                                 W* out) {
+  for (int base = top; base >= 0; base -= U) {
+    W w[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) w[j] = load(max(base - j, 0));
+    int s = -1;
+#pragma unroll
+    for (int j = U - 1; j >= 0; --j) {
+      // descending j: the last hit taken is the top-most layer
+      if (base - j >= 0 && hit(w[j])) {
+        s = base - j;
+        *out = w[j];
+      }
+    }
+    if (s >= 0) return s;
+    *out = w[U - 1];
+  }
+  return -1;
+}
+
+// The warp-cooperative first-hit walk of one page that also returns the
+// hit: in a round lane i issues kWarpWalkLoads loads at once, layers
+// base - i - 32j for j < kWarpWalkLoads, of `col` (layers `stride` words
+// apart); the ballot of ALLOCATED words, taken for j = 0, 1, ..., picks the
+// top-most hit with __ffs, and every lane gets the owner layer (-1 on a
+// miss) and `*word`, the owner's word (0 on a miss). A round covers 128
+// layers for one load's latency, so a 65-layer chain costs one round, not
+// 65 dependent loads (at one load a lane, as warp_first_hit_row, three).
+// All 32 lanes must call it with the same arguments.
+constexpr int kWarpWalkLoads = 4;
+
+__device__ __forceinline__ int warp_first_hit(const uint32_t* __restrict__ col,
+                                              int top, size_t stride,
+                                              uint32_t* word) {
+  const int lane = threadIdx.x & 31;
+  for (int base = top; base >= 0; base -= 32 * kWarpWalkLoads) {
+    uint32_t w[kWarpWalkLoads];
+#pragma unroll
+    for (int j = 0; j < kWarpWalkLoads; ++j) {
+      const int layer = base - 32 * j - lane;
+      w[j] = layer >= 0 ? __ldg(col + (size_t)layer * stride) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kWarpWalkLoads; ++j) {
+      const unsigned hit = __ballot_sync(0xffffffffu,
+                                         (w[j] & FMT_FLAG_ALLOCATED) != 0u);
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        *word = __shfl_sync(0xffffffffu, w[j], src);
+        return base - 32 * j - src;
+      }
+    }
+  }
+  *word = 0u;
   return -1;
 }

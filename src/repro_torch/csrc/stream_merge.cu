@@ -3,68 +3,189 @@
 //
 // Replaces the Pallas TPU kernel of
 // src/repro/kernels/stream_merge/stream_merge.py:
-//   merge  <- merge_pallas (_merge_kernel)
+//   merge          <- merge_pallas (_merge_kernel): (K, N) planes in
+//   merge_entries  the same scan on the packed (K, N, 2) L2 words, with
+//                  the merged entries out (the plan of core/chain.py's
+//                  plan_merge, which the TPU built with plane copies and a
+//                  gather around merge_pallas)
 //
-// What it computes: for K layers of a chain stored as (K, N) planes (an
-// allocation map and a pointer plane), per page the highest layer that has
-// it allocated (last write wins): src (the layer, -1 if none), found
-// (src >= 0) and ptr (that layer's pointer, 0 if none). It is the plan of
-// the paper's streaming job, which merges layers [0, K-1] into one base.
+// What it computes: per page, the highest of K layers that has it
+// allocated (last write wins): src (the layer, -1 if none) and found
+// (src >= 0). merge also gives that layer's pointer (0 if none);
+// merge_entries gives its two entry words, layer 0's on a miss (as
+// jnp.take_along_axis at max(src, 0) does). It is the plan of the paper's
+// streaming job, which merges layers [0, K-1] into one base.
 //
-// What bounds it on the card: device-memory bytes. A page does one compare
-// per 4-byte word it reads, far below the card's ratio of operations to
-// bytes.
+// What bounds it on the card: device-memory bytes, and the latency of
+// getting them. A page does one compare per entry it reads, far below the
+// card's ratio of operations to bytes; but a walk that issues one load,
+// tests it, then issues the next keeps one load a thread in flight, about
+// 2 KB an SM at full occupancy, where the card's 3.35 TB/s at ~600 ns
+// needs ~15 KB an SM. That is what held the first version at 17 % of its
+// bound.
 //
-// What the design does about it: one thread per page, coalesced along N.
-// "Last write wins going up" is "first hit going down", so each thread
-// walks down from layer K-1 and stops at its first allocated layer
-// (first_hit_down, the walk K6 uses), then reads one pointer. The TPU
-// kernel's fori_loop visits all K layers of every page and both planes;
-// here a page reads only the allocation words above its owner, and the
-// pointer plane once per hit. Outputs are 9 bytes a page.
+// What the design does about it: "last write wins going up" is "first hit
+// going down", so a thread walks its page(s) down from layer K-1 and stops
+// after the batch that holds its first hit; each batch issues U layers'
+// loads before testing any (batched_first_hit, chain_walk.cuh). A page
+// reads at most U - 1 entries past its owner. Neighbouring threads hold
+// neighbouring pages, so every layer's loads are coalesced along N.
+//   merge_entries reads each entry in place as one 8-byte load (ALLOCATED
+//   is word0's sign bit) and writes the hit entry, or layer 0's, straight
+//   into `merged`: no plane copy, no gather, one launch for the whole
+//   plan. A warp's load of one layer is 256 contiguous bytes. word1 comes
+//   with word0: a 32-byte sector holds four whole entries.
+//   merge reads a bool or int32 plane through one templated loader: a
+//   thread owns V neighbouring pages (4, so one load of a bool plane is 4
+//   bytes, of an int32 plane 16; 1 where 4 does not divide N), walks until
+//   all V have an owner, then reads one pointer per hit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain_walk.cuh"
 
+#ifndef FMT_FLAG_ALLOCATED
+#error "build through repro_torch.kernels._build: the format macros are missing"
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
 
-template <typename A>
-__global__ void merge_kernel(const A* __restrict__ alloc,
+template <int U>
+__global__ void merge_entries_kernel(const uint2* __restrict__ sub,
+                                     uint2* __restrict__ merged,
+                                     uint8_t* __restrict__ found,
+                                     int32_t* __restrict__ src, int K, int N) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= N) return;
+  const uint2* col = sub + p;
+  uint2 e = make_uint2(0u, 0u);
+  const int s = batched_first_hit<U>(
+      K - 1, [&](int layer) { return __ldg(col + (size_t)layer * N); },
+      [](uint2 w) { return (w.x & FMT_FLAG_ALLOCATED) != 0u; }, &e);
+  merged[p] = e;
+  found[p] = s >= 0 ? 1 : 0;
+  src[p] = s;
+}
+
+// V neighbouring allocation entries of E bytes (1: bool, 4: int32), read
+// as one load of E * V bytes.
+template <int E, int V>
+struct Entries {
+  static constexpr int kBytes = E * V;
+  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ at) {
+    if constexpr (kBytes == 16) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(at));
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    } else if constexpr (kBytes == 4) {
+      w[0] = __ldg(reinterpret_cast<const uint32_t*>(at));
+    } else {
+      static_assert(kBytes == 1, "bool x1, bool x4, int32 x1, int32 x4");
+      w[0] = __ldg(at);
+    }
+  }
+
+  __device__ __forceinline__ bool allocated(int i) const {
+    if constexpr (E == 4) return w[i] != 0u;
+    else return ((w[i / 4] >> (8 * (i % 4))) & 0xffu) != 0u;
+  }
+};
+
+template <int E, int V, int U>
+__global__ void merge_kernel(const uint8_t* __restrict__ alloc,
                              const int32_t* __restrict__ ptrs,
                              uint8_t* __restrict__ found,
                              int32_t* __restrict__ ptr,
                              int32_t* __restrict__ src, int K, int N) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= N) return;
-  const int s = first_hit_down(alloc, K - 1, N, p);
-  src[p] = s;
-  found[p] = s >= 0 ? 1 : 0;
-  ptr[p] = s >= 0 ? ptrs[(size_t)s * N + p] : 0;
+  const long long p0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (p0 >= N) return;                     // the host makes V divide N
+  const uint8_t* col = alloc + p0 * E;
+  const size_t row = (size_t)N * E;
+  int s[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) s[i] = -1;
+  bool open = true;
+  for (int base = K - 1; base >= 0 && open; base -= U) {
+    Entries<E, V> x[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) x[j].load(col + (size_t)max(base - j, 0) * row);
+    open = false;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int c = -1;
+#pragma unroll
+      for (int j = U - 1; j >= 0; --j) {
+        if (base - j >= 0 && x[j].allocated(i)) c = base - j;
+      }
+      if (s[i] < 0) s[i] = c;
+      open |= s[i] < 0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const long long p = p0 + i;
+    src[p] = s[i];
+    found[p] = s[i] >= 0 ? 1 : 0;
+    ptr[p] = s[i] >= 0 ? ptrs[(size_t)s[i] * N + p] : 0;
+  }
+}
+
+unsigned int blocks_for(long long threads) {
+  return (unsigned int)((threads + kThreads - 1) / kThreads);
+}
+
+template <int E, int V, int U>
+void launch_merge(const void* alloc, const void* ptrs, void* found, void* ptr,
+                  void* src, int K, int N, cudaStream_t st) {
+  merge_kernel<E, V, U><<<blocks_for(N / V), kThreads, 0, st>>>(
+      (const uint8_t*)alloc, (const int32_t*)ptrs, (uint8_t*)found,
+      (int32_t*)ptr, (int32_t*)src, K, N);
 }
 
 }  // namespace
 
-// alloc_bytes: 1 (bool) or 4 (int32) per allocation-map entry.
-extern "C" int merge(const void* alloc, const void* ptrs, void* found,
-                     void* ptr, void* src, int K, int N, int alloc_bytes,
-                     void* stream) {
+// The plan on the packed (K, N, 2) words. unroll: layers a batch, 4 or 8.
+extern "C" int merge_entries(const void* sub, void* merged, void* found,
+                             void* src, int K, int N, int unroll,
+                             void* stream) {
   (void)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = (unsigned int)((N + kThreads - 1) / kThreads);
-  if (alloc_bytes == 1) {
-    merge_kernel<uint8_t><<<blocks, kThreads, 0, st>>>(
-        (const uint8_t*)alloc, (const int32_t*)ptrs, (uint8_t*)found,
-        (int32_t*)ptr, (int32_t*)src, K, N);
-  } else if (alloc_bytes == 4) {
-    merge_kernel<int32_t><<<blocks, kThreads, 0, st>>>(
-        (const int32_t*)alloc, (const int32_t*)ptrs, (uint8_t*)found,
-        (int32_t*)ptr, (int32_t*)src, K, N);
+  const unsigned int blocks = blocks_for(N);
+  if (unroll == 4) {
+    merge_entries_kernel<4><<<blocks, kThreads, 0, st>>>(
+        (const uint2*)sub, (uint2*)merged, (uint8_t*)found, (int32_t*)src, K, N);
+  } else if (unroll == 8) {
+    merge_entries_kernel<8><<<blocks, kThreads, 0, st>>>(
+        (const uint2*)sub, (uint2*)merged, (uint8_t*)found, (int32_t*)src, K, N);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The scan on (K, N) planes. alloc_bytes: 1 (bool) or 4 (int32) per
+// allocation-map entry; vec: pages a thread (1 or 4), which must divide N,
+// with the plane aligned to vec * alloc_bytes; unroll: layers a batch (8,
+// 16 or 32).
+extern "C" int merge(const void* alloc, const void* ptrs, void* found,
+                     void* ptr, void* src, int K, int N, int alloc_bytes,
+                     int vec, int unroll, void* stream) {
+  (void)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define SNAP_MERGE(E, V, U)                                             \
+  if (alloc_bytes == E && vec == V && unroll == U) {                    \
+    launch_merge<E, V, U>(alloc, ptrs, found, ptr, src, K, N, st);      \
+    return (int)cudaGetLastError();                                     \
+  }
+  SNAP_MERGE(1, 1, 8) SNAP_MERGE(1, 1, 16) SNAP_MERGE(1, 1, 32)
+  SNAP_MERGE(1, 4, 8) SNAP_MERGE(1, 4, 16) SNAP_MERGE(1, 4, 32)
+  SNAP_MERGE(4, 1, 8) SNAP_MERGE(4, 1, 16) SNAP_MERGE(4, 1, 32)
+  SNAP_MERGE(4, 4, 8) SNAP_MERGE(4, 4, 16) SNAP_MERGE(4, 4, 32)
+#undef SNAP_MERGE
+  return (int)cudaErrorInvalidValue;
 }

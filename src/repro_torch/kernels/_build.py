@@ -49,11 +49,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: argtypes of every C launcher; each returns its cudaGetLastError() code.
-#: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``);
+#: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``),
+#: ``merge_entries`` and ``merge`` both launch K9 (counted as ``merge``);
 #: ``paged_attention``/``fused_chain_attention`` launch a split pass and its
 #: combine, counted as one launch.
 _SIGNATURES = {
-    "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P],
@@ -62,7 +63,8 @@ _SIGNATURES = {
     "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _P],
-    "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "merge_entries": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,8 @@
 
 The counterparts of ``repro.kernels.chain_resolve.chain_resolve``'s
 ``resolve_vanilla_fleet_pallas`` and ``resolve_direct_fleet_pallas`` (the
-stacked (T, C, P) fleet layout), and ``resolve_vanilla_pallas`` and
+stacked (T, C, P) fleet layout; the walk also reads word0 in place, as
+the strided view of the packed words), and ``resolve_vanilla_pallas`` and
 ``resolve_direct_pallas`` (one chain's (C, N) planes):
 hand-written CUDA C++ in ``csrc/chain_resolve.cu``, built for Hopper by
 ``kernels._build``. The wrappers here take CUDA tensors only, check what
@@ -28,11 +29,53 @@ def _check_words(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def resolve_vanilla_fleet_cuda(w0: torch.Tensor, lengths: torch.Tensor):
+#: T x P at or below which K1 walks a page with a warp (128 layers a
+#: round, latency-bound pages: the decode state); above it, with a thread
+#: (U layers' loads in flight, bandwidth-bound pages: a fleet read). Set by
+#: chip_smoke.py's walk sweep (K1's row): the warp walk wins up to 16,384
+#: pages, the thread walk from 65,536.
+WARP_WALK_MAX_PAGES = 16_384
+#: K1's walks: a thread a page, a warp a page (128 layers a round)
+WALKS = {"thread": 0, "warp": 1}
+
+
+def fleet_walk(t: int, p: int) -> str:
+    """K1's walk for a (T, C, P) call, from the shape alone: no length is
+    read, so choosing costs no sync."""
+    return "warp" if t * p <= WARP_WALK_MAX_PAGES else "thread"
+
+
+def word0_stride(w0: torch.Tensor) -> int:
+    """Element stride of a (T, C, P) word0 K1 takes: 1 for a contiguous
+    plane, 2 for the ``l2[..., 0]`` view of contiguous (T, C, P, 2) words
+    (strides (2CP, 2P, 2)). Strides of size-1 axes are never used. Raises
+    on any other layout."""
+    t, c, p = w0.shape
+    for es in (1, 2):
+        want = (es * c * p, es * p, es)
+        if all(n <= 1 or s == w for n, s, w in zip(w0.shape, w0.stride(), want)):
+            return es
+    raise ValueError(
+        f"resolve_vanilla_fleet: word0 strides {tuple(w0.stride())} are "
+        f"neither a (T, C, P) plane's nor the l2[..., 0] view's")
+
+
+def resolve_vanilla_fleet_cuda(w0: torch.Tensor, lengths: torch.Tensor, *,
+                               walk: str | None = None):
     """Stacked first-hit chain walk: ``w0`` (T, C, P) int32 packed word0,
-    ``lengths`` (T,) int32. Returns ``(owner (T, P) int32 [-1 on a miss],
-    hit (T, P) int32 — the owner's raw word0, 0 on a miss)``."""
-    _check_words("resolve_vanilla_fleet", w0, lengths)
+    a contiguous plane or the strided ``l2[..., 0]`` view of (T, C, P, 2)
+    words (``word0_stride``), ``lengths`` (T,) int32. Returns ``(owner
+    (T, P) int32 [-1 on a miss], hit (T, P) int32 — the owner's raw word0,
+    0 on a miss)``. ``walk`` ("thread" or "warp") overrides
+    ``fleet_walk``'s pick (for measurements)."""
+    if w0.dim() != 3:
+        raise ValueError("resolve_vanilla_fleet: word0 must be (T, C, P)")
+    es = word0_stride(w0)
+    if not w0.is_cuda:
+        raise ValueError(f"resolve_vanilla_fleet: expected CUDA tensors, got {w0.device}")
+    if w0.dtype != torch.int32:
+        raise TypeError(f"resolve_vanilla_fleet: expected int32 words, got {w0.dtype}")
+    _check_words("resolve_vanilla_fleet", lengths)
     t, c, p = w0.shape
     if lengths.shape != (t,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({t},)")
@@ -43,7 +86,8 @@ def resolve_vanilla_fleet_cuda(w0: torch.Tensor, lengths: torch.Tensor):
     lib = _build.library()
     code = lib.resolve_vanilla_fleet(
         w0.data_ptr(), lengths.data_ptr(), owner.data_ptr(), hit.data_ptr(),
-        t, c, p, torch.cuda.current_stream(w0.device).cuda_stream)
+        t, c, p, es, WALKS[walk or fleet_walk(t, p)],
+        torch.cuda.current_stream(w0.device).cuda_stream)
     _build.check_launch("resolve_vanilla_fleet", code)
     return owner, hit
 

@@ -10,7 +10,8 @@ not have.
 from __future__ import annotations
 
 from repro_torch.kernels.stream_merge import ref
-from repro_torch.kernels.stream_merge.stream_merge import merge_cuda
+from repro_torch.kernels.stream_merge.stream_merge import (merge_cuda,
+                                                         merge_entries_cuda)
 
 
 def merge(alloc, ptrs, bfi=None):
@@ -18,3 +19,10 @@ def merge(alloc, ptrs, bfi=None):
     if alloc.is_cuda:
         return merge_cuda(alloc, ptrs)
     return ref.merge_ref(alloc, ptrs, bfi)
+
+
+def merge_entries(sub):
+    """(K, N, 2) packed words → ``(merged (N, 2), found (N,), src (N,))``."""
+    if sub.is_cuda:
+        return merge_entries_cuda(sub)
+    return ref.merge_entries_ref(sub)

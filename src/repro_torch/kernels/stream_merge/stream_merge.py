@@ -2,10 +2,13 @@
 
 The counterpart of ``repro.kernels.stream_merge.stream_merge``'s
 ``merge_pallas``: hand-written CUDA C++ in ``csrc/stream_merge.cu``, built
-for Hopper by ``kernels._build``. The wrapper takes CUDA tensors only,
-checks what the kernel takes, allocates the outputs, launches on the
-current stream without synchronising, and counts the launch under
-``merge``. ``ops`` dispatches CPU tensors to the plain version in ``ref``.
+for Hopper by ``kernels._build``, with two entries. ``merge_entries_cuda``
+takes the packed (K, N, 2) L2 words and returns the whole merge plan (the
+entry ``core.chain.plan_merge`` calls); ``merge_cuda`` keeps the JAX
+signature, (K, N) planes in. The wrappers take CUDA tensors only, check
+what the kernel takes, allocate the outputs, launch on the current stream
+without synchronising, and count the launch under ``merge``. ``ops``
+dispatches CPU tensors to the plain versions in ``ref``.
 """
 
 from __future__ import annotations
@@ -14,17 +17,82 @@ import torch
 
 from repro_torch.kernels import _build
 
+#: layers whose loads a thread of the word entry issues at once (4 or 8;
+#: chip_smoke.py's K9 row times both)
+ENTRIES_UNROLL = 4
+#: the planes entry: pages a thread (one load of their allocation entries
+#: a layer; 1 where 4 does not fit N), and layers a batch by entry bytes
+#: (bool 1, int32 4), 32 bytes of a page's entries in flight a batch
+#: (chip_smoke.py's K9 row times a bool plane at each choice built)
+PLANES_VEC = 4
+PLANES_UNROLL = {1: 32, 4: 8}
+VECS, UNROLLS = (1, 4), (8, 16, 32)
 
-def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor):
+
+def _check(name: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expected CUDA tensors, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def merge_entries_cuda(sub: torch.Tensor, *, unroll: int | None = None):
+    """The merge plan of K layers from their packed words: ``sub`` (K, N, 2)
+    int32, contiguous. Returns ``(merged (N, 2) int32 — the entry of the
+    highest layer that has the page allocated, layer 0's where none has,
+    found (N,) bool, src (N,) int32 [-1 where not found])``. ``unroll``
+    overrides ``ENTRIES_UNROLL`` (for measurements)."""
+    _check("merge_entries", sub)
+    if sub.dtype != torch.int32:
+        raise TypeError(f"merge_entries: expected int32 words, got {sub.dtype}")
+    if sub.dim() != 3 or sub.shape[2] != 2:
+        raise ValueError("merge_entries: words must be (K, N, 2)")
+    k, n, _ = sub.shape
+    if k == 0:
+        raise ValueError("merge_entries: needs at least one layer")
+    dev = sub.device
+    merged = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    found = torch.empty((n,), dtype=torch.bool, device=dev)
+    src = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return merged, found, src
+    code = _build.library().merge_entries(
+        sub.data_ptr(), merged.data_ptr(), found.data_ptr(), src.data_ptr(),
+        k, n, unroll or ENTRIES_UNROLL, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("merge", code)
+    return merged, found, src
+
+
+def planes_config(alloc: torch.Tensor, vec: int | None = None,
+                  unroll: int | None = None) -> tuple[int, int]:
+    """``(pages a thread, layers a batch)`` of the planes entry. The pages
+    a thread must divide N, with the plane aligned to their bytes: the
+    default takes 1 where 4 does not fit; a forced pick must be one the
+    kernel was built for and must fit, or it raises."""
+    esz, n = alloc.element_size(), alloc.shape[1]
+
+    def fits(v):
+        return n % v == 0 and alloc.data_ptr() % (v * esz) == 0
+
+    if vec is None:
+        vec = PLANES_VEC if fits(PLANES_VEC) else 1
+    elif vec not in VECS or not fits(vec):
+        raise ValueError(f"merge: {vec} pages a thread do not fit N = {n}")
+    unroll = unroll or PLANES_UNROLL[esz]
+    if unroll not in UNROLLS:
+        raise ValueError(f"merge: {unroll} layers a batch are not built")
+    return vec, unroll
+
+
+def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, *,
+               vec: int | None = None, unroll: int | None = None):
     """Per page, the highest allocated of K layers: ``alloc`` (K, N) bool
     or int32 (tested ``!= 0``), ``ptrs`` (K, N) int32. Returns ``(found
     (N,) bool, ptr (N,) int32 [0 where not found], src (N,) int32 [-1
-    where not found])``."""
+    where not found])``. ``vec``/``unroll`` override ``planes_config``'s
+    pick (for measurements)."""
     for x in (alloc, ptrs):
-        if not x.is_cuda:
-            raise ValueError(f"merge: expected CUDA tensors, got {x.device}")
-        if not x.is_contiguous():
-            raise ValueError("merge: inputs must be contiguous")
+        _check("merge", x)
     if alloc.dtype not in (torch.bool, torch.int32):
         raise TypeError(f"merge: alloc must be bool or int32, got {alloc.dtype}")
     if ptrs.dtype != torch.int32:
@@ -40,9 +108,10 @@ def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor):
     src = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return found, ptr, src
+    v, u = planes_config(alloc, vec, unroll)
     code = _build.library().merge(
         alloc.data_ptr(), ptrs.data_ptr(), found.data_ptr(), ptr.data_ptr(),
-        src.data_ptr(), k, n, alloc.element_size(),
+        src.data_ptr(), k, n, alloc.element_size(), v, u,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("merge", code)
     return found, ptr, src

@@ -103,6 +103,52 @@ def test_cpu_dispatch_takes_the_plain_version():
 
 
 
+@pytest.mark.parametrize("c,p", [(1, 16), (7, 33), (64, 128)])
+def test_vanilla_fleet_on_strided_words_matches_jax(c, p):
+    """``ops.resolve_vanilla_fleet`` on the strided ``l2[..., 0]`` view of
+    the packed (T, C, P, 2) words (what ``resolve_vanilla_stacked`` now
+    passes, with no plane copy) against the Pallas kernel in interpret mode
+    on the same words; a length-0 tenant and a full chain ride along."""
+    w0, w1, lengths = packed_stack(c * 100 + p + 7, 5, c, p)
+    l2 = torch.stack([tfmt.words(w0), tfmt.words(w1)], dim=-1)
+    view = l2[..., 0]
+    assert not view.is_contiguous() and tcr.word0_stride(view) == 2
+    o_pal, h_pal = resolve_vanilla_fleet_pallas(jnp.asarray(w0), jnp.asarray(lengths),
+                                                interpret=True)
+    before = dict(_build.LAUNCHES)
+    o, h = tops.resolve_vanilla_fleet(view, torch.as_tensor(lengths))
+    assert _build.LAUNCHES == before
+    assert lengths[0] == 0 and lengths[-1] == c
+    np.testing.assert_array_equal(o.numpy(), np.asarray(o_pal))
+    np.testing.assert_array_equal(h.numpy(), _i32(h_pal))
+
+
+def test_vanilla_fleet_wrapper_refuses_other_layouts():
+    """The CUDA wrapper takes a contiguous (T, C, P) plane or the
+    ``l2[..., 0]`` view of contiguous words, and raises on any other view
+    before it looks at the device."""
+    l2 = torch.zeros((3, 4, 8, 2), dtype=torch.int32)
+    lengths = torch.full((3,), 4, dtype=torch.int32)
+    assert tcr.word0_stride(l2[..., 0].contiguous()) == 1
+    assert tcr.word0_stride(l2[..., 0]) == 2
+    assert tcr.word0_stride(l2[1:2, ..., 0]) == 2      # a one-tenant view
+    for bad in (l2[:, :3, :, 0], l2[:, :, ::2, 0], l2[..., 0].transpose(1, 2),
+                l2.transpose(0, 1)[..., 0]):
+        with pytest.raises(ValueError, match="strides"):
+            tcr.resolve_vanilla_fleet_cuda(bad, lengths[:bad.shape[0]])
+    with pytest.raises(ValueError, match="CUDA"):
+        tcr.resolve_vanilla_fleet_cuda(l2[..., 0], lengths)
+
+
+def test_fleet_walk_is_picked_from_the_shape():
+    """A warp a page at the decode state's few pages, a thread a page at a
+    fleet read's million."""
+    assert tcr.fleet_walk(8, 128) == "warp"
+    assert tcr.fleet_walk(64, 16_384) == "thread"
+    assert tcr.fleet_walk(1, tcr.WARP_WALK_MAX_PAGES) == "warp"
+    assert tcr.fleet_walk(1, tcr.WARP_WALK_MAX_PAGES + 1) == "thread"
+
+
 @pytest.mark.parametrize("c,n", [(1, 128), (4, 256), (16, 640), (64, 128)])
 @pytest.mark.parametrize("density", [0.05, 0.5, 1.0])
 def test_vanilla_single_chain_matches_jax(c, n, density):

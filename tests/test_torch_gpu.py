@@ -334,3 +334,89 @@ def test_merge_kernel_bit_exact(cuda, k, n, alloc_dtype):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert int(got[2][0]) == -1 and int(got[2][-1]) == k - 1
+
+
+def device_entries(cuda, seed, k, n, density):
+    """(K, N, 2) packed words made on the card (K x N reaches 134 M
+    entries); page 0 allocated in no layer, the last page in every layer."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    alloc = torch.rand((k, n), generator=g, device=cuda) < density
+    alloc[:, 0] = False
+    alloc[:, -1] = True
+    return fmt.pack_entry(
+        torch.randint(0, 1 << 28, (k, n), generator=g, device=cuda),
+        torch.randint(0, k, (k, n), generator=g, device=cuda),
+        allocated=alloc,
+        bfi_valid=torch.rand((k, n), generator=g, device=cuda) < 0.7,
+        zero=torch.rand((k, n), generator=g, device=cuda) < 0.1)
+
+
+@pytest.mark.parametrize("k", [1, 7, 64, 512])
+@pytest.mark.parametrize("n", [33, 4_097, 262_144])
+def test_merge_entries_kernel_bit_exact(cuda, k, n):
+    """K9's word entry at both batch widths against its plain version,
+    with an all-miss and an all-hit page column; each call counts one
+    launch under ``merge``."""
+    sub = device_entries(cuda, k * 31 + n, k, n, 3.0 / k)
+    want = sm_ref.merge_entries_ref(sub)
+    for unroll in (4, 8):
+        before = _build.LAUNCHES["merge"]
+        got = sm.merge_entries_cuda(sub, unroll=unroll)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["merge"] == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        assert int(got[2][0]) == -1 and int(got[2][-1]) == k - 1
+        assert torch.equal(got[0][0], sub[0, 0])
+
+
+@pytest.mark.parametrize("alloc_dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("vec", sm.VECS)
+@pytest.mark.parametrize("unroll", sm.UNROLLS)
+def test_merge_planes_every_config_bit_exact(cuda, alloc_dtype, vec, unroll):
+    """K9's planes entry at every (pages a thread, layers a batch) it was
+    built for, bool and int32, at K = 1, 7 and 500."""
+    for k, n in ((1, 4_096), (7, 4_112), (500, 65_536)):
+        sub = device_entries(cuda, k + vec + unroll, k, n, 2.0 / k)
+        alloc = fmt.entry_allocated(sub).to(alloc_dtype)
+        ptrs = fmt.entry_ptr(sub)
+        got = sm.merge_cuda(alloc, ptrs, vec=vec, unroll=unroll)
+        torch.cuda.synchronize()
+        want = sm_ref.merge_ref(alloc, ptrs)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def deep_fleet_words(cuda, t, c, p, deep):
+    """(T, C, P, 2) words: tenant 0 free (length 0), tenant 1 a chain
+    ``deep`` layers long whose pages are owned near its bottom, the rest
+    random lengths, the last tenant full."""
+    rng = np.random.default_rng(t * c + p)
+    w0, w1 = packed_words(rng, t, c, p, 10_000, 0.02)
+    lengths = rng.integers(1, c + 1, t).astype(np.int32)
+    lengths[0], lengths[-1] = 0, c
+    if t > 2:
+        lengths[1] = deep
+        w0[1, 2:] &= ~fmt.FLAG_ALLOCATED_I32
+    l2 = torch.stack([w0, w1], dim=-1).to(cuda)
+    return l2, torch.as_tensor(lengths, device=cuda)
+
+
+@pytest.mark.parametrize("t,c,p", [(8, 128, 128), (64, 512, 16_384), (6, 70, 333)])
+def test_vanilla_fleet_walks_and_layouts_bit_exact(cuda, t, c, p):
+    """K1 on the contiguous plane and on the strided ``l2[..., 0]`` view,
+    with each walk forced and with the planner's pick, against its plain
+    version: the decode state's shape with a 65-deep tenant, the fleet
+    read's shape and an odd P."""
+    l2, lens = deep_fleet_words(cuda, t, c, p, deep=65)
+    want = cr_ref.resolve_vanilla_fleet_ref(l2[..., 0], lens)
+    for w0 in (l2[..., 0], l2[..., 0].contiguous()):
+        for walk in (*cr.WALKS, None):
+            before = _build.LAUNCHES["resolve_vanilla_fleet"]
+            got = cr.resolve_vanilla_fleet_cuda(w0, lens, walk=walk)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["resolve_vanilla_fleet"] == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        del w0
+    assert bool((want[0][0] == -1).all())            # the length-0 tenant
