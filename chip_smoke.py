@@ -62,8 +62,11 @@ Phases, each printing its own lines:
    tenants, then the device read is zeros exactly where cold,
    ``read_tiered`` and the read after ``promote_tenants`` equal the read
    before, and ``free_tenant(store=)`` returns every host row.
-   ``fleet.read(auto)`` and ``fleet.read(pallas_vanilla)`` are profiled
-   with K1, K2, K5 and the plane copies apart. K5 is held against its plain
+   ``fleet.read(auto)`` and ``fleet.read(pallas_vanilla)`` are timed with
+   CUDA events and profiled with K1, K2, K5 and the copies apart (the
+   profiler's split is an estimate where it dropped events; these
+   measurements and a profile's retakes leave the launch counts as they
+   were). K5 is held against its plain
    version and timed on the vanilla fleet's read; K1 likewise at the
    fleet's shape on the strided words (beside the contiguous plane and the
    copy it no longer pays), then swept over its walks at P = 16-16,384.
@@ -74,12 +77,11 @@ Phases, each printing its own lines:
    every method the format serves) is bit-identical to the read before
    streaming, and YCSB-C's mean walk falls from ~470 lookups to at most 2.
    ``plan_merge`` (one launch of K9's word entry on the packed words) is
-   timed on the host clock and with CUDA events, and held bit-exact against the planes-then-
-   ``merge_ref`` composition it replaced; K9's word entry on the disk's own
-   (499, 262,144, 2) words and its planes entry on the bool planes are
-   each held against their plain versions and timed against their own
-   bounds, with the word entry at 4 and 8 layers a batch and the planes
-   entry at each (pages a thread, layers a batch) beside them.
+   timed on the host clock and with CUDA events, and held bit-exact
+   against the planes-then-``merge_ref`` composition it replaced; K9's
+   word entry on the disk's own (499, 262,144, 2) words and its planes
+   entry on the bool planes are each held against their plain versions
+   and timed against their own bounds.
    (b) a fleet: the phase-7 fleet, one format at a time, streamed
    stop-the-world (``stream_tenants``, one call) and, on a copy, budgeted
    (``MaintenanceScheduler``, 4 tenants a tick, drained); after each,
@@ -109,6 +111,7 @@ directory without the repo's ``src/``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -344,30 +347,42 @@ READ_GROUPS = {"gather (K5/K8)": ("gather_rows_kernel",),
                "direct (K2)": ("direct_fleet_kernel",),
                "single-chain resolve (K6/K7)": ("vanilla_kernel", "direct_kernel"),
                # a strided .contiguous() (K2's two word planes) or a cast
-               "plane copies": ("direct_copy_kernel",),
+               "copies and casts": ("direct_copy_kernel",),
                "other copies and indexing": ("copy", "Copy", "elementwise", "index",
                                              "Index", "gather", "scatter", "where",
                                              "fill")}
 
 
-def profile_calls(torch, fn, n, wall_ms, groups, tries=1):
-    """Kernel time by kernel over ``n`` calls of ``fn`` under torch.profiler.
-    The device idle share compares the device time per call with the
+@contextlib.contextmanager
+def uncounted(_build):
+    """Launches made inside are measurements, not the main path's run: the
+    launch counts are put back as they were on the way out."""
+    before = dict(_build.LAUNCHES)
+    try:
+        yield
+    finally:
+        _build.LAUNCHES.update(before)
+
+
+def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None):
+    """Kernel time by kernel over ``n`` calls of ``fn`` under torch.profiler:
+    a kernel's ms a call is its total over the trace divided by ``n``. The
+    device idle share compares the device time per call with the
     unprofiled ``wall_ms`` (the profiler slows the host, not the kernels).
     The profiler now and then drops device events: a call whose ``fn``
-    does the same work every time passes ``tries`` > 1, and a trace with
-    no device events, or with a kernel seen a number of times that is not
-    a multiple of ``n``, is taken again, up to ``tries`` times
-    (``complete`` says whether the last one was whole). A kernel's ms a
-    call is its mean ms an event times its events a call, ``count / n``
-    rounded up, so a trace that lost fewer than half of a kernel's events
-    still counts each launch once."""
+    does the same work every time passes ``tries`` > 1 and the launch
+    counts (``counts``, the ``_build`` module), and a trace with no device
+    events, or with a kernel seen a number of times that is not a multiple
+    of ``n``, is taken again, up to ``tries`` times, its launches left
+    uncounted. ``complete`` says whether the last trace was whole; a split
+    from an incomplete one is an estimate (it misses the dropped events)."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with (uncounted(counts) if attempt else contextlib.nullcontext()), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 out = fn()
                 del out
@@ -384,8 +399,7 @@ def profile_calls(torch, fn, n, wall_ms, groups, tries=1):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        per_call = us / 1e3 / e.count * -(-e.count // n)
-        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + per_call
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3 / n
     device_ms = sum(by_kernel.values())
     by_group = {g: 0.0 for g in groups}
     by_group["other"] = 0.0
@@ -897,7 +911,7 @@ def store_phase(torch, mods):
             if depth == max(DISK_DEPTHS) and key in PROFILED_DD:
                 dd[key]["profile"] = profile_calls(
                     torch, lambda: store.materialize(c, method=m), 2, ms,
-                    READ_GROUPS, tries=3)
+                    READ_GROUPS, tries=3, counts=_build)
         del ref
         # YCSB-C: one batch of uniform random clusters, every method
         yref, _ = store.read(sca, ycsb, method="direct")
@@ -1078,15 +1092,23 @@ def fleet_phase(torch, mods):
         van_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids, method="vanilla"), 3)
         read_profile = profile_calls(
             torch, lambda: fleet_lib.read(fl, ids, method="auto"), 2, auto_ms,
-            READ_GROUPS, tries=3)
-        walk_read, _ = fleet_lib.read(fl, ids, method="pallas_vanilla")
-        require(_same(torch, walk_read, pre), f"{name}: pallas_vanilla read differs")
-        del walk_read
-        pv_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids,
-                                                       method="pallas_vanilla"), 3)
-        pv_profile = profile_calls(
-            torch, lambda: fleet_lib.read(fl, ids, method="pallas_vanilla"), 2,
-            pv_ms, READ_GROUPS, tries=3)
+            READ_GROUPS, tries=3, counts=_build)
+        # measurements beside the phase's own reads: device ms of both kernel
+        # reads by CUDA events, and the pallas_vanilla read checked and split
+        with uncounted(_build):
+            auto_dev_ms = timed_ms(
+                torch, lambda: fleet_lib.read(fl, ids, method="auto"), 5, flush)
+            walk_read, _ = fleet_lib.read(fl, ids, method="pallas_vanilla")
+            require(_same(torch, walk_read, pre),
+                    f"{name}: pallas_vanilla read differs")
+            del walk_read
+            pv_ms = _host_ms(torch, lambda: fleet_lib.read(
+                fl, ids, method="pallas_vanilla"), 3)
+            pv_dev_ms = timed_ms(torch, lambda: fleet_lib.read(
+                fl, ids, method="pallas_vanilla"), 5, flush)
+            pv_profile = profile_calls(
+                torch, lambda: fleet_lib.read(fl, ids, method="pallas_vanilla"),
+                2, pv_ms, READ_GROUPS, tries=3, counts=_build)
         store = TieredStore(CLUSTER, torch.float32, initial_rows=2 * DEMOTE_ROWS)
         demote = []
         for _ in range(DEMOTE_CALLS):
@@ -1134,8 +1156,10 @@ def fleet_phase(torch, mods):
               "read_auto_ms": auto_ms, "read_auto_GBps": out_bytes / auto_ms / 1e6,
               "read_vanilla_ms": van_ms,
               "read_vanilla_GBps": out_bytes / van_ms / 1e6,
+              "read_auto_device_ms": auto_dev_ms,
               "read_auto_profile": read_profile,
               "read_pallas_vanilla_ms": pv_ms,
+              "read_pallas_vanilla_device_ms": pv_dev_ms,
               "read_pallas_vanilla_profile": pv_profile,
               "auto_equals_vanilla": True, "demote": demote, "promote": promote,
               "device_read_zero_where_cold": True, "tiered_equals_before": True,
@@ -1313,14 +1337,12 @@ def disk_maintenance(torch, mods):
                                 lambda: sm_ref.merge_ref(alloc, ptrs),
                                 esz * walked + 4 * hits + 9 * n, 0, None, flush)
             row.update(
-                entries_unroll=sm.ENTRIES_UNROLL,
                 bound_full_scan_ms=1e3 * (8 * k * n + 13 * n) / HBM_BYTES_PER_S,
                 planes_ms=planes["ms"], planes_bound_ms=planes["bound_ms"],
                 planes_plain_ms=planes["plain_ms"], planes_bytes=planes["bytes"],
                 planes_config=list(sm.planes_config(alloc)),
                 planes_bound_full_scan_ms=1e3 * ((esz + 4) * k * n + 9 * n)
-                / HBM_BYTES_PER_S,
-                **merge_sweeps(torch, sm, sub, alloc, ptrs, flush))
+                / HBM_BYTES_PER_S)
             measured = [row]
             emit({"phase": "maintenance", "part": "disk", "kernel_shapes": {
                 "merge_K_N": [k, n], "alloc_dtype": str(alloc.dtype),
@@ -1375,30 +1397,6 @@ def disk_maintenance(torch, mods):
         for key in ("plan_merge_ms", "plan_merge_device_ms", "plane_copies_ms"):
             measured[0][key] = out["vanilla"][key]
     return measured, total, per_call
-
-
-def merge_sweeps(torch, sm, sub, alloc, ptrs, flush):
-    """K9's word entry at 4 and 8 layers a batch, and its planes entry on
-    the bool planes at each (pages a thread, layers a batch) built, each
-    call held bit-exact against the first."""
-    want_e = sm.merge_entries_cuda(sub, unroll=4)
-    unroll = {}
-    for u in (4, 8):
-        def call():
-            return sm.merge_entries_cuda(sub, unroll=u)
-        require(all(torch.equal(a, b) for a, b in zip(call(), want_e)),
-                f"K9 word entry at {u} layers a batch differs")
-        unroll[u] = timed_ms(torch, call, 20, flush)
-    want_p = sm.merge_cuda(alloc, ptrs, vec=1, unroll=8)
-    planes = {}
-    for v in sm.VECS:
-        for u in sm.UNROLLS:
-            def call():
-                return sm.merge_cuda(alloc, ptrs, vec=v, unroll=u)
-            require(all(torch.equal(a, b) for a, b in zip(call(), want_p)),
-                    f"K9 planes entry at {v} pages x {u} layers differs")
-            planes[f"{v}x{u}"] = timed_ms(torch, call, 20, flush)
-    return dict(unroll_sweep=unroll, planes_sweep=planes)
 
 
 def _clone_fleet(fl):

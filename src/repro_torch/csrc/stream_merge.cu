@@ -34,11 +34,14 @@
 //   is word0's sign bit) and writes the hit entry, or layer 0's, straight
 //   into `merged`: no plane copy, no gather, one launch for the whole
 //   plan. A warp's load of one layer is 256 contiguous bytes. word1 comes
-//   with word0: a 32-byte sector holds four whole entries.
+//   with word0: a 32-byte sector holds four whole entries. U = 4 (it beat
+//   8 on an H100 at the depth-500 disk; PERF.md).
 //   merge reads a bool or int32 plane through one templated loader: a
 //   thread owns V neighbouring pages (4, so one load of a bool plane is 4
-//   bytes, of an int32 plane 16; 1 where 4 does not divide N), walks until
-//   all V have an owner, then reads one pointer per hit.
+//   bytes, of an int32 plane 16; 1 where 4 does not divide N), walks 32
+//   layers a batch until all V have an owner, then reads one pointer per
+//   hit. 4 pages x 32 layers won a sweep of {1, 4} x {8, 16, 32} on a bool
+//   plane (PERF.md); the int32 plane takes the same and was not timed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,8 +55,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kEntriesUnroll = 4;   // U of the word entry
+constexpr int kPlanesUnroll = 32;   // U of the planes entry
 
-template <int U>
 __global__ void merge_entries_kernel(const uint2* __restrict__ sub,
                                      uint2* __restrict__ merged,
                                      uint8_t* __restrict__ found,
@@ -62,7 +66,7 @@ __global__ void merge_entries_kernel(const uint2* __restrict__ sub,
   if (p >= N) return;
   const uint2* col = sub + p;
   uint2 e = make_uint2(0u, 0u);
-  const int s = batched_first_hit<U>(
+  const int s = batched_first_hit<kEntriesUnroll>(
       K - 1, [&](int layer) { return __ldg(col + (size_t)layer * N); },
       [](uint2 w) { return (w.x & FMT_FLAG_ALLOCATED) != 0u; }, &e);
   merged[p] = e;
@@ -96,7 +100,7 @@ struct Entries {
   }
 };
 
-template <int E, int V, int U>
+template <int E, int V>
 __global__ void merge_kernel(const uint8_t* __restrict__ alloc,
                              const int32_t* __restrict__ ptrs,
                              uint8_t* __restrict__ found,
@@ -110,6 +114,7 @@ __global__ void merge_kernel(const uint8_t* __restrict__ alloc,
 #pragma unroll
   for (int i = 0; i < V; ++i) s[i] = -1;
   bool open = true;
+  constexpr int U = kPlanesUnroll;
   for (int base = K - 1; base >= 0 && open; base -= U) {
     Entries<E, V> x[U];
 #pragma unroll
@@ -139,53 +144,39 @@ unsigned int blocks_for(long long threads) {
   return (unsigned int)((threads + kThreads - 1) / kThreads);
 }
 
-template <int E, int V, int U>
+template <int E, int V>
 void launch_merge(const void* alloc, const void* ptrs, void* found, void* ptr,
                   void* src, int K, int N, cudaStream_t st) {
-  merge_kernel<E, V, U><<<blocks_for(N / V), kThreads, 0, st>>>(
+  merge_kernel<E, V><<<blocks_for(N / V), kThreads, 0, st>>>(
       (const uint8_t*)alloc, (const int32_t*)ptrs, (uint8_t*)found,
       (int32_t*)ptr, (int32_t*)src, K, N);
 }
 
 }  // namespace
 
-// The plan on the packed (K, N, 2) words. unroll: layers a batch, 4 or 8.
+// The plan on the packed (K, N, 2) words.
 extern "C" int merge_entries(const void* sub, void* merged, void* found,
-                             void* src, int K, int N, int unroll,
-                             void* stream) {
+                             void* src, int K, int N, void* stream) {
   (void)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = blocks_for(N);
-  if (unroll == 4) {
-    merge_entries_kernel<4><<<blocks, kThreads, 0, st>>>(
-        (const uint2*)sub, (uint2*)merged, (uint8_t*)found, (int32_t*)src, K, N);
-  } else if (unroll == 8) {
-    merge_entries_kernel<8><<<blocks, kThreads, 0, st>>>(
-        (const uint2*)sub, (uint2*)merged, (uint8_t*)found, (int32_t*)src, K, N);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  merge_entries_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint2*)sub, (uint2*)merged, (uint8_t*)found, (int32_t*)src, K, N);
   return (int)cudaGetLastError();
 }
 
 // The scan on (K, N) planes. alloc_bytes: 1 (bool) or 4 (int32) per
 // allocation-map entry; vec: pages a thread (1 or 4), which must divide N,
-// with the plane aligned to vec * alloc_bytes; unroll: layers a batch (8,
-// 16 or 32).
+// with the plane aligned to vec * alloc_bytes.
 extern "C" int merge(const void* alloc, const void* ptrs, void* found,
                      void* ptr, void* src, int K, int N, int alloc_bytes,
-                     int vec, int unroll, void* stream) {
+                     int vec, void* stream) {
   (void)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-#define SNAP_MERGE(E, V, U)                                             \
-  if (alloc_bytes == E && vec == V && unroll == U) {                    \
-    launch_merge<E, V, U>(alloc, ptrs, found, ptr, src, K, N, st);      \
+#define SNAP_MERGE(E, V)                                                \
+  if (alloc_bytes == E && vec == V) {                                   \
+    launch_merge<E, V>(alloc, ptrs, found, ptr, src, K, N, st);         \
     return (int)cudaGetLastError();                                     \
   }
-  SNAP_MERGE(1, 1, 8) SNAP_MERGE(1, 1, 16) SNAP_MERGE(1, 1, 32)
-  SNAP_MERGE(1, 4, 8) SNAP_MERGE(1, 4, 16) SNAP_MERGE(1, 4, 32)
-  SNAP_MERGE(4, 1, 8) SNAP_MERGE(4, 1, 16) SNAP_MERGE(4, 1, 32)
-  SNAP_MERGE(4, 4, 8) SNAP_MERGE(4, 4, 16) SNAP_MERGE(4, 4, 32)
+  SNAP_MERGE(1, 1) SNAP_MERGE(1, 4) SNAP_MERGE(4, 1) SNAP_MERGE(4, 4)
 #undef SNAP_MERGE
   return (int)cudaErrorInvalidValue;
 }

@@ -63,8 +63,8 @@ _SIGNATURES = {
     "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _P],
-    "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "merge_entries": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "merge_entries": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

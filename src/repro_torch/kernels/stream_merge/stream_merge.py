@@ -17,16 +17,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: layers whose loads a thread of the word entry issues at once (4 or 8;
-#: chip_smoke.py's K9 row times both)
-ENTRIES_UNROLL = 4
-#: the planes entry: pages a thread (one load of their allocation entries
-#: a layer; 1 where 4 does not fit N), and layers a batch by entry bytes
-#: (bool 1, int32 4), 32 bytes of a page's entries in flight a batch
-#: (chip_smoke.py's K9 row times a bool plane at each choice built)
+#: the planes entry's pages a thread (one load of their allocation entries
+#: a layer; 1 where 4 does not fit N) and layers a batch, fixed in
+#: ``csrc/stream_merge.cu``
 PLANES_VEC = 4
-PLANES_UNROLL = {1: 32, 4: 8}
-VECS, UNROLLS = (1, 4), (8, 16, 32)
+PLANES_UNROLL = 32
 
 
 def _check(name: str, x: torch.Tensor) -> None:
@@ -36,12 +31,11 @@ def _check(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def merge_entries_cuda(sub: torch.Tensor, *, unroll: int | None = None):
+def merge_entries_cuda(sub: torch.Tensor):
     """The merge plan of K layers from their packed words: ``sub`` (K, N, 2)
     int32, contiguous. Returns ``(merged (N, 2) int32 — the entry of the
     highest layer that has the page allocated, layer 0's where none has,
-    found (N,) bool, src (N,) int32 [-1 where not found])``. ``unroll``
-    overrides ``ENTRIES_UNROLL`` (for measurements)."""
+    found (N,) bool, src (N,) int32 [-1 where not found])``."""
     _check("merge_entries", sub)
     if sub.dtype != torch.int32:
         raise TypeError(f"merge_entries: expected int32 words, got {sub.dtype}")
@@ -58,39 +52,26 @@ def merge_entries_cuda(sub: torch.Tensor, *, unroll: int | None = None):
         return merged, found, src
     code = _build.library().merge_entries(
         sub.data_ptr(), merged.data_ptr(), found.data_ptr(), src.data_ptr(),
-        k, n, unroll or ENTRIES_UNROLL, torch.cuda.current_stream(dev).cuda_stream)
+        k, n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("merge", code)
     return merged, found, src
 
 
-def planes_config(alloc: torch.Tensor, vec: int | None = None,
-                  unroll: int | None = None) -> tuple[int, int]:
+def planes_config(alloc: torch.Tensor) -> tuple[int, int]:
     """``(pages a thread, layers a batch)`` of the planes entry. The pages
-    a thread must divide N, with the plane aligned to their bytes: the
-    default takes 1 where 4 does not fit; a forced pick must be one the
-    kernel was built for and must fit, or it raises."""
+    a thread must divide N, with the plane aligned to their bytes: 4 where
+    that holds, else 1."""
     esz, n = alloc.element_size(), alloc.shape[1]
-
-    def fits(v):
-        return n % v == 0 and alloc.data_ptr() % (v * esz) == 0
-
-    if vec is None:
-        vec = PLANES_VEC if fits(PLANES_VEC) else 1
-    elif vec not in VECS or not fits(vec):
-        raise ValueError(f"merge: {vec} pages a thread do not fit N = {n}")
-    unroll = unroll or PLANES_UNROLL[esz]
-    if unroll not in UNROLLS:
-        raise ValueError(f"merge: {unroll} layers a batch are not built")
-    return vec, unroll
+    v = PLANES_VEC
+    fits = n % v == 0 and alloc.data_ptr() % (v * esz) == 0
+    return (v if fits else 1), PLANES_UNROLL
 
 
-def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, *,
-               vec: int | None = None, unroll: int | None = None):
+def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor):
     """Per page, the highest allocated of K layers: ``alloc`` (K, N) bool
     or int32 (tested ``!= 0``), ``ptrs`` (K, N) int32. Returns ``(found
     (N,) bool, ptr (N,) int32 [0 where not found], src (N,) int32 [-1
-    where not found])``. ``vec``/``unroll`` override ``planes_config``'s
-    pick (for measurements)."""
+    where not found])``."""
     for x in (alloc, ptrs):
         _check("merge", x)
     if alloc.dtype not in (torch.bool, torch.int32):
@@ -108,10 +89,10 @@ def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, *,
     src = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return found, ptr, src
-    v, u = planes_config(alloc, vec, unroll)
+    v, _ = planes_config(alloc)
     code = _build.library().merge(
         alloc.data_ptr(), ptrs.data_ptr(), found.data_ptr(), ptr.data_ptr(),
-        src.data_ptr(), k, n, alloc.element_size(), v, u,
+        src.data_ptr(), k, n, alloc.element_size(), v,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("merge", code)
     return found, ptr, src

@@ -354,33 +354,31 @@ def device_entries(cuda, seed, k, n, density):
 @pytest.mark.parametrize("k", [1, 7, 64, 512])
 @pytest.mark.parametrize("n", [33, 4_097, 262_144])
 def test_merge_entries_kernel_bit_exact(cuda, k, n):
-    """K9's word entry at both batch widths against its plain version,
-    with an all-miss and an all-hit page column; each call counts one
-    launch under ``merge``."""
+    """K9's word entry against its plain version, with an all-miss and an
+    all-hit page column; the call counts one launch under ``merge``."""
     sub = device_entries(cuda, k * 31 + n, k, n, 3.0 / k)
     want = sm_ref.merge_entries_ref(sub)
-    for unroll in (4, 8):
-        before = _build.LAUNCHES["merge"]
-        got = sm.merge_entries_cuda(sub, unroll=unroll)
-        torch.cuda.synchronize()
-        assert _build.LAUNCHES["merge"] == before + 1
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
-        assert int(got[2][0]) == -1 and int(got[2][-1]) == k - 1
-        assert torch.equal(got[0][0], sub[0, 0])
+    before = _build.LAUNCHES["merge"]
+    got = sm.merge_entries_cuda(sub)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["merge"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[2][0]) == -1 and int(got[2][-1]) == k - 1
+    assert torch.equal(got[0][0], sub[0, 0])
 
 
 @pytest.mark.parametrize("alloc_dtype", [torch.bool, torch.int32])
-@pytest.mark.parametrize("vec", sm.VECS)
-@pytest.mark.parametrize("unroll", sm.UNROLLS)
-def test_merge_planes_every_config_bit_exact(cuda, alloc_dtype, vec, unroll):
-    """K9's planes entry at every (pages a thread, layers a batch) it was
-    built for, bool and int32, at K = 1, 7 and 500."""
-    for k, n in ((1, 4_096), (7, 4_112), (500, 65_536)):
-        sub = device_entries(cuda, k + vec + unroll, k, n, 2.0 / k)
+@pytest.mark.parametrize("n", [4_096, 4_113, 65_536])
+def test_merge_planes_every_config_bit_exact(cuda, alloc_dtype, n):
+    """K9's planes entry, bool and int32, at K = 1, 7 and 500 and at 4
+    pages a thread and 1 (N not a multiple of 4)."""
+    for k in (1, 7, 500):
+        sub = device_entries(cuda, k + n, k, n, 2.0 / k)
         alloc = fmt.entry_allocated(sub).to(alloc_dtype)
         ptrs = fmt.entry_ptr(sub)
-        got = sm.merge_cuda(alloc, ptrs, vec=vec, unroll=unroll)
+        assert sm.planes_config(alloc)[0] == (1 if n % 4 else 4)
+        got = sm.merge_cuda(alloc, ptrs)
         torch.cuda.synchronize()
         want = sm_ref.merge_ref(alloc, ptrs)
         for g, w in zip(got, want):

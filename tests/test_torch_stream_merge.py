@@ -143,16 +143,10 @@ def test_ops_merge_entries_on_cpu_takes_the_plain_version():
                                          (torch.int32, 4096, 4),
                                          (torch.int32, 102, 1)])
 def test_planes_config_takes_what_fits_n(dtype, n, vec):
-    """The planes entry's pages a thread divide N (4, else 1); a forced
-    pick is taken where it is built and fits, and raises otherwise."""
+    """The planes entry's pages a thread divide N (4, else 1), with the
+    plane aligned to their bytes; the layers a batch are fixed."""
     alloc = torch.zeros((3, n), dtype=dtype)
-    v, u = tsm.planes_config(alloc)
-    assert v == vec and u == tsm.PLANES_UNROLL[alloc.element_size()]
-    assert tsm.planes_config(alloc, 1, 8) == (1, 8)
-    with pytest.raises(ValueError, match="pages a thread"):
-        tsm.planes_config(alloc, 16)
-    with pytest.raises(ValueError, match="layers a batch"):
-        tsm.planes_config(alloc, 1, 12)
-    if vec == 1:
-        with pytest.raises(ValueError, match="pages a thread"):
-            tsm.planes_config(alloc, 4)
+    assert tsm.planes_config(alloc) == (vec, tsm.PLANES_UNROLL)
+    if vec == 4:
+        # a view one page in is no longer aligned to 4 pages' bytes
+        assert tsm.planes_config(alloc[:, 1:-3]) == (1, tsm.PLANES_UNROLL)
