@@ -42,7 +42,9 @@ Phases, each printing its own lines:
    walked entry), with its time on the contiguous plane beside it and its
    ms with each walk forced (a thread or a warp a page) beside the
    planner's pick (``walk_sweep`` on its row; phase 7 adds the fleet's
-   shapes).
+   shapes). K2 likewise runs on the ``l2[..., 0]``/``l2[..., 1]`` pair of
+   the packed words, with its time on the two contiguous planes beside it
+   (``plane_ms``) and its layout (``elem_stride``).
 6. store — one 16 GiB virtual disk (262,144 clusters of 64 KiB, float32
    pages of 16,384) in both formats with the same content: a base layer
    at 25 % fill, then 64 random clusters per layer with a snapshot
@@ -53,7 +55,10 @@ Phases, each printing its own lines:
    methods and formats; at depth 500 the vanilla walk costs about 500
    lookups a request and direct exactly 1. K6/K7/K8 run on the disk's own
    planes and must equal ``store.read``; at depth 500 each is held against
-   its plain version and timed as in phase 5.
+   its plain version and timed as in phase 5. K7's row carries
+   ``size_sweep``: K7 at N = 2^18 to 2^24, each size held bit-exact,
+   and the line through (bytes, ms): its slope as a rate and its
+   intercept, the fixed cost a call.
 7. fleet — 64 tenants, each a 1 GiB disk (16,384 clusters) at 12.5 %
    fill, tenant t grown to chain length 1 + 499 t / 63 with 4 clusters a
    layer, one format at a time. ``fleet.read(auto)`` (K2 + K1 + K5) of
@@ -69,7 +74,18 @@ Phases, each printing its own lines:
    were). K5 is held against its plain
    version and timed on the vanilla fleet's read; K1 likewise at the
    fleet's shape on the strided words (beside the contiguous plane and the
-   copy it no longer pays), then swept over its walks at P = 16-16,384.
+   copy it no longer pays), then swept over its walks at P = 16-16,384;
+   K2 at the fleet's shape on the ``l2[..., 0]``/``l2[..., 1]`` pair
+   (``k2_fleet_shape``: bit-exact, its bound, the contiguous planes' time
+   and ``plane_copy_ms``, the two copies it no longer pays; its
+   ``size_sweep`` at 16-1,024 tenants of 16,384 pages, as K7's).
+   ``read_auto_peak_extra_GB`` is the device memory one
+   ``fleet.read(auto)`` adds at its peak (its output included). The two
+   kernel reads are timed by CUDA events after a spin of twice their host
+   ms (so the host has enqueued the whole read before the first event),
+   and after a spin of 1 ms and of four times their host ms beside it
+   (``read_*_device_ms_by_spin``): the time is device time only where it
+   stays flat as the spin grows.
 8. maintenance — (a) one disk: the phase-6 disk at depth 500 (pool of
    196,608 rows), one format at a time, ``store.stream(chain, 498,
    copy_data=True)``, then ``compact_pool``, then on the vanilla image
@@ -101,7 +117,9 @@ Phases, each printing its own lines:
 
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet) and read just after it, before any kernel is
-compared with its plain version.
+compared with its plain version. Every row of the kernels line carries
+``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
+floor under the same flush and spin.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -441,22 +459,24 @@ def capture_state(torch, eng):
 # -- phase 5: every kernel against its plain version -------------------------
 
 
-def timed_ms(torch, fn, n, flush):
+def timed_ms(torch, fn, n, flush, spin=SPIN_CYCLES):
     """Mean ms per call over ``n`` calls after a warm-up, each call timed
     alone with CUDA events after the L2 cache was flushed (a decode step
     finds a layer's pool slice cold: 36 layers of weights pass between).
-    A spin of about a millisecond on the card precedes each call, so the
-    host has enqueued the whole call before the first event is reached
-    and the events time the device work, not the host's launch latency.
-    ``flush`` is a buffer of 64 MiB, zeroed (which leaves the L2 full of
-    dirty lines the call must write back), or a function that flushes."""
+    A spin of ``spin`` card cycles (by default about a millisecond)
+    precedes each call, so the host has enqueued the whole call before the
+    first event is reached and the events time the device work, not the
+    host's launch latency; a call whose host side takes longer needs a
+    longer spin. ``flush`` is a buffer of 64 MiB, zeroed (which leaves the
+    L2 full of dirty lines the call must write back), or a function that
+    flushes."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(n):
         flush() if callable(flush) else flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -465,6 +485,46 @@ def timed_ms(torch, fn, n, flush):
         b.synchronize()
         total += a.elapsed_time(b)
     return total / n
+
+
+def clean_flush(torch, flush):
+    """A flush that reads: the L2 is left clean, so the call's time holds
+    none of the write-backs the zeroing flush adds."""
+    return lambda: flush.sum(dtype=torch.int32)
+
+
+def floor_ms(torch, flush):
+    """``timed_ms`` of a launched kernel that does nothing (a one-element
+    ``zero_()``) under the same flush and spin, and under the reading flush
+    (``clean_flush``): the part of a small kernel's time that is the
+    harness's floor (the ramp-up of a launch; the lines a call brings into
+    an L2 full of the zeroing flush's dirty lines cost a write-back each on
+    top)."""
+    one = torch.empty(1, device=flush.device)
+    return (timed_ms(torch, lambda: one.zero_(), 50, flush),
+            timed_ms(torch, lambda: one.zero_(), 50, clean_flush(torch, flush)))
+
+
+def size_sweep(torch, name, cases, flush):
+    """A kernel at several sizes: each ``(bytes, kern, plain)`` held
+    bit-exact against its plain version, then timed under the zeroing
+    flush and the reading one (``clean_flush``). For each flush, the
+    least-squares line through (bytes, ms): its slope as a rate in GB/s
+    (the card's memory rate is 3,350) and its intercept, the fixed cost a
+    call, so neither rests on subtracting another kernel's time."""
+    points = []
+    for nbytes, kern, plain in cases:
+        require(all(torch.equal(a, b) for a, b in zip(kern(), plain())),
+                f"{name}: differs from its plain version at {nbytes} bytes")
+        points.append(dict(bytes=nbytes, ms=timed_ms(torch, kern, 50, flush),
+                           ms_clean_l2=timed_ms(torch, kern, 50,
+                                                clean_flush(torch, flush))))
+    x = np.array([q["bytes"] for q in points], dtype=np.float64)
+    fits = {}
+    for key in ("ms", "ms_clean_l2"):
+        slope, intercept = np.polyfit(x, [q[key] for q in points], 1)
+        fits[key] = dict(rate_GBps=1 / slope / 1e6, intercept_ms=intercept)
+    return dict(points=points, bit_exact=True, fit=fits)
 
 
 def walk_words(w0, chain_lengths, pages_of, allocated_bit):
@@ -574,8 +634,9 @@ def kernel_phase(torch, mods, state):
             lambda: cr_ref.resolve_vanilla_fleet_ref(l2[..., 0], cl), k1_bytes, 0,
             None),
         "resolve_direct_fleet": (
-            lambda: cr.resolve_direct_fleet_cuda(w0, w1, cl),
-            lambda: cr_ref.resolve_direct_fleet_ref(w0, w1, cl), k2_bytes, 0, None),
+            lambda: cr.resolve_direct_fleet_cuda(l2[..., 0], l2[..., 1], cl),
+            lambda: cr_ref.resolve_direct_fleet_ref(l2[..., 0], l2[..., 1], cl),
+            k2_bytes, 0, None),
         "paged_attention": (
             lambda: pa.paged_attention_cuda(q, s["pool_k"], s["pool_v"],
                                             s["tables"], kv_len),
@@ -605,6 +666,14 @@ def kernel_phase(torch, mods, state):
     rows[0].update(walk=cr.fleet_walk(t, p), words_walked=k1_walked,
                    plane_ms=plane["ms"], plane_bound_ms=plane["bound_ms"],
                    walk_sweep={"engine": walk_sweep(torch, mods, l2, cl, flush)})
+    # K2 likewise: the packed words in place, the contiguous planes beside
+    plane, _ = measure(torch, "resolve_direct_fleet",
+                       lambda: cr.resolve_direct_fleet_cuda(w0, w1, cl),
+                       lambda: cr_ref.resolve_direct_fleet_ref(w0, w1, cl),
+                       k2_bytes, 0, None, flush)
+    es = cr.direct_fleet_stride(l2[..., 0], l2[..., 1])
+    rows[1].update(elem_stride=es, plane_ms=plane["ms"],
+                   plane_bound_ms=plane["bound_ms"])
     split = {"paged_attention": split_report(pa, q, hkv, s["tables"].shape[1], bs,
                                              len_h),
              "fused_chain_attention": split_report(pa, q, hkv, p, bs, len_h)}
@@ -619,6 +688,7 @@ def kernel_phase(torch, mods, state):
     emit({"phase": "kernels", "shapes": {
         "fleet_T_C_P": [t, c, p], "pool_nb_bs_hkv_d": [nb, bs, hkv, d],
         "k1_words_walked": k1_walked, "k1_walk": rows[0]["walk"],
+        "k2_elem_stride": es,
         "batch": b, "kv_lengths": len_h.tolist()},
         "k3_equals_k4_bitwise": True, "split": split})
     long = long_context(torch, mods, flush)
@@ -718,11 +788,7 @@ def long_context(torch, mods, flush):
         return torch.nn.functional.scaled_dot_product_attention(qd, kd, vd,
                                                                 enable_gqa=True)
 
-    def clean():
-        """A flush that reads: the L2 is left clean, so the call's time
-        holds none of the write-backs the zeroing flush adds."""
-        flush.sum(dtype=torch.int32)
-
+    clean = clean_flush(torch, flush)
     dense_ms = timed_ms(torch, dense, 50, flush)
     out, outs = {}, {}
     for name, (kern, plain, nbytes) in runs.items():
@@ -1014,11 +1080,27 @@ def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
         row, _ = measure(torch, name, kern, plain, nbytes, 0, None, flush,
                          library=library)
         rows.append(row)
+    rows[1]["size_sweep"] = k7_size_sweep(torch, mods, flush)
     emit({"phase": "store", "kernel_shapes": {
         "resolve_vanilla_C_N": [c, n], "length": int(length),
         "words_walked": walked, "hits": hits, "gather_pages": b,
         "gather_found": found}})
     return rows
+
+
+def k7_size_sweep(torch, mods, flush):
+    """K7 at N = 2^18 (the disk's) to 2^24 pages of random int32 planes,
+    20 bytes a page (three 4-byte planes in, two out)."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    g = torch.Generator(device=DEV).manual_seed(16)
+    cases = []
+    for n in (1 << 18, 1 << 20, 1 << 22, 1 << 24):
+        planes = tuple(torch.randint(0, hi, (n,), generator=g, device=DEV,
+                                     dtype=torch.int32)
+                       for hi in (2, 1 << 16, 1 << 28))
+        cases.append((20 * n, lambda x=planes: cr.resolve_direct_cuda(*x),
+                      lambda x=planes: cr_ref.resolve_direct_ref(*x)))
+    return size_sweep(torch, "resolve_direct", cases, flush)
 
 
 # -- phase 7: a fleet of disks, fleet.read and the host cold tier ------------
@@ -1074,7 +1156,7 @@ def fleet_phase(torch, mods):
                         device=DEV, dtype=torch.int32)
     out_bytes = FLEET_T * FLEET_BATCH * CLUSTER * 4
     odd = list(range(1, FLEET_T, 2))
-    total, measured, k1 = {}, None, None
+    total, measured, shapes = {}, None, None
     for scalable in (False, True):
         name = "scalable" if scalable else "vanilla"
         torch.cuda.reset_peak_memory_stats()
@@ -1096,16 +1178,25 @@ def fleet_phase(torch, mods):
         # measurements beside the phase's own reads: device ms of both kernel
         # reads by CUDA events, and the pallas_vanilla read checked and split
         with uncounted(_build):
-            auto_dev_ms = timed_ms(
-                torch, lambda: fleet_lib.read(fl, ids, method="auto"), 5, flush)
+            auto_by_spin = spin_sweep(
+                torch, lambda: fleet_lib.read(fl, ids, method="auto"), auto_ms,
+                flush)
+            torch.cuda.synchronize()
+            phase_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            extra = fleet_lib.read(fl, ids, method="auto")
+            torch.cuda.synchronize()
+            auto_peak_extra = (torch.cuda.max_memory_allocated() - held) / 1e9
+            del extra
             walk_read, _ = fleet_lib.read(fl, ids, method="pallas_vanilla")
             require(_same(torch, walk_read, pre),
                     f"{name}: pallas_vanilla read differs")
             del walk_read
             pv_ms = _host_ms(torch, lambda: fleet_lib.read(
                 fl, ids, method="pallas_vanilla"), 3)
-            pv_dev_ms = timed_ms(torch, lambda: fleet_lib.read(
-                fl, ids, method="pallas_vanilla"), 5, flush)
+            pv_by_spin = spin_sweep(torch, lambda: fleet_lib.read(
+                fl, ids, method="pallas_vanilla"), pv_ms, flush)
             pv_profile = profile_calls(
                 torch, lambda: fleet_lib.read(fl, ids, method="pallas_vanilla"),
                 2, pv_ms, READ_GROUPS, tries=3, counts=_build)
@@ -1156,22 +1247,34 @@ def fleet_phase(torch, mods):
               "read_auto_ms": auto_ms, "read_auto_GBps": out_bytes / auto_ms / 1e6,
               "read_vanilla_ms": van_ms,
               "read_vanilla_GBps": out_bytes / van_ms / 1e6,
-              "read_auto_device_ms": auto_dev_ms,
+              "read_auto_device_ms": auto_by_spin["2x_host"],
+              "read_auto_device_ms_by_spin": auto_by_spin,
+              "read_auto_peak_extra_GB": auto_peak_extra,
               "read_auto_profile": read_profile,
               "read_pallas_vanilla_ms": pv_ms,
-              "read_pallas_vanilla_device_ms": pv_dev_ms,
+              "read_pallas_vanilla_device_ms": pv_by_spin["2x_host"],
+              "read_pallas_vanilla_device_ms_by_spin": pv_by_spin,
               "read_pallas_vanilla_profile": pv_profile,
               "auto_equals_vanilla": True, "demote": demote, "promote": promote,
               "device_read_zero_where_cold": True, "tiered_equals_before": True,
               "promoted_equals_before": True, "host_rows_after_free": 0,
               "launches": launches, "stats": fleet_lib.fleet_stats(fl),
-              "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+              "peak_GB": max(phase_peak, torch.cuda.max_memory_allocated()) / 1e9})
         if not scalable:
             measured = fleet_kernel(torch, mods, fl.pool, res, flush)
-            k1 = fleet_walk(torch, mods, fl, flush)
+            shapes = dict(fleet_walk(torch, mods, fl, flush),
+                          k2_fleet_shape=k2_fleet_shape(torch, mods, fl, flush))
         del fl, pre, res, store
         torch.cuda.empty_cache()
-    return measured, total, per_read, k1
+    return measured, total, per_read, shapes
+
+
+def spin_sweep(torch, fn, host_ms, flush):
+    """``timed_ms`` of a call whose host side is long (a fleet read) after
+    a spin of 1 ms, of twice and of four times its host-clock ms."""
+    return {key: timed_ms(torch, fn, 5, flush, spin=int(SPIN_CYCLES * k))
+            for key, k in (("1ms", 1.0), ("2x_host", 2 * host_ms),
+                           ("4x_host", 4 * host_ms))}
 
 
 def fleet_kernel(torch, mods, pool, res, flush):
@@ -1225,6 +1328,59 @@ def fleet_walk(torch, mods, fl, flush):
         del sub
     emit({"phase": "fleet", "k1_fleet_shape": out, "k1_walk_sweep": sweep})
     return dict(fleet_shape=out, walk_sweep=sweep)
+
+
+def k2_fleet_shape(torch, mods, fl, flush):
+    """K2 at the fleet read's shape on the ``l2[..., 0]``/``l2[..., 1]``
+    pair against its plain version, timed, beside K2 on the contiguous
+    planes and the two plane copies it no longer pays."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    l2, lengths = fl.l2, fl.length
+    t, c, p, _ = l2.shape
+    w0, w1 = l2[..., 0], l2[..., 1]
+    nbytes = 20 * t * p + 4 * t         # the active entry, 12 out, a length
+    row, _ = measure(torch, "resolve_direct_fleet",
+                     lambda: cr.resolve_direct_fleet_cuda(w0, w1, lengths),
+                     lambda: cr_ref.resolve_direct_fleet_ref(w0, w1, lengths),
+                     nbytes, 0, None, flush, n_plain=3)
+    es = cr.direct_fleet_stride(w0, w1)
+    planes = (w0.contiguous(), w1.contiguous())
+    plane_ms = timed_ms(torch, lambda: cr.resolve_direct_fleet_cuda(
+        *planes, lengths), 50, flush)
+    del planes
+    copy_ms = timed_ms(torch, lambda: (w0.contiguous(), w1.contiguous()), 5,
+                       flush)
+    clean_ms = timed_ms(torch, lambda: cr.resolve_direct_fleet_cuda(
+        w0, w1, lengths), 50, clean_flush(torch, flush))
+    out = dict(T_C_P=[t, c, p], elem_stride=es,
+               ms=row["ms"], ms_clean_l2=clean_ms,
+               plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+               max_abs_err=row["max_abs_err"], plane_ms=plane_ms,
+               plane_bound_ms=row["bound_ms"], plane_copy_ms=copy_ms,
+               size_sweep=k2_size_sweep(torch, mods, p, flush))
+    emit({"phase": "fleet", "k2_fleet_shape": out})
+    return out
+
+
+def k2_size_sweep(torch, mods, p, flush):
+    """K2 on the packed words of 16 to 1,024 tenants of the fleet's P
+    pages, C = 4 (it reads one layer; C only places it), random words,
+    lengths 0..C: 20 bytes a page and 4 a tenant."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    g = torch.Generator(device=DEV).manual_seed(16)
+    c = 4
+    cases = []
+    for t in (16, 64, 256, 1024):
+        l2 = torch.randint(-2**31, 2**31 - 1, (t, c, p, 2), generator=g,
+                           device=DEV, dtype=torch.int32)
+        lens = torch.randint(0, c + 1, (t,), generator=g, device=DEV,
+                             dtype=torch.int32)
+        cases.append((20 * t * p + 4 * t,
+                      lambda x=l2, n=lens: cr.resolve_direct_fleet_cuda(
+                          x[..., 0], x[..., 1], n),
+                      lambda x=l2, n=lens: cr_ref.resolve_direct_fleet_ref(
+                          x[..., 0], x[..., 1], n)))
+    return size_sweep(torch, "resolve_direct_fleet", cases, flush)
 
 
 # -- phase 8: the maintenance plane -------------------------------------------
@@ -1738,8 +1894,8 @@ def main() -> int:
 
     # 7. a fleet of disks: fleet.read and the host cold tier
     t0 = time.perf_counter()
-    fleet_rows, fleet_launches, fleet_per_read, k1_fleet = fleet_phase(torch,
-                                                                       mods)
+    fleet_rows, fleet_launches, fleet_per_read, fleet_shapes = fleet_phase(
+        torch, mods)
     emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
     per_step_of["gather_fleet"] = fleet_per_read["gather_fleet"]
 
@@ -1763,10 +1919,14 @@ def main() -> int:
                                               disk_launches, maint_launches,
                                               serve8_launches))
                    for k in KERNEL_SOURCES}
-    rows[0]["fleet_shape"] = k1_fleet["fleet_shape"]      # K1's row
-    rows[0]["walk_sweep"].update(k1_fleet["walk_sweep"])
+    rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
+    rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
+    rows[1]["fleet_shape"] = fleet_shapes["k2_fleet_shape"]   # K2's row
     rows += fleet_rows + store_rows + merge_rows
+    floor, floor_clean = floor_ms(torch, torch.empty(64 * 2**20, dtype=torch.uint8,
+                                                     device="cuda"))
     for row in rows:
+        row.update(floor_ms=floor, floor_ms_clean_l2=floor_clean)
         row["launches"] = launches_of[row["name"]]
         row["launches_per_step"] = per_step_of[row["name"]]
         require(row["launches"] > 0, f"kernel {row['name']} never launched")

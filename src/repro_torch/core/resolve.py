@@ -174,12 +174,12 @@ def resolve_vanilla_stacked(l2: torch.Tensor, lengths: torch.Tensor,
 def resolve_direct_stacked(l2: torch.Tensor, lengths: torch.Tensor,
                            page_ids: torch.Tensor) -> ResolveResult:
     """Kernel-backed direct access for a whole fleet in one launch: the
-    kernel reads only each tenant's active layer. Bit-identical to
-    ``resolve_direct_tables``."""
+    kernel reads only each tenant's active layer, in place through the
+    ``l2[..., 0]``/``l2[..., 1]`` views of the packed words (no plane
+    copy). Bit-identical to ``resolve_direct_tables``."""
     ids = page_ids.to(torch.int64)
     owner_map, h0_map, h1_map = _kernel_ops.resolve_direct_fleet(
-        l2[..., 0].contiguous(), l2[..., 1].contiguous(),
-        lengths.to(torch.int32).contiguous())
+        l2[..., 0], l2[..., 1], lengths.to(torch.int32).contiguous())
     owner = _take(owner_map, ids)
     h0 = _take(h0_map, ids)
     h1 = _take(h1_map, ids)

@@ -30,22 +30,30 @@
 //     (four loads a lane in flight) with __ballot_sync + __ffs
 //     (warp_first_hit), so a 65-layer chain costs one round of loads, not
 //     65 dependent loads.
-// The direct kernel reads the active layer's two words and nothing else.
+// The direct kernel (K2) reads the active layer's two words and nothing
+// else, where the fleet keeps them: two contiguous (T, C, P) planes, or the
+// packed (T, C, P, 2) words themselves (the l2[..., 0] / l2[..., 1] pair),
+// where a tenant's active layer is one contiguous (P, 2) slab and a page's
+// entry one aligned 8-byte load. Tenants are on blockIdx.y, so a block
+// reads its tenant's length once, uniformly, and no thread divides. One
+// page a thread.
 //
 // The single-chain kernels take the chain as separate planes, as the TPU
 // kernels do: an allocation map (int32 or bool, tested != 0) and a pointer
 // plane. One thread per page, coalesced along N, from layer
 // min(length, C) - 1 down to the first allocated layer (layers >= C are
 // invalid, and so are layers >= length); ptr is 0 on a miss. That walk is
-// first_hit_down (chain_walk.cuh). The direct kernel is one elementwise
-// pass over the active layer. It does not look at BFI_VALID: its caller
-// decides what is trusted.
+// first_hit_down (chain_walk.cuh). The direct kernel (K7) is one
+// elementwise pass over the active layer. It does not look at BFI_VALID:
+// its caller decides what is trusted.
 //
 // Words are read as uint32_t; the layout comes from -D macros generated
 // from repro_torch/core/format.py (kernels/_build.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "chain_walk.cuh"
 
@@ -56,6 +64,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;
 
 // U: layers whose loads a thread issues at once. 8 beat 4 on an H100 at
 // every shape of the walk sweep up to 65,536 pages and tied it at the
@@ -106,6 +115,9 @@ __global__ void warp_vanilla_fleet_kernel(const uint32_t* __restrict__ w0,
   }
 }
 
+// ES: 1, two (T, C, P) planes w0 and w1; 2, the packed (T, C, P, 2) words
+// at w0 (w1 unused), 8-byte aligned.
+template <int ES>
 __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
                                     const uint32_t* __restrict__ w1,
                                     const int32_t* __restrict__ lengths,
@@ -113,21 +125,30 @@ __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
                                     uint32_t* __restrict__ h0,
                                     uint32_t* __restrict__ h1,
                                     int T, int C, int P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)T * P) return;
-  const int t = (int)(i / P);
-  const int p = (int)(i % P);
-  // the JAX indexing rules of the reference: a negative active layer
-  // (a length-0 tenant) wraps to C-1, then the index is clamped
-  int act = lengths[t] - 1;
-  if (act < 0) act += C;
-  act = max(0, min(act, C - 1));
-  const size_t at = ((size_t)t * C + act) * P + p;
-  const uint32_t a = w0[at];
-  const uint32_t b = w1[at];
-  owner[i] = (a & FMT_FLAG_ALLOCATED) ? (int32_t)(b & FMT_BFI_MASK) : -1;
-  h0[i] = a;
-  h1[i] = b;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  // more than 65,535 tenants fold onto the grid's y
+  for (int t = blockIdx.y; t < T; t += gridDim.y) {
+    // the JAX indexing rules of the reference: a negative active layer
+    // (a length-0 tenant) wraps to C-1, then the index is clamped
+    int act = lengths[t] - 1;
+    if (act < 0) act += C;
+    act = max(0, min(act, C - 1));
+    const size_t at = ((size_t)t * C + act) * P + p;   // entry of page p
+    uint32_t a, b;
+    if constexpr (ES == 2) {
+      const uint2 e = __ldg(reinterpret_cast<const uint2*>(w0 + 2 * at));
+      a = e.x;
+      b = e.y;
+    } else {
+      a = __ldg(w0 + at);
+      b = __ldg(w1 + at);
+    }
+    const size_t out = (size_t)t * P + p;
+    owner[out] = (a & FMT_FLAG_ALLOCATED) != 0u ? (int32_t)(b & FMT_BFI_MASK) : -1;
+    h0[out] = a;
+    h1[out] = b;
+  }
 }
 
 template <typename A>
@@ -194,15 +215,25 @@ extern "C" int resolve_vanilla_fleet(const void* w0, const void* lengths,
   return (int)cudaErrorInvalidValue;
 }
 
+// elem_stride: 1, w0 and w1 are (T, C, P) planes; 2, w0 is the packed
+// (T, C, P, 2) words (w1 unused).
 extern "C" int resolve_direct_fleet(const void* w0, const void* w1,
                                     const void* lengths, void* owner, void* h0,
                                     void* h1, int T, int C, int P,
-                                    void* stream) {
+                                    int elem_stride, void* stream) {
   (void)cudaGetLastError();
-  direct_fleet_kernel<<<blocks_for(T, P), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)lengths,
-      (int32_t*)owner, (uint32_t*)h0, (uint32_t*)h1, T, C, P);
+  if (elem_stride != 1 && elem_stride != 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int threads = std::min(kThreads, (P + 31) / 32 * 32);
+  const dim3 grid((P + threads - 1) / threads, std::min(T, kMaxGridY));
+  if (elem_stride == 2)
+    direct_fleet_kernel<2><<<grid, threads, 0, st>>>(
+        (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)lengths,
+        (int32_t*)owner, (uint32_t*)h0, (uint32_t*)h1, T, C, P);
+  else
+    direct_fleet_kernel<1><<<grid, threads, 0, st>>>(
+        (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)lengths,
+        (int32_t*)owner, (uint32_t*)h0, (uint32_t*)h1, T, C, P);
   return (int)cudaGetLastError();
 }
 

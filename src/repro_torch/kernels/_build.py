@@ -55,7 +55,7 @@ _L = ctypes.c_longlong
 #: combine, counted as one launch.
 _SIGNATURES = {
     "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P],
     "fused_chain_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

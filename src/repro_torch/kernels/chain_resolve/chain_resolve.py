@@ -2,9 +2,10 @@
 
 The counterparts of ``repro.kernels.chain_resolve.chain_resolve``'s
 ``resolve_vanilla_fleet_pallas`` and ``resolve_direct_fleet_pallas`` (the
-stacked (T, C, P) fleet layout; the walk also reads word0 in place, as
-the strided view of the packed words), and ``resolve_vanilla_pallas`` and
-``resolve_direct_pallas`` (one chain's (C, N) planes):
+stacked (T, C, P) fleet layout; both also read the words in place, as
+strided views of the packed (T, C, P, 2) words), and
+``resolve_vanilla_pallas`` and ``resolve_direct_pallas`` (one chain's
+(C, N) planes):
 hand-written CUDA C++ in ``csrc/chain_resolve.cu``, built for Hopper by
 ``kernels._build``. The wrappers here take CUDA tensors only, check what
 the kernel takes, allocate the outputs, launch on the current stream
@@ -45,18 +46,18 @@ def fleet_walk(t: int, p: int) -> str:
     return "warp" if t * p <= WARP_WALK_MAX_PAGES else "thread"
 
 
-def word0_stride(w0: torch.Tensor) -> int:
-    """Element stride of a (T, C, P) word0 K1 takes: 1 for a contiguous
-    plane, 2 for the ``l2[..., 0]`` view of contiguous (T, C, P, 2) words
-    (strides (2CP, 2P, 2)). Strides of size-1 axes are never used. Raises
-    on any other layout."""
+def word0_stride(w0: torch.Tensor, name: str = "resolve_vanilla_fleet") -> int:
+    """Element stride of a (T, C, P) word plane K1 and K2 take: 1 for a
+    contiguous plane, 2 for the ``l2[..., 0]`` (or ``l2[..., 1]``) view of
+    contiguous (T, C, P, 2) words (strides (2CP, 2P, 2)). Strides of size-1
+    axes are never used. Raises on any other layout."""
     t, c, p = w0.shape
     for es in (1, 2):
         want = (es * c * p, es * p, es)
         if all(n <= 1 or s == w for n, s, w in zip(w0.shape, w0.stride(), want)):
             return es
     raise ValueError(
-        f"resolve_vanilla_fleet: word0 strides {tuple(w0.stride())} are "
+        f"{name}: word strides {tuple(w0.stride())} are "
         f"neither a (T, C, P) plane's nor the l2[..., 0] view's")
 
 
@@ -92,15 +93,54 @@ def resolve_vanilla_fleet_cuda(w0: torch.Tensor, lengths: torch.Tensor, *,
     return owner, hit
 
 
+def direct_fleet_stride(w0: torch.Tensor, w1: torch.Tensor) -> int:
+    """Element stride of K2's inputs, from shapes, strides and ``data_ptr``
+    alone. Two layouts are taken:
+
+    - two contiguous (T, C, P) planes: 1;
+    - ``l2[..., 0]`` and ``l2[..., 1]`` of contiguous (T, C, P, 2) words
+      (the same strides, word1 4 bytes after word0, an 8-byte aligned base,
+      so a page's entry is one 8-byte load): 2.
+
+    Raises on anything else: views of two tensors, swapped words, a plane
+    beside a view, a misaligned base."""
+    name = "resolve_direct_fleet"
+    if w0.dim() != 3 or w1.shape != w0.shape:
+        raise ValueError(f"{name}: w0/w1 must both be (T, C, P)")
+    es = word0_stride(w0, name)
+    if word0_stride(w1, name) != es:
+        raise ValueError(f"{name}: layout mixes a (T, C, P) plane with a "
+                         "view of the packed words")
+    if es == 2:
+        a, b = w0.data_ptr(), w1.data_ptr()
+        if w1.stride() != w0.stride() or b != a + 4:
+            raise ValueError(f"{name}: layout is not l2[..., 0] and l2[..., 1] "
+                             "of one (T, C, P, 2) tensor")
+        if a % 8:
+            raise ValueError(f"{name}: layout misaligned: the packed words "
+                             "must start on an 8-byte boundary")
+    return es
+
+
 def resolve_direct_fleet_cuda(w0: torch.Tensor, w1: torch.Tensor,
                               lengths: torch.Tensor):
     """Stacked direct access of each tenant's active layer ``length - 1``
     (a length-0 tenant wraps to layer C-1, as the JAX reference does).
-    Returns ``(owner (T, P) int32, h0 (T, P) int32, h1 (T, P) int32)``."""
-    _check_words("resolve_direct_fleet", w0, w1, lengths)
+    ``w0``/``w1`` (T, C, P) int32 in one of ``direct_fleet_stride``'s two
+    layouts, ``lengths`` (T,) int32. Returns ``(owner (T, P) int32, h0
+    (T, P) int32, h1 (T, P) int32)``."""
+    for x in (w0, w1):
+        if x.dtype != torch.int32:
+            raise TypeError(f"resolve_direct_fleet: expected int32 words, got {x.dtype}")
+    es = direct_fleet_stride(w0, w1)
+    for x in (w0, w1):
+        if not x.is_cuda:
+            raise ValueError(f"resolve_direct_fleet: expected CUDA tensors, got {x.device}")
+    _check_words("resolve_direct_fleet", lengths)
     t, c, p = w0.shape
-    if w1.shape != w0.shape or lengths.shape != (t,):
-        raise ValueError("resolve_direct_fleet: w0/w1 (T, C, P), lengths (T,)")
+    if lengths.shape != (t,):
+        raise ValueError(f"resolve_direct_fleet: lengths shape "
+                         f"{tuple(lengths.shape)} != ({t},)")
     owner, h0, h1 = (torch.empty((t, p), dtype=torch.int32, device=w0.device)
                      for _ in range(3))
     if t * p == 0:
@@ -108,7 +148,7 @@ def resolve_direct_fleet_cuda(w0: torch.Tensor, w1: torch.Tensor,
     lib = _build.library()
     code = lib.resolve_direct_fleet(
         w0.data_ptr(), w1.data_ptr(), lengths.data_ptr(), owner.data_ptr(),
-        h0.data_ptr(), h1.data_ptr(), t, c, p,
+        h0.data_ptr(), h1.data_ptr(), t, c, p, es,
         torch.cuda.current_stream(w0.device).cuda_stream)
     _build.check_launch("resolve_direct_fleet", code)
     return owner, h0, h1

@@ -6,6 +6,8 @@ On the CPU the port runs its plain versions (``test_torch_gpu.py`` holds the
 CUDA kernels against them on the card).
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,11 +15,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core import fleet as jfleet  # noqa: E402
 from repro.core import format as jfmt  # noqa: E402
 from repro.kernels.chain_resolve import ref as jref  # noqa: E402
 from repro.kernels.chain_resolve.chain_resolve import (  # noqa: E402
     resolve_direct_fleet_pallas, resolve_direct_pallas,
     resolve_vanilla_fleet_pallas, resolve_vanilla_pallas)
+from repro_torch.core import fleet as tfleet  # noqa: E402
 from repro_torch.core import format as tfmt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_resolve import chain_resolve as tcr  # noqa: E402
@@ -138,6 +142,111 @@ def test_vanilla_fleet_wrapper_refuses_other_layouts():
             tcr.resolve_vanilla_fleet_cuda(bad, lengths[:bad.shape[0]])
     with pytest.raises(ValueError, match="CUDA"):
         tcr.resolve_vanilla_fleet_cuda(l2[..., 0], lengths)
+
+
+@pytest.mark.parametrize("c,p", [(1, 16), (7, 33), (64, 128)])
+def test_direct_fleet_on_strided_words_matches_jax(c, p):
+    """``ops.resolve_direct_fleet`` on the ``l2[..., 0]``/``l2[..., 1]``
+    views of the packed (T, C, P, 2) words (what ``resolve_direct_stacked``
+    now passes, with no plane copy) against the Pallas kernel in interpret
+    mode and the JAX oracle, bit for bit; a length-0 tenant (it wraps to
+    layer C-1) and a full chain ride along, and no kernel is launched."""
+    w0, w1, lengths = packed_stack(c * 100 + p + 11, 5, c, p)
+    l2 = torch.stack([tfmt.words(w0), tfmt.words(w1)], dim=-1)
+    v0, v1 = l2[..., 0], l2[..., 1]
+    assert not v0.is_contiguous()
+    assert tcr.direct_fleet_stride(v0, v1) == 2
+    args = [jnp.asarray(x) for x in (w0, w1, lengths)]
+    want_ref = jref.resolve_direct_fleet_ref(*args)
+    want_pal = resolve_direct_fleet_pallas(*args, interpret=True)
+    before = dict(_build.LAUNCHES)
+    got = tops.resolve_direct_fleet(v0, v1, torch.as_tensor(lengths))
+    assert _build.LAUNCHES == before
+    assert lengths[0] == 0 and lengths[-1] == c
+    for want in (want_ref, want_pal):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), _i32(want[1]))
+        np.testing.assert_array_equal(got[2].numpy(), _i32(want[2]))
+
+
+def test_direct_fleet_wrapper_refuses_other_layouts():
+    """K2's CUDA wrapper takes two contiguous planes or the ``l2[..., 0]``/
+    ``l2[..., 1]`` pair of contiguous words, and raises on any other pair
+    before it looks at the device."""
+    l2 = torch.zeros((3, 4, 8, 2), dtype=torch.int32)
+    other = torch.zeros_like(l2)
+    lengths = torch.full((3,), 4, dtype=torch.int32)
+    shifted = torch.zeros(l2.numel() + 1, dtype=torch.int32)[1:].view(l2.shape)
+    assert shifted.data_ptr() % 8 == 4                 # an odd storage offset
+    for bad in ((l2[..., 0], other[..., 1]),           # views of two tensors
+                (l2[..., 1], l2[..., 0]),              # swapped words
+                (l2[..., 0].contiguous(), l2[..., 1]),  # a plane with a view
+                (l2[..., 0], l2[..., 1].contiguous()),
+                (shifted[..., 0], shifted[..., 1]),    # misaligned base
+                (l2[:, :3, :, 0], l2[:, :3, :, 1])):   # not a whole layer
+        with pytest.raises(ValueError, match="layout|strides"):
+            tcr.resolve_direct_fleet_cuda(*bad, lengths)
+    for good in ((l2[..., 0], l2[..., 1]),
+                 (l2[..., 0].contiguous(), l2[..., 1].contiguous())):
+        with pytest.raises(ValueError, match="CUDA"):
+            tcr.resolve_direct_fleet_cuda(*good, lengths)
+
+
+def test_direct_fleet_layout_is_picked_from_shape_and_pointer():
+    """K2's layout is read off strides and ``data_ptr`` alone: 1 for two
+    contiguous planes (at any 4-byte offset), 2 for the packed words,
+    a one-tenant slice ``l2[t:t + 1]`` (8·C·P·t bytes past the base, so
+    8-byte aligned at every t, 16-byte aligned only where C·P·t is even)
+    included."""
+    l2 = torch.zeros((4, 3, 5, 2), dtype=torch.int32)      # C·P odd
+    assert tcr.direct_fleet_stride(l2[..., 0], l2[..., 1]) == 2
+    for t in range(4):
+        assert tcr.direct_fleet_stride(l2[t:t + 1, ..., 0],
+                                       l2[t:t + 1, ..., 1]) == 2
+    planes = torch.zeros((2, 4, 3, 6), dtype=torch.int32)
+    assert tcr.direct_fleet_stride(planes[0], planes[1]) == 1
+    assert tcr.direct_fleet_stride(planes.view(-1)[1:73].view(4, 3, 6),
+                                   planes[1]) == 1
+
+
+@pytest.mark.parametrize("n_pages,t", [(33, 1), (32, 1), (32, 2)])
+def test_fleet_read_pallas_direct_on_a_tenant_slice(n_pages, t):
+    """``fleet.read(method="pallas_direct")`` on a one-tenant view whose
+    l2 is ``l2[t:t + 1]`` (as ``PagedKVCache._resolve_tenant`` builds it;
+    8·C·P·t bytes past the base: 8-byte aligned, 16-byte aligned only
+    when C·P·t is even) reads as tenant t of the JAX fleet, bit for bit."""
+    kw = dict(n_tenants=3, n_pages=n_pages, page_size=4, max_chain=7,
+              pool_capacity=1024, lease_quantum=8, l2_per_table=n_pages,
+              slice_len=1)
+    jf = jfleet.create(jfleet.FleetSpec(dtype=jnp.float32, **kw))
+    tf = tfleet.create(tfleet.FleetSpec(dtype=torch.float32, **kw), device="cpu")
+    rng = np.random.default_rng(n_pages + t)
+    for layer in range(5):
+        ids = np.stack([rng.choice(n_pages, 6, replace=False)
+                        for _ in range(3)]).astype(np.int32)
+        data = rng.standard_normal((3, 6, 4)).astype(np.float32)
+        jf = jfleet.write(jf, jnp.asarray(ids), jnp.asarray(data))
+        tf = tfleet.write(tf, torch.as_tensor(ids), torch.as_tensor(data))
+        if layer < 4:
+            jf, tf = jfleet.snapshot(jf), tfleet.snapshot(tf)
+    grid = np.broadcast_to(np.arange(n_pages, dtype=np.int32), (3, n_pages))
+    jd, jres = jfleet.read(jf, jnp.asarray(grid), method="pallas_direct")
+    per_tenant = ("l1", "l2", "lease_index", "lease_count", "alloc_count",
+                  "length", "scalable", "overflow", "snap_dropped", "cold_count")
+    view = dataclasses.replace(
+        tf, spec=dataclasses.replace(tf.spec, n_tenants=1),
+        **{f: getattr(tf, f)[t:t + 1] for f in per_tenant})
+    assert tcr.direct_fleet_stride(view.l2[..., 0], view.l2[..., 1]) == 2
+    td, tres = tfleet.read(view, torch.as_tensor(grid[t:t + 1].copy()),
+                           method="pallas_direct")
+    np.testing.assert_array_equal(td.numpy()[0].view(np.uint32),
+                                  np.asarray(jd)[t].view(np.uint32))
+    for field, w, g in zip(jres._fields, jres, tres):
+        want = np.asarray(w)[t]
+        if want.dtype == np.uint32:
+            want = want.view(np.int32)
+        np.testing.assert_array_equal(g.numpy()[0], want, err_msg=field)
+    assert bool(tres.found.any())
 
 
 def test_fleet_walk_is_picked_from_the_shape():

@@ -418,3 +418,78 @@ def test_vanilla_fleet_walks_and_layouts_bit_exact(cuda, t, c, p):
                 assert torch.equal(g, w)
         del w0
     assert bool((want[0][0] == -1).all())            # the length-0 tenant
+
+
+def device_fleet_words(cuda, seed, t, c, p):
+    """(T, C, P, 2) packed words made on the card, and lengths with a
+    length-0 tenant (it wraps to layer C-1) and a full chain."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (t, c, p)
+    l2 = fmt.pack_entry(
+        torch.randint(0, 1 << 28, shape, generator=g, device=cuda),
+        torch.randint(0, c, shape, generator=g, device=cuda),
+        allocated=torch.rand(shape, generator=g, device=cuda) < 0.5,
+        bfi_valid=torch.rand(shape, generator=g, device=cuda) < 0.7,
+        zero=torch.rand(shape, generator=g, device=cuda) < 0.1)
+    lens = torch.randint(0, c + 1, (t,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    lens[0], lens[-1] = 0, c
+    return l2.contiguous(), lens
+
+
+def shifted(x, elems):
+    """A contiguous copy of ``x`` whose storage starts ``elems`` elements
+    past an allocation's (well-aligned) base."""
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    out = buf[elems:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("t,c,p", [(8, 128, 128), (64, 512, 16_384), (5, 7, 333)])
+def test_direct_fleet_layouts_bit_exact(cuda, t, c, p):
+    """K2 on both layouts (the ``l2[..., 0]``/``l2[..., 1]`` pair and two
+    contiguous planes) against its plain version: the decode state's
+    shape, the fleet read's shape, an odd P, a one-tenant slice (C·P·t odd
+    at t = 1 of the odd shape) and words that start 8 bytes off a 16-byte
+    boundary. Every call counts one launch under ``resolve_direct_fleet``."""
+    l2, lens = device_fleet_words(cuda, t * c + p, t, c, p)
+    off = shifted(l2, 2)
+    cases = {
+        "words": (l2[..., 0], l2[..., 1], lens),
+        "planes": (l2[..., 0].contiguous(), l2[..., 1].contiguous(), lens),
+        "slice": (l2[1:2, ..., 0], l2[1:2, ..., 1], lens[1:2]),
+        "shifted": (off[..., 0], off[..., 1], lens),
+    }
+    for name, (w0, w1, ln) in cases.items():
+        assert cr.direct_fleet_stride(w0, w1) == w0.stride(-1), name
+        want = cr_ref.resolve_direct_fleet_ref(w0, w1, ln)
+        before = _build.LAUNCHES["resolve_direct_fleet"]
+        got = cr.resolve_direct_fleet_cuda(w0, w1, ln)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["resolve_direct_fleet"] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+        del want
+    # the length-0 tenant read layer C-1
+    assert torch.equal(cr.resolve_direct_fleet_cuda(l2[..., 0], l2[..., 1], lens)[1][0],
+                       l2[0, c - 1, :, 0])
+
+
+@pytest.mark.parametrize("n", [262_144, 1_000, 257])
+@pytest.mark.parametrize("alloc_dtype", [torch.int32, torch.bool])
+def test_direct_single_chain_misaligned_views_bit_exact(cuda, n, alloc_dtype):
+    """K7 against its plain version on aligned planes and on views one
+    entry past an aligned base (a row of a (C, 257) map is such a view)."""
+    rng = np.random.default_rng(n)
+    alloc = torch.as_tensor(rng.random(n) < 0.6, device=cuda).to(alloc_dtype)
+    bfi, ptrs = (torch.as_tensor(rng.integers(0, hi, n).astype(np.int32),
+                                 device=cuda) for hi in (1 << 16, 1 << 28))
+    aligned = (alloc, bfi, ptrs)
+    for planes in (aligned, tuple(shifted(x, 1) for x in aligned)):
+        want = cr_ref.resolve_direct_ref(*planes)
+        before = _build.LAUNCHES["resolve_direct"]
+        got = cr.resolve_direct_cuda(*planes)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["resolve_direct"] == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
