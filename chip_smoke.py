@@ -115,9 +115,38 @@ Phases, each printing its own lines:
    512-token sequence against a run that never parks it (same tokens,
    host blocks back to 0, ``check_kv_invariants`` after each event).
 
+9. golden — (a) Qwen2.5-3B (phase 4's weights) on a vanilla fused engine
+   and a scalable tables engine: a golden prompt of 392 tokens registered
+   (24½ blocks of 16, so a fork's shared tail block is copied on write),
+   four prompts extending it by 0, 17, 100 and 200 tokens admitted through
+   the trie (suffix buckets 32, 128, 256: ``paged_suffix_prefill``, K3 with
+   the bucket on its batch axis) and one miss. Each hit's first token and
+   gathered K/V must equal, bit for bit, a duplicate-storage admission
+   through the same ``_suffix_prefill``; ``golden_stats`` must show at
+   least 24 blocks saved a fork; hits and duplicates then decode 8 steps
+   to the same tokens, ``release_golden`` after the 4th. Printed: each
+   admission's ms beside a full prefill of the 592-token prompt, and the
+   blocks the hits hold against the duplicates'. K3 at the 256-row suffix
+   shape (lengths 393-592) is held against its plain version (bf16 2e-2)
+   and timed against its bound, dense SDPA beside it (``suffix_shape`` on
+   K3's row). (b) At the end of phase 7, on its vanilla fleet while it
+   lives: the tenants of depth 1, 64 and 500 (256 rows of the deeper two
+   demoted first) migrate to a 4-tenant scalable fleet with twice the
+   lease quantum; export, import, verify (``materialize_tenant`` of both,
+   one tenant alone, bit for bit) and detach are timed, with the device
+   memory one verify adds at its peak. (c) A request on a vanilla engine
+   (bs 16) forked, its parent finished, and the child migrated to a
+   scalable engine of block size 32: its next 8 tokens equal an unmigrated
+   reference engine's. (d) Also on the phase-7 fleet: tenant 16 (depth
+   127) registered in a ``GoldenRegistry`` and forked into 8 free slots
+   at depths 127 and 64 (each fork then writes and snapshots); a
+   ``MaintenanceScheduler(registry=...)`` over a device budget ticks 3
+   times, ``check_fleet_invariants(registry=...)`` after each, the owner
+   never streamed and every fork page on a pinned row still on it, hot.
+
 Launch counts are zeroed just before each phase's main path (an engine's
-run, a store depth, a fleet) and read just after it, before any kernel is
-compared with its plain version. Every row of the kernels line carries
+run, a store depth, a fleet, each part of phase 9) and read just after it,
+before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
 floor under the same flush and spin.
 
@@ -182,7 +211,18 @@ SCHED_TENANTS_PER_TICK, SCHED_THRESHOLD = 4, 3
 OVERWRITE = 256                  # clusters per tenant, written twice
 DEMOTE_BUDGET_SHARE, DEMOTE_PER_TICK, HOST_ROWS = 0.75, 4_096, 32_768
 MAINT_STEPS, PARK_STEPS = 12, 4
-DEV = "cuda"                     # phases 6-8 run here
+# phase 9: golden admission (a prompt of 24 full blocks of 16 and a partial
+# one, so the fork's tail block takes the copy-on-write path) and migration
+GOLDEN_PROMPT = 392
+GOLDEN_EXTENSIONS = (0, 17, 100, 200)   # suffix buckets 32, 128 and 256
+GOLDEN_STEPS = 8
+MIGRATE_TENANTS = (0, 8, 63)            # the phase-7 tenants of these depths
+MIGRATE_DEPTHS = (1, 64, 500)
+MIGRATE_COLD = 256                      # rows demoted from the deeper two first
+MIGRATE_POOL = 9_216                    # destination rows: ~7,900 hot + slack
+REGISTRY_OWNER, REGISTRY_FORKS, REGISTRY_SHALLOW = 16, 8, 64
+REGISTRY_TICKS, REGISTRY_STREAMS = 3, 16
+DEV = "cuda"                     # phases 6-9 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -544,6 +584,22 @@ def walk_words(w0, chain_lengths, pages_of, allocated_bit):
     return total
 
 
+def attention_cost(tables_h, len_h, bs, hkv, d, elt, n_heads):
+    """What K3 needs for host ``tables_h`` (B, M) and ``len_h`` (B,):
+    ``(bytes, ops, kv_bytes, qo_bytes, blocks_per_row)``. Bytes count each
+    distinct K/V slot the rows attend over once, q and the output once,
+    and the table entries and lengths read; ops 4·H·D a (row, position)."""
+    b = len(len_h)
+    nblk = np.minimum(-(-len_h // bs), tables_h.shape[1])
+    slots = {(int(tables_h[r, j]), o) for r in range(b) for j in range(nblk[r])
+             for o in range(bs) if j * bs + o < len_h[r]}
+    kv_bytes = len(slots) * hkv * d * elt * 2
+    qo_bytes = 2 * b * n_heads * d * elt
+    ops = 4 * n_heads * d * int(len_h.sum())
+    return (kv_bytes + qo_bytes + 4 * (int(nblk.sum()) + b), ops, kv_bytes,
+            qo_bytes, nblk)
+
+
 def measure(torch, name, kern, plain, nbytes, ops, tol, flush, library=None,
             n_kernel=50, n_plain=10):
     """Hold ``kern`` against ``plain`` on the same inputs (bit-exact where
@@ -613,13 +669,8 @@ def kernel_phase(torch, mods, state):
     k1_bytes = 8 * k1_walked + 4 * (t + 2 * t * p)
     k1_plane_bytes = 4 * (k1_walked + t + 2 * t * p)
     k2_bytes = 4 * (2 * t * p + t + 3 * t * p)
-    nblk = np.minimum(-(-len_h // bs), tables_h.shape[1])
-    slots = {(int(tables_h[r, j]), o) for r in range(b) for j in range(nblk[r])
-             for o in range(bs) if j * bs + o < len_h[r]}
-    kv_bytes = len(slots) * hkv * d * elt * 2
-    qo_bytes = 2 * b * cfg.n_heads * cfg.hd * elt
-    attn_ops = 4 * cfg.n_heads * cfg.hd * int(len_h.sum())
-    k3_bytes = kv_bytes + qo_bytes + 4 * (int(nblk.sum()) + b)
+    k3_bytes, attn_ops, kv_bytes, qo_bytes, nblk = attention_cost(
+        tables_h, len_h, bs, hkv, d, elt, cfg.n_heads)
     pages_of = {}
     for r in range(b):
         if nblk[r]:
@@ -1156,7 +1207,7 @@ def fleet_phase(torch, mods):
                         device=DEV, dtype=torch.int32)
     out_bytes = FLEET_T * FLEET_BATCH * CLUSTER * 4
     odd = list(range(1, FLEET_T, 2))
-    total, measured, shapes = {}, None, None
+    total, measured, shapes, golden = {}, None, None, None
     for scalable in (False, True):
         name = "scalable" if scalable else "vanilla"
         torch.cuda.reset_peak_memory_stats()
@@ -1264,9 +1315,12 @@ def fleet_phase(torch, mods):
             measured = fleet_kernel(torch, mods, fl.pool, res, flush)
             shapes = dict(fleet_walk(torch, mods, fl, flush),
                           k2_fleet_shape=k2_fleet_shape(torch, mods, fl, flush))
-        del fl, pre, res, store
+        del pre, res
+        if not scalable:
+            golden = golden_fleet(torch, mods, fl, store)   # phase 9b and 9d
+        del fl, store
         torch.cuda.empty_cache()
-    return measured, total, per_read, shapes
+    return measured, total, per_read, shapes, golden
 
 
 def spin_sweep(torch, fn, host_ms, flush):
@@ -1791,6 +1845,386 @@ def serve_maintenance(torch, mods, cfg, params, prompts):
     return launches
 
 
+# -- phase 9: golden admission and migration ---------------------------------
+
+
+def _engine(mods, cfg, params, *, scalable, path="auto", block_size=16,
+            max_blocks=128):
+    return mods["Engine"](cfg, params, scalable=scalable, n_blocks=1024,
+                          block_size=block_size, max_blocks_per_seq=max_blocks,
+                          resolver="auto", decode_path=path)
+
+
+def golden_admission(torch, mods, cfg, params):
+    """9a: a golden prompt of 392 tokens (24 full blocks of 16 and a
+    shared partial one) registered on two engines, four admissions that
+    extend it by 0, 17, 100 and 200 tokens and one miss. Each hit's first
+    token and K/V equal, bit for bit, a duplicate-storage admission through
+    the same ``_suffix_prefill``; hits and duplicates then decode the same
+    tokens, across ``release_golden`` too. Returns the launches and K3's
+    row at the 256-row suffix shape."""
+    _build, check_kv = mods["_build"], mods["check_kv_invariants"]
+    rng = np.random.default_rng(9)
+    golden = rng.integers(0, cfg.vocab_size, GOLDEN_PROMPT)
+    tail = rng.integers(0, cfg.vocab_size, max(GOLDEN_EXTENSIONS))
+    prompts = [np.concatenate([golden, tail[:n]]) for n in GOLDEN_EXTENSIONS]
+    miss = rng.integers(0, cfg.vocab_size, GOLDEN_PROMPT)
+    total, suffix_state = {}, None
+    for name, scalable, path in (("vanilla/fused", False, "fused"),
+                                 ("scalable/tables", True, "tables")):
+        _build.reset_launches()
+        eng = _engine(mods, cfg, params, scalable=scalable, path=path)
+        kv = eng.kv
+        gsid, register_ms = _timed(torch, lambda: eng.register_golden(golden))
+        blocks_golden = kv.blocks_in_use()
+        hits, admit_ms = [], []
+        for p in prompts:
+            sid, ms = _timed(torch, lambda: eng.add_request(p))
+            hits.append(sid)
+            admit_ms.append(ms)
+        require(eng.golden_hits == len(prompts), f"{name}: golden hits")
+        stats = kv.golden_stats()
+        require(stats["dedup_blocks_saved"] >= (GOLDEN_PROMPT // 16) * len(hits),
+                f"{name}: {stats['dedup_blocks_saved']} blocks saved")
+        blocks_hits = kv.blocks_in_use() - blocks_golden
+        msid, miss_ms = _timed(torch, lambda: eng.add_request(miss))
+        require(eng.golden_hits == len(prompts), f"{name}: the miss forked")
+        # the duplicate-storage oracle: the golden's bytes copied, the same
+        # suffix pass; its launches are the check's, not the main path's
+        with uncounted(_build):
+            gk, gv = kv.gather(gsid)
+            blocks_before_dups = kv.blocks_in_use()
+            dups = []
+            for p, sid in zip(prompts, hits):
+                dup = kv.new_seq()
+                kv.append_prefill(dup, gk, gv)
+                suffix = [int(x) for x in p[GOLDEN_PROMPT:]]
+                tok = (eng._suffix_prefill(dup, suffix) if suffix
+                       else eng._golden_info[gsid][1])
+                require(tok == eng.active[sid][0],
+                        f"{name}: +{len(suffix)} first token differs from duplicate")
+                for a, b in zip(kv.gather(sid), kv.gather(dup)):
+                    require(_same(torch, a, b),
+                            f"{name}: +{len(suffix)} K/V differ from duplicate")
+                eng.active[dup] = [tok]
+                dups.append(dup)
+            blocks_dups = kv.blocks_in_use() - blocks_before_dups
+            del gk, gv
+        check_kv(kv)
+        for step in range(GOLDEN_STEPS):
+            if step == GOLDEN_STEPS // 2:
+                eng.release_golden(gsid)      # the forks decode on
+                check_kv(kv)
+            eng.step()
+        for sid, dup in zip(hits, dups):
+            require(eng.active[sid] == eng.active[dup],
+                    f"{name}: hit and duplicate decoded different tokens")
+        require(len(eng.active[hits[0]]) == 1 + GOLDEN_STEPS, "decode steps")
+        launches = dict(_build.LAUNCHES)          # read just after the run
+        require(launches["paged_attention"] > 0,
+                f"{name}: suffix prefill never launched paged_attention")
+        # a full prefill of the longest prompt, beside its suffix admission
+        (full_sid, _), full_ms = _timed(torch, lambda: eng._prefill_seq(prompts[-1]))
+        kv.free_seq(full_sid)
+        if path == "tables":
+            sid = hits[-1]
+            table = kv._resolve_oracle(sid)[0]
+            suffix_state = dict(pool_k=kv.pool_k[0].clone(),
+                                pool_v=kv.pool_v[0].clone(),
+                                table=np.where(table >= 0, table, eng._pad_block))
+        for s in sorted(eng.active):
+            eng.finish_request(s)
+        require(kv.blocks_in_use() == 0, f"{name}: blocks leaked")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        emit({"phase": "golden", "part": "admission", "engine": name,
+              "model": cfg.name, "golden_tokens": GOLDEN_PROMPT,
+              "extensions": list(GOLDEN_EXTENSIONS),
+              "buckets": [eng._bucket(n) if n else 0 for n in GOLDEN_EXTENSIONS],
+              "register_ms": register_ms, "admit_ms": admit_ms,
+              "miss_ms": miss_ms, "full_prefill_ms": full_ms,
+              "full_prefill_tokens": len(prompts[-1]),
+              "blocks_golden": blocks_golden,
+              "blocks_hits_with_dedup": blocks_hits,
+              "blocks_same_sequences_without_dedup": blocks_dups,
+              "golden_stats_after_hits": stats,
+              "hits_equal_duplicates_bitwise": True,
+              "tokens_equal_over_steps": GOLDEN_STEPS,
+              "release_golden_at_step": GOLDEN_STEPS // 2,
+              "launches": launches})
+        del eng, kv
+        torch.cuda.empty_cache()
+    return total, suffix_kernel(torch, mods, suffix_state)
+
+
+def suffix_kernel(torch, mods, s):
+    """K3 at the suffix prefill's shape, on the engine's own layer-0 pools
+    and the 200-token admission's table: 256 rows (200 real, lengths
+    393-592, and 56 padded of length 1) reading one table, held against
+    its plain version (the long context's absolute and relative L2
+    limits, with the outputs' spread beside them, and a check that the
+    errors a dropped page or a short length would give exceed them) and
+    timed against
+    its bound, with its ms by pass (the split pass, the combine).
+    ``scaled_dot_product_attention`` over the same K/V gathered dense,
+    with the causal mask, is timed beside it as a yardstick."""
+    pa, pa_ref, cfg = mods["pa"], mods["pa_ref"], mods["cfg"]
+    n = max(GOLDEN_EXTENSIONS)
+    pad = mods["Engine"]._bucket(n)
+    lens_h = np.ones(pad, np.int32)
+    lens_h[:n] = GOLDEN_PROMPT + 1 + np.arange(n)
+    tables_h = np.repeat(s["table"][None].astype(np.int32), pad, 0)
+    pool_k, pool_v = s["pool_k"], s["pool_v"]
+    nb, bs, hkv, d = pool_k.shape
+    tables = torch.as_tensor(tables_h, device=DEV)
+    lens = torch.as_tensor(lens_h, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    q = torch.randn((pad, cfg.n_heads, d), generator=g, device=DEV).to(pool_k.dtype)
+    nbytes, ops, *_ = attention_cost(tables_h, lens_h, bs, hkv, d,
+                                     pool_k.element_size(), cfg.n_heads)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+    m = int(lens_h.max())
+    blocks = tables[0, : -(-m // bs)].long()
+    kd, vd = (x[blocks].reshape(-1, hkv, d)[:m].transpose(0, 1)[None].contiguous()
+              for x in (pool_k, pool_v))
+    causal = torch.arange(m, device=DEV)[None, :] < lens[:, None]
+
+    def dense():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(0, 1)[None], kd, vd, attn_mask=causal, enable_gqa=True)
+
+    def kern():
+        return pa.paged_attention_cuda(q, pool_k, pool_v, tables, lens)
+
+    def plain(lengths=lens):
+        return pa_ref.paged_attention_ref(q, pool_k, pool_v, tables, lengths)
+
+    def rel_l2(a, want):
+        return float((a.float() - want).norm() / want.norm())
+
+    with uncounted(mods["_build"]):
+        row, got = measure(torch, "paged_attention", kern, plain, nbytes, ops,
+                           LONG_CONTEXT_TOL, flush)
+        want = plain().float()
+        rel = rel_l2(got[0], want)
+        require(rel <= LONG_CONTEXT_REL_TOL,
+                f"suffix shape: paged_attention relative error {rel}")
+        # what the two limits see of a fault: the plain version with the
+        # real rows' last 16 positions (up to a page) dropped, and 4 short
+        faults = {}
+        for fault, short in (("last_16_dropped", bs), ("short_by_4", 4)):
+            w = plain(torch.where(lens > short, lens - short, lens))
+            faults[fault] = dict(max_abs=float((w.float() - want).abs().max()),
+                                 rel=rel_l2(w, want))
+            require(faults[fault]["max_abs"] > LONG_CONTEXT_TOL
+                    or faults[fault]["rel"] > LONG_CONTEXT_REL_TOL,
+                    f"suffix shape: the limits would pass a kernel with {fault}")
+        dense_ms = timed_ms(torch, dense, 50, flush)
+        by_pass = attention_passes(torch, kern, flush)
+    real = want[:n]
+    out = dict(batch=pad, real_rows=n, lengths=[int(lens_h[0]), m],
+               ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+               bound_by=row["bound_by"], bytes=nbytes, ops=ops,
+               max_abs_err=row["max_abs_err"], rel_err=rel, tol=LONG_CONTEXT_TOL,
+               rel_tol=LONG_CONTEXT_REL_TOL,
+               output_spread=dict(std=float(real.std()),
+                                  max_abs=float(real.abs().max())),
+               fault_errors=faults, dense_sdpa_ms=dense_ms,
+               device_ms_by_pass=by_pass,
+               **split_report(pa, q, hkv, tables.shape[1], bs, lens_h))
+    emit({"phase": "golden", "part": "k3_suffix_shape", **out})
+    return out
+
+
+def sequence_migration(torch, mods, cfg, params, prompt):
+    """9c: a request forked on a vanilla engine (block size 16, fused
+    path), its parent finished, the child migrated to a scalable engine of
+    block size 32 (tables path); its next tokens equal those of an
+    unmigrated reference engine of the destination's geometry, which
+    admitted the same prompt. The child migrates right after admission:
+    a decode step on the source would attend in 16-token pages, the
+    reference in 32-token ones, and bf16 sums in another order could
+    move a near-tied argmax."""
+    _build, check_kv = mods["_build"], mods["check_kv_invariants"]
+    _build.reset_launches()
+    src = _engine(mods, cfg, params, scalable=False)
+    dst = _engine(mods, cfg, params, scalable=True, block_size=32, max_blocks=64)
+    ref = _engine(mods, cfg, params, scalable=True, block_size=32, max_blocks=64)
+    require(src.decode_path == "fused" and dst.decode_path == "tables",
+            "sequence migration: decode paths")
+    a = src.add_request(prompt)
+    with uncounted(_build):                    # the reference is the check's
+        r = ref.add_request(prompt)
+    require(src.active[a] == ref.active[r], "sequence migration: first token")
+    b = src.fork_request(a)
+    src.finish_request(a)                      # tombstone the parent
+    new, migrate_ms = _timed(torch, lambda: src.migrate_request_to(dst, b))
+    require(not src.active and src.kv.blocks_in_use() == 0,
+            "sequence migration: source not retired")
+    for eng in (src, dst):
+        check_kv(eng.kv)
+    got = [dst.step()[new] for _ in range(GOLDEN_STEPS)]
+    with uncounted(_build):
+        want = [ref.step()[r] for _ in range(GOLDEN_STEPS)]
+    require(got == want, "migrated request decodes other tokens than the reference")
+    launches = dict(_build.LAUNCHES)           # read just after the run
+    require(launches["paged_attention"] > 0, "sequence migration: K3 not launched")
+    emit({"phase": "golden", "part": "sequence_migration", "model": cfg.name,
+          "prompt_tokens": len(prompt), "src": "vanilla/fused bs 16",
+          "dst": "scalable/tables bs 32", "migrate_ms": migrate_ms,
+          "tokens_equal_reference": GOLDEN_STEPS, "launches": launches})
+    for eng in (dst, ref):
+        for s in sorted(eng.active):
+            eng.finish_request(s)
+    del src, dst, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def golden_fleet(torch, mods, fl, store):
+    """9b and 9d on the phase-7 vanilla fleet, while it still lives.
+
+    9b: tenants of depth 1, 64 and 500 (a cold layer demoted first, so
+    their blobs carry host pages) migrate to a fleet of 4 tenants, twice
+    the lease quantum and the scalable flag: export, import, verify (the
+    port's ``materialize_tenant`` of both, bit for bit) and detach, each
+    timed, with the device memory one verify adds at its peak.
+
+    9d: tenant 16 (depth 127) registered with a ``GoldenRegistry`` and
+    forked into 8 free slots, 4 at its full depth and 4 at depth 64, each
+    fork then writing 4 clusters of its own and snapshotting; a
+    ``MaintenanceScheduler(registry=...)`` over a device budget ticks
+    ``REGISTRY_TICKS`` times with ``check_fleet_invariants(registry=...)``
+    after each: the owner is never streamed, and every fork page that
+    resolved to a pinned row still resolves to it, hot."""
+    fleet_lib, migrate, _build = mods["fleet"], mods["migrate"], mods["_build"]
+    check = mods["check_fleet_invariants"]
+    _build.reset_launches()
+    # 9b: tenant migration
+    spec = fleet_lib.FleetSpec(
+        n_tenants=4, n_pages=FLEET_PAGES, page_size=CLUSTER,
+        max_chain=FLEET_MAX_DEPTH + 2, pool_capacity=MIGRATE_POOL,
+        lease_quantum=2 * FLEET_Q)
+    dst = fleet_lib.create(spec, scalable=True, device=DEV)
+    dst_store = mods["TieredStore"](CLUSTER, torch.float32, initial_rows=2 * MIGRATE_COLD)
+    for t in MIGRATE_TENANTS[1:]:
+        fl, rep = fleet_lib.demote_tenants(fl, store, [t], max_rows=MIGRATE_COLD)
+        require(rep["rows_demoted"] == MIGRATE_COLD, f"tenant {t}: demoted rows")
+    host0 = store.host_rows_in_use()
+    out = []
+    for slot, t in enumerate(MIGRATE_TENANTS):
+        depth = int(fl.length[t])
+        blob, export_ms = _timed(torch, lambda: migrate.export_tenant(fl, t, store=store))
+        dst, import_ms = _timed(torch, lambda: migrate.import_tenant(
+            dst, slot, blob, store=dst_store))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        want, src_ms = _timed(torch, lambda: migrate.materialize_tenant(
+            fl, t, store=store))
+        one_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        got, dst_ms = _timed(torch, lambda: migrate.materialize_tenant(
+            dst, slot, store=dst_store))
+        verify_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        require(_same(torch, want, got), f"tenant {t}: migrated disk differs")
+        del want, got
+        fl, detach_ms = _timed(torch, lambda: migrate.detach_tenant(
+            fl, t, blob, store=store))
+        require(int(fl.length[t]) == 1 and int(fl.lease_count[t]) == 0,
+                f"tenant {t}: source slot not clean")
+        out.append(dict(tenant=t, depth=depth, rows_hot=blob.n_hot,
+                        rows_cold=blob.n_cold, blob_bytes=blob.nbytes(),
+                        export_ms=export_ms, import_ms=import_ms,
+                        verify_ms=src_ms + dst_ms,
+                        materialize_peak_extra_GB=one_peak,
+                        verify_peak_extra_GB=verify_peak, detach_ms=detach_ms))
+        del blob
+    require([o["depth"] for o in out] == list(MIGRATE_DEPTHS), "migrated depths")
+    require(out[-1]["rows_cold"] == MIGRATE_COLD, "no host pages travelled")
+    require(store.host_rows_in_use() == host0 - 2 * MIGRATE_COLD,
+            "detach left host rows")
+    check(dst, store=dst_store)
+    emit({"phase": "golden", "part": "tenant_migration", "src_tenants": FLEET_T,
+          "src_quantum": FLEET_Q, "dst_tenants": spec.n_tenants,
+          "dst_quantum": spec.lease_quantum, "dst_scalable": True,
+          "cluster_bytes": CLUSTER * 4, "migrations": out,
+          "verified_bitwise": True})
+    del dst, dst_store
+    torch.cuda.empty_cache()
+
+    # 9d: the golden registry beside the maintenance plane
+    reg = mods["GoldenRegistry"]()
+    gid, created = reg.register(fl, REGISTRY_OWNER)
+    require(created, "registry: not created")
+    lengths = fl.length.cpu().numpy()
+    alloc = fl.alloc_count.cpu().numpy()
+    free_slots = [t for t in range(FLEET_T) if lengths[t] == 1 and alloc[t] == 0]
+    forks = free_slots[:REGISTRY_FORKS]
+    require(len(forks) == REGISTRY_FORKS, f"free slots {free_slots}")
+    full = int(lengths[REGISTRY_OWNER])
+    for i, f in enumerate(forks):
+        fl = reg.fork(fl, gid, f, depth=full if i % 2 else REGISTRY_SHALLOW)
+    g = torch.Generator(device=DEV).manual_seed(16)
+    mask = torch.zeros(FLEET_T, dtype=torch.bool, device=DEV)
+    mask[forks] = True
+    ids = torch.argsort(torch.rand((FLEET_T, FLEET_PAGES), generator=g, device=DEV),
+                        dim=1)[:, :FLEET_LAYER_WRITES]
+    fleet_lib.write(fl, ids, torch.randn((FLEET_T, FLEET_LAYER_WRITES, CLUSTER),
+                                         generator=g, device=DEV), mask)
+    fleet_lib.snapshot(fl, mask)
+    check(fl, store=store, registry=reg)
+    pinned = torch.as_tensor(reg.pinned_rows(), device=DEV)
+    grid = torch.arange(FLEET_PAGES, dtype=torch.int32, device=DEV)[None]
+
+    def pinned_pages(f):
+        # a check's read: its launches are not the main path's
+        with uncounted(_build):
+            res = fleet_lib.get_resolver("auto")(fleet_lib.tenant_slice(fl, f), grid)
+        hot = res.found[0] & ~res.zero[0] & ~res.cold[0]
+        return hot, res.ptr[0].long()
+
+    before = {}
+    for f in forks:
+        hot, ptr = pinned_pages(f)
+        keep = hot & torch.isin(ptr, pinned)
+        before[f] = (keep, ptr)
+    owner_len = int(fl.length[REGISTRY_OWNER])
+    rows = fleet_lib.fleet_stats(fl)["rows_allocated"]
+    sched = mods["Sched"](fl, max_tenants_per_tick=REGISTRY_STREAMS, store=store,
+                          device_page_budget=rows - REGISTRY_TICKS * DEMOTE_PER_TICK,
+                          demote_rows_per_tick=DEMOTE_PER_TICK, registry=reg)
+    ticks = []
+    for _ in range(REGISTRY_TICKS):
+        rep, ms = _timed(torch, sched.tick)
+        fl = sched.fleet
+        require(REGISTRY_OWNER not in rep["streamed"], "golden owner streamed")
+        check(fl, store=store, registry=reg)
+        for f, (keep, ptr) in before.items():
+            hot, now = pinned_pages(f)
+            require(bool((hot[keep] & (now[keep] == ptr[keep])).all()),
+                    f"fork {f}: a pinned row was demoted or moved")
+        ticks.append(dict(ms=ms, streamed=len(rep["streamed"]),
+                          rows_demoted=rep["rows_demoted"]))
+    require(int(fl.length[REGISTRY_OWNER]) == owner_len, "golden owner changed")
+    require(sched.rows_demoted > 0, "the demotion policy demoted nothing")
+    registry_stats = reg.stats()
+    fleet_lib.free_tenant(fl, forks, store=store, registry=reg)
+    reg.unregister(gid)
+    check(fl, store=store, registry=reg)
+    launches = dict(_build.LAUNCHES)           # read just after the run
+    for key in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather_fleet",
+                "merge"):
+        require(launches[key] > 0, f"golden fleet: {key} never launched")
+    emit({"phase": "golden", "part": "registry", "owner": REGISTRY_OWNER,
+          "owner_depth": owner_len, "forks": forks,
+          "fork_depths": [full if i % 2 else REGISTRY_SHALLOW
+                          for i in range(len(forks))],
+          "stats": registry_stats,
+          "ticks": ticks, "rows_demoted": sched.rows_demoted,
+          "owner_never_streamed": True, "pinned_rows_never_demoted": True,
+          "invariants_every_tick": True, "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1813,7 +2247,8 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ref as pa_ref
     from repro_torch.kernels.stream_merge import ref as sm_ref
     from repro_torch.kernels.stream_merge import stream_merge as sm
-    from repro_torch.core import chain
+    from repro_torch.core import chain, migrate
+    from repro_torch.core.golden import GoldenRegistry
     from repro_torch.core.invariants import (check_fleet_invariants,
                                              check_kv_invariants)
     from repro_torch.core.scheduler import MaintenanceScheduler
@@ -1845,7 +2280,8 @@ def main() -> int:
                 readable_rows=store.readable_rows, chain=chain, sm=sm,
                 sm_ref=sm_ref, Sched=MaintenanceScheduler,
                 check_fleet_invariants=check_fleet_invariants,
-                check_kv_invariants=check_kv_invariants)
+                check_kv_invariants=check_kv_invariants, migrate=migrate,
+                GoldenRegistry=GoldenRegistry)
 
     # 3. smoke-size reference: the card against the plain versions on the CPU
     t0 = time.perf_counter()
@@ -1894,8 +2330,8 @@ def main() -> int:
 
     # 7. a fleet of disks: fleet.read and the host cold tier
     t0 = time.perf_counter()
-    fleet_rows, fleet_launches, fleet_per_read, fleet_shapes = fleet_phase(
-        torch, mods)
+    fleet_rows, fleet_launches, fleet_per_read, fleet_shapes, golden_fleet_launches = \
+        fleet_phase(torch, mods)
     emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
     per_step_of["gather_fleet"] = fleet_per_read["gather_fleet"]
 
@@ -1906,22 +2342,32 @@ def main() -> int:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", dtype=layers.COMPUTE_DTYPE)
     serve8_launches = serve_maintenance(torch, mods, cfg, params, prompts)
-    del params
-    torch.cuda.empty_cache()
     emit({"phase": "maintenance", "seconds": time.perf_counter() - t0})
     per_step_of["merge"] = per_plan         # launches per plan_merge call
 
+    # 9. golden admission and migration (9b and 9d ran on phase 7's fleet)
+    t0 = time.perf_counter()
+    admission_launches, suffix_row = golden_admission(torch, mods, cfg, params)
+    seqmig_launches = sequence_migration(torch, mods, cfg, params, prompts[-1])
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "golden", "seconds": time.perf_counter() - t0})
+
     # launches on the main paths: the engines' runs, both store depths,
-    # both fleets and the maintenance runs (each counted from zero just
-    # before its run)
+    # both fleets, the maintenance runs and the golden and migration runs
+    # (each counted from zero just before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
                    + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
                                               disk_launches, maint_launches,
-                                              serve8_launches))
+                                              serve8_launches,
+                                              golden_fleet_launches,
+                                              admission_launches,
+                                              seqmig_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
     rows[1]["fleet_shape"] = fleet_shapes["k2_fleet_shape"]   # K2's row
+    rows[2]["suffix_shape"] = suffix_row                      # K3's row
     rows += fleet_rows + store_rows + merge_rows
     floor, floor_clean = floor_ms(torch, torch.empty(64 * 2**20, dtype=torch.uint8,
                                                      device="cuda"))

@@ -26,7 +26,11 @@ immutable snapshot layers between the device pool and a ``TieredStore``
 maintenance plane streams tenants (``stream_tenants``: ``chain.merge_tables``
 per tenant, whose merge plan runs the streaming-merge kernel K9) and
 repacks their leases (``compact``); ``core.scheduler`` budgets both beside
-serving. The golden registry and migration come in later slices.
+serving. Migration installs a whole chain into a slot (``install_tenant``,
+driven by ``core.migrate``), and the golden registry (``core.golden``)
+rides through ``free_tenant``, ``stream_tenants``, ``compact`` and
+``demote_tenants``: registered owners are left alone and rows pinned by
+golden forks are never repacked or spilled.
 """
 
 from __future__ import annotations
@@ -395,14 +399,6 @@ def _tenant_sel(n_tenants: int, tenants) -> np.ndarray:
     return sel
 
 
-def _no_registry(registry, op: str) -> None:
-    if registry is not None:
-        raise NotImplementedError(
-            f"{op}(registry=...): the golden registry is not ported yet; it "
-            "comes with the golden-admission slice"
-        )
-
-
 def _entry_masks(w0: torch.Tensor):
     """(allocated, zero, cold) masks and the ptr field of word0 words."""
     return ((w0 & fmt.FLAG_ALLOCATED_I32) != 0, (w0 & fmt.FLAG_ZERO_I32) != 0,
@@ -426,15 +422,27 @@ def free_tenant(fleet: ChainFleet, tenants, *, store=None,
     ``store``: the ``TieredStore`` holding any demoted pages of the freed
     tenants; their host rows return to its free list here, so a freed
     tenant leaves no orphaned host pages. Required iff a selected tenant
-    holds cold rows. ``registry`` (golden admission) is not ported yet and
-    raises ``NotImplementedError``. Pool rows the freed tenants referenced
-    are garbage until their quanta are re-leased (rows are never zeroed).
+    holds cold rows. ``registry``: the ``GoldenRegistry``, when the fleet
+    runs one. Freeing a registered golden *owner* is refused (forks may pin
+    its rows: ``unregister`` first); freeing a golden *fork* releases its
+    pins on the shared base here, so callers cannot leak refcounts. Pool
+    rows the freed tenants referenced are garbage until their quanta are
+    re-leased (rows are never zeroed).
     """
-    _no_registry(registry, "free_tenant")
     spec = fleet.spec
     idx = np.flatnonzero(_tenant_sel(spec.n_tenants, tenants))
     if idx.size == 0:
         return fleet
+    if registry is not None:
+        owners = [int(t) for t in idx if registry.is_golden_owner(int(t))]
+        if owners:
+            raise ValueError(
+                f"tenants {owners} are registered golden bases; "
+                "unregister them before freeing (forks may pin their rows)"
+            )
+        for t in idx:
+            if registry.is_fork(int(t)):
+                registry.release(int(t))
     cold_held = fleet.cold_count.cpu().numpy()[idx]
     if np.any(cold_held > 0):
         if store is None:
@@ -463,11 +471,13 @@ def free_tenant(fleet: ChainFleet, tenants, *, store=None,
 
 
 def attach_tenant(fleet: ChainFleet, t: int, *,
-                  scalable: bool | None = None) -> ChainFleet:
+                  scalable: bool | None = None,
+                  registry=None) -> ChainFleet:
     """(Re)initialize tenant slot ``t`` for a new occupant: a fresh empty
     length-1 chain with the given format flag (default: keep the slot's
-    flag). Any leases the slot still held are released first."""
-    free_tenant(fleet, t)
+    flag). Any leases the slot still held are released first
+    (``free_tenant``, honouring ``registry`` pins)."""
+    free_tenant(fleet, t, registry=registry)
     if scalable is not None:
         fleet.scalable[t] = bool(scalable)
     return fleet
@@ -566,10 +576,54 @@ def acquire_rows(fleet: ChainFleet, t: int, n: int):
     return fleet, rows[t].cpu().numpy().astype(np.int64)
 
 
+def install_tenant(fleet: ChainFleet, t: int, *, l1, l2, length: int,
+                   scalable: bool, cold_count: int = 0,
+                   pool_rows=None, pool_data=None) -> ChainFleet:
+    """Install a complete chain into tenant slot ``t`` in one shot.
+
+    The attach half of migration: the slot's L1/L2 stacks are replaced
+    wholesale (layers past ``length`` zeroed; ``l1``/``l2`` are packed
+    words, ``uint32`` or the ``int32`` carrier), its ``length``/format/
+    ``cold_count`` set, and, when given, ``pool_data`` scattered into
+    ``pool_rows`` (rows the caller obtained from ``acquire_rows``: the
+    blob's page payload landing in the device pool). The pressure flags
+    reset: an imported chain starts clean.
+
+    The caller is responsible for slot hygiene (``free_tenant`` first, so
+    a predecessor's leases are returned) and for the entries in ``l2``
+    pointing only at rows granted to ``t``: ``core.migrate`` remaps
+    blob-local pointers before calling in, and ``core.invariants`` checks
+    the result.
+    """
+    spec = fleet.spec
+    length = int(length)
+    if not 1 <= length <= spec.max_chain:
+        raise ValueError(
+            f"cannot install a length-{length} chain into a fleet with "
+            f"max_chain={spec.max_chain}"
+        )
+    dev = fleet.device
+    fleet.l1[t] = 0
+    fleet.l2[t] = 0
+    fleet.l1[t, :length] = fmt.words(l1, device=dev)
+    fleet.l2[t, :length] = fmt.words(l2, device=dev)
+    if pool_rows is not None and len(pool_rows):
+        rows = torch.as_tensor(np.asarray(pool_rows, np.int64), device=dev)
+        fleet.pool[rows] = torch.as_tensor(pool_data).to(device=dev,
+                                                         dtype=spec.dtype)
+    fleet.length[t] = length
+    fleet.scalable[t] = bool(scalable)
+    fleet.overflow[t] = False
+    fleet.snap_dropped[t] = False
+    fleet.cold_count[t] = int(cold_count)
+    return fleet
+
+
 # -- maintenance plane: lease reclamation ------------------------------------
 
 
-def _reclaim(fleet: ChainFleet, sel: np.ndarray) -> ChainFleet:
+def _reclaim(fleet: ChainFleet, sel: np.ndarray, *,
+             shared_rows=None) -> ChainFleet:
     """Repack each selected tenant's live rows into its leading lease
     quanta and return now-empty quanta to the allocator free list.
 
@@ -578,14 +632,24 @@ def _reclaim(fleet: ChainFleet, sel: np.ndarray) -> ChainFleet:
     prefix of its leased quanta, remap the L2 pointers, then release every
     quantum past the packed prefix. COLD entries point at the host tier:
     they pin no device row and keep their ptr. ``overflow`` clears only
-    for tenants whose row count actually shrank. (The golden registry's
-    shared rows come with the golden slice.)
+    for tenants whose row count actually shrank.
+
+    ``shared_rows`` (the golden registry's ``pinned_rows()``) marks rows a
+    tenant may legally reference *without owning*: a golden fork's entries
+    alias its base's frozen rows. Like COLD entries, shared rows are not
+    repacked, keep their pointer verbatim, and never count toward the
+    referencing tenant's lease footprint.
     """
     spec = fleet.spec
     q = spec.lease_quantum
     dev = fleet.device
     lengths = fleet.length.cpu().numpy()
     reclaimed = torch.zeros(spec.n_tenants, dtype=torch.bool, device=dev)
+    shared_lut = None
+    if shared_rows is not None and len(shared_rows):
+        shared_lut = torch.zeros(spec.pool_capacity, dtype=torch.bool, device=dev)
+        shared_lut[torch.as_tensor(np.asarray(shared_rows, np.int64),
+                                   device=dev)] = True
     for t in np.flatnonzero(sel):
         length_t = int(lengths[t])
         entries = fleet.l2[t, :length_t]                 # (L, n_pages, 2)
@@ -593,6 +657,10 @@ def _reclaim(fleet: ChainFleet, sel: np.ndarray) -> ChainFleet:
         # ZERO clusters never dereference their ptr and COLD ones address
         # the host tier: neither pins a device row
         live = alloc & ~zero & ~cold
+        shared = torch.zeros_like(live)
+        if shared_lut is not None:
+            shared = live & shared_lut[torch.where(live, rows, 0)]
+            live = live & ~shared
         used = torch.unique(rows[live])                  # sorted global rows
         n_live = int(used.numel())
         if n_live and not bool((fleet.lease_owner[used // q] == t).all()):
@@ -611,7 +679,10 @@ def _reclaim(fleet: ChainFleet, sel: np.ndarray) -> ChainFleet:
             fleet.pool[new_rows] = fleet.pool.index_select(0, used)
             lut = torch.zeros(spec.pool_capacity, dtype=torch.int64, device=dev)
             lut[used] = new_rows
-            new_ptr = torch.where(cold, rows, lut[torch.where(live, rows, 0)])
+            # COLD entries keep their (host-tier) ptr verbatim, and so do
+            # shared golden rows: the LUT maps this tenant's own rows only
+            new_ptr = torch.where(cold | shared, rows,
+                                  lut[torch.where(live, rows, 0)])
             fleet.l2[t, :length_t] = fmt.pack_entry(
                 new_ptr, fmt.entry_bfi(entries), allocated=alloc,
                 bfi_valid=fmt.entry_bfi_valid(entries), zero=zero, cold=cold)
@@ -648,8 +719,11 @@ def stream_tenants(fleet: ChainFleet, mask, merge_upto, *,
             entries across layers and strand their host rows).
         reclaim: run the shared ``_reclaim`` repack afterwards (default).
             Pass ``False`` for a metadata-only merge that frees nothing.
-        registry: the golden registry: not ported yet, raises
-            ``NotImplementedError``.
+        registry: the ``GoldenRegistry``, when the fleet runs one.
+            Registered golden *owners* are skipped (their chains are
+            content-frozen; a merge would invalidate every fork's base)
+            and forks' shared base rows ride through the repack untouched
+            (``_reclaim(shared_rows=...)``).
 
     Returns:
         The fleet. With ``reclaim=True``, rows orphaned by the merge leave
@@ -658,7 +732,6 @@ def stream_tenants(fleet: ChainFleet, mask, merge_upto, *,
         actually shrank, and ``snap_dropped`` clears only where streaming
         made room below ``max_chain``.
     """
-    _no_registry(registry, "stream_tenants")
     spec = fleet.spec
     t = spec.n_tenants
     mask = np.broadcast_to(np.asarray(mask, bool), (t,))
@@ -666,6 +739,8 @@ def stream_tenants(fleet: ChainFleet, mask, merge_upto, *,
     lengths = fleet.length.cpu().numpy().copy()
     cold = fleet.cold_count.cpu().numpy()
     sel = mask & (upto >= 0) & (upto < lengths - 1) & (cold == 0)
+    if registry is not None:
+        sel &= ~registry.golden_owner_mask(t)
     snap_dropped = fleet.snap_dropped.cpu().numpy().copy()
     scalable = fleet.scalable.cpu().numpy()
     for i in np.flatnonzero(sel):
@@ -679,7 +754,13 @@ def stream_tenants(fleet: ChainFleet, mask, merge_upto, *,
     fleet.snap_dropped.copy_(torch.as_tensor(snap_dropped))
     if not reclaim:
         return fleet
-    return _reclaim(fleet, sel)
+    return _reclaim(fleet, sel, shared_rows=_pinned(registry))
+
+
+def _pinned(registry):
+    """The rows ``_reclaim`` must leave in place: every row a registered
+    golden chain freezes (``None`` without a registry)."""
+    return registry.pinned_rows() if registry is not None else None
 
 
 def compact(fleet: ChainFleet, mask=None, *, registry=None) -> ChainFleet:
@@ -689,23 +770,29 @@ def compact(fleet: ChainFleet, mask=None, *, registry=None) -> ChainFleet:
     The fleet analogue of ``chain.compact_pool``: COW writes and streaming
     orphan pool rows, and this is the background job that hands them
     back. ``mask``: optional (T,) bool selecting the tenants to repack
-    (``None``: every tenant). ``registry`` (golden admission) is not
-    ported yet and raises ``NotImplementedError``. Updates the fleet in
-    place and returns it; ``overflow`` clears only for tenants whose rows
-    were actually reclaimed.
+    (``None``: every tenant). ``registry``: the ``GoldenRegistry``, when
+    the fleet runs one: golden owners are never repacked (their pointer
+    layout is part of the frozen fingerprint and their rows are pinned);
+    forks repack only their own rows, aliased base rows ride through
+    verbatim. Updates the fleet in place and returns it; ``overflow``
+    clears only for tenants whose rows were actually reclaimed.
     """
-    _no_registry(registry, "compact")
     t = fleet.spec.n_tenants
     sel = (np.ones(t, bool) if mask is None
            else np.broadcast_to(np.asarray(mask, bool), (t,)))
-    return _reclaim(fleet, sel)
+    if registry is not None:
+        sel = sel & ~registry.golden_owner_mask(t)
+    return _reclaim(fleet, sel, shared_rows=_pinned(registry))
 
 
 # -- host cold tier: demote / promote / tiered read --------------------------
 
 
 def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return torch.equal(a.cpu().view(torch.uint8), b.cpu().view(torch.uint8))
+    """Bytewise equality, on the device when both tensors share one."""
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def demote_tenants(fleet: ChainFleet, store, tenants, *,
@@ -733,17 +820,29 @@ def demote_tenants(fleet: ChainFleet, store, tenants, *,
         max_rows: demote at most this many pool rows across the call;
             ``None`` = no cap. Oldest layers go first.
         verify: bit-verify every transferred row (default True).
-        registry: the golden registry: not ported yet, raises
-            ``NotImplementedError``.
+        registry: the ``GoldenRegistry``, when the fleet runs one.
+            Registered golden owners are skipped entirely (the frozen
+            base stays device-resident by contract), and rows pinned by
+            the registry are never picked from *any* tenant: a fork's
+            lower layers reference the shared base below its active
+            volume, exactly the demotion-eligible shape, and spilling
+            them would pull the base out from under every sibling fork.
 
     Returns:
         ``(fleet, report)`` where report is
         ``dict(rows_demoted=int, tenants=[ids that moved rows])``.
     """
-    _no_registry(registry, "demote_tenants")
     spec = fleet.spec
     dev = fleet.device
     sel = _tenant_sel(spec.n_tenants, tenants)
+    pinned_lut = None
+    if registry is not None:
+        sel = sel & ~registry.golden_owner_mask(spec.n_tenants)
+        pinned = registry.pinned_rows()
+        if pinned.size:
+            pinned_lut = torch.zeros(spec.pool_capacity, dtype=torch.bool,
+                                     device=dev)
+            pinned_lut[torch.as_tensor(pinned, device=dev)] = True
     lengths = fleet.length.cpu().numpy()
     budget = np.inf if max_rows is None else int(max_rows)
     total = 0
@@ -758,6 +857,9 @@ def demote_tenants(fleet: ChainFleet, store, tenants, *,
         w0 = fleet.l2[t, :length_t, :, 0]              # (L, n_pages) view
         alloc, zero, cold, rows = _entry_masks(w0)
         hot = alloc & ~zero & ~cold
+        if pinned_lut is not None:
+            # golden-pinned rows are immovable while any fork aliases them
+            hot &= ~pinned_lut[torch.where(hot, rows, 0)]
         if not bool(hot.any()):
             continue
         # a row's owner is the lowest layer referencing it (copy-forward
@@ -803,7 +905,8 @@ def demote_tenants(fleet: ChainFleet, store, tenants, *,
         return fleet, dict(rows_demoted=0, tenants=[])
     # repack: the demoted rows are no longer referenced by any hot entry,
     # so _reclaim returns their quanta to the allocator free list
-    fleet = _reclaim(fleet, _tenant_sel(spec.n_tenants, moved))
+    fleet = _reclaim(fleet, _tenant_sel(spec.n_tenants, moved),
+                     shared_rows=_pinned(registry))
     return fleet, dict(rows_demoted=total, tenants=moved)
 
 
@@ -914,6 +1017,23 @@ def read_tiered(fleet: ChainFleet, store, page_ids, *, method: str = "auto"):
 
 
 # -- per-tenant views & host-side helpers ------------------------------------
+
+
+def tenant_slice(fleet: ChainFleet, t: int) -> ChainFleet:
+    """A one-tenant fleet over tenant ``t``'s views of the fleet's
+    tensors and the whole shared pool: the batched data path on it
+    (``read``, ``read_tiered``, the fleet kernels) costs one tenant's
+    O(C·P), not the fleet's O(T·C·P), and bit for bit equals row ``t`` of
+    the same call on the whole fleet. Read-only: the lease state of a
+    slice is not the fleet's."""
+    s = slice(t, t + 1)
+    return dataclasses.replace(
+        fleet,
+        spec=dataclasses.replace(fleet.spec, n_tenants=1),
+        **{name: getattr(fleet, name)[s] for name in (
+            "l1", "l2", "lease_index", "lease_count", "alloc_count", "length",
+            "scalable", "overflow", "snap_dropped", "cold_count")},
+    )
 
 
 def tenant_chain(fleet: ChainFleet, t: int) -> Chain:

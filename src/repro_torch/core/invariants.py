@@ -28,11 +28,14 @@ never mutate it. The KV cache's private fleet is a *metadata* plane whose
 lease allocator is idle (see ``kvcache/paged.py``), so
 ``check_kv_invariants`` does not run the lease checks against it.
 
+* **Golden bookkeeping**: given a ``GoldenRegistry``, a fork may alias
+  exactly its base's pinned rows, and the registry's own check holds
+  (frozen owners unchanged, pins equal to the live forks);
+  ``check_kv_invariants`` holds the KV cache's golden registrations
+  against the per-sequence flags.
+
 Port notes: the state is read off the device once per check (the fleet's
 tensors as host arrays); the checks themselves are the JAX package's.
-The golden registry is not ported yet: ``registry=`` raises
-``NotImplementedError``, and the golden bookkeeping of
-``check_kv_invariants`` checks that no sequence is flagged golden.
 """
 
 from __future__ import annotations
@@ -69,16 +72,13 @@ def check_fleet_invariants(fl, *, store=None, check_leases: bool = True,
     metadata plane, where pool rows are refcounted block ids shared
     across tenant rows by design).
 
-    ``registry`` (the golden registry, which relaxes the
-    no-cross-tenant-aliasing rule for recorded golden forks) is not
-    ported yet and raises ``NotImplementedError``; without one, any
+    ``registry`` (a ``core.golden.GoldenRegistry``) relaxes the
+    no-cross-tenant-aliasing rule in exactly one place: a recorded golden
+    *fork* may reference rows inside its base's pinned set, checked
+    against the registry's per-fork row sets and the registry's own
+    bookkeeping (``GoldenRegistry.check``). Without a registry, any
     foreign reference is corruption.
     """
-    if registry is not None:
-        raise NotImplementedError(
-            "check_fleet_invariants(registry=...): the golden registry is "
-            "not ported yet; it comes with the golden-admission slice"
-        )
     spec = fl.spec
     q = spec.lease_quantum
     owner = _host(fl.lease_owner)
@@ -111,11 +111,18 @@ def check_fleet_invariants(fl, *, store=None, check_leases: bool = True,
         live = allocm & ~zerom & ~coldm
         rows = ptr[live]
         if check_leases and rows.size:
-            # with no golden registry, any foreign reference is corruption
-            assert (owner[rows // q] == t).all(), (
-                f"tenant {t} references a foreign row outside any "
-                "registered golden base"
-            )
+            own = owner[rows // q] == t
+            if not own.all():
+                # legal exactly when t is a recorded golden fork and the
+                # aliased rows sit inside its base's pinned set
+                foreign = np.unique(rows[~own]).astype(np.int64)
+                allowed = (registry.shared_rows_for(t)
+                           if registry is not None else None)
+                assert allowed is not None \
+                    and np.isin(foreign, allowed).all(), (
+                    f"tenant {t} references a foreign row outside any "
+                    "registered golden base"
+                )
         cold_rows = _cold_host_rows(entries)
         assert cold_rows.size == int(cold_count[t]), (
             f"tenant {t}: cold_count={int(cold_count[t])} but its L2 "
@@ -138,6 +145,11 @@ def check_fleet_invariants(fl, *, store=None, check_leases: bool = True,
 
     if store is not None:
         check_store_invariants(store, referenced=all_cold)
+
+    if registry is not None:
+        # the registry's own bookkeeping: frozen owners unchanged, pinned
+        # rows still lease-owned by their owner, layer refcounts == forks
+        registry.check(fl)
 
 
 def check_store_invariants(store, *, referenced=None) -> None:

@@ -57,8 +57,9 @@ Port notes: the fleet ops update the fleet in place and return it, so
 ``self.fleet`` is the same object before and after a tick (a caller that
 needs the pre-tick state clones it). The policy, the reports and
 ``stats()`` are the JAX package's, key for key. Streaming runs the merge
-plan on the streaming-merge kernel K9 (``chain.plan_merge``). The golden
-registry is not ported yet: ``registry=`` raises ``NotImplementedError``.
+plan on the streaming-merge kernel K9 (``chain.plan_merge``). A golden
+registry (``registry=``) keeps the maintenance plane off registered
+owners and off the rows their forks pin, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -91,8 +92,12 @@ class MaintenanceScheduler:
     policy — while the fleet holds more device rows than the budget,
     ticks demote immutable-layer pages into the ``TieredStore``, at most
     ``demote_rows_per_tick`` rows per tick.
-    ``registry``: the golden registry is not ported yet; passing one
-    raises ``NotImplementedError``.
+    ``registry``: the fleet's ``GoldenRegistry``, when it runs one.
+    Registered golden owners are content-frozen, so every maintenance
+    path here leaves them alone: they are dropped from the stream and
+    demotion queues, and the registry rides along into
+    ``stream_tenants``/``compact``/``demote_tenants`` so fork-pinned rows
+    are never relocated or spilled (the demote/fork race guard).
     """
 
     def __init__(self, fleet: ChainFleet, *, max_tenants_per_tick: int = 1,
@@ -116,11 +121,6 @@ class MaintenanceScheduler:
             )
         if demote_rows_per_tick < 1:
             raise ValueError("demote_rows_per_tick must be >= 1")
-        if registry is not None:
-            raise NotImplementedError(
-                "MaintenanceScheduler(registry=...): the golden registry is "
-                "not ported yet; it comes with the golden-admission slice"
-            )
         self.fleet = fleet
         self.max_tenants_per_tick = max_tenants_per_tick
         self.stream_chain_threshold = stream_chain_threshold
@@ -129,6 +129,7 @@ class MaintenanceScheduler:
         self.store = store
         self.device_page_budget = device_page_budget
         self.demote_rows_per_tick = demote_rows_per_tick
+        self.registry = registry
         self.rows_demoted = 0
         # tenants whose demotion attempt moved nothing, parked at their
         # fingerprint (same convergence mechanism as _wedged)
@@ -196,6 +197,10 @@ class MaintenanceScheduler:
         # tenants holding demoted pages can't stream (the merge would
         # strand their host rows) — promotion un-parks them naturally
         need &= st["cold_count"] == 0
+        if self.registry is not None:
+            # golden owners are content-frozen while registered: a merge
+            # would rewrite the base every live fork resolves through
+            need &= ~self.registry.golden_owner_mask(len(need))
         age = np.asarray([self._age.get(t, 0)
                           for t in range(len(need))], np.int64)
         rank = st["length"].astype(np.int64) + self.aging_weight * age
@@ -226,6 +231,11 @@ class MaintenanceScheduler:
         self._demote_parked = {t: f for t, f in self._demote_parked.items()
                                if fp[t] == f}
         need = (st["length"] >= 2) & (st["alloc_count"] > 0)
+        if self.registry is not None:
+            # the demote/fork race guard, queue side: a registered golden
+            # base never spills, and fork-pinned rows are excluded row by
+            # row inside demote_tenants
+            need &= ~self.registry.golden_owner_mask(len(need))
         order = np.lexsort((-st["alloc_count"], -st["length"]))
         return [int(t) for t in order
                 if need[t] and int(t) not in self._demote_parked]
@@ -244,6 +254,7 @@ class MaintenanceScheduler:
             return 0
         self.fleet, rep = fleet_lib.demote_tenants(
             self.fleet, self.store, cands, max_rows=remaining,
+            registry=self.registry,
         )
         done = rep["rows_demoted"]
         if done < remaining:
@@ -312,7 +323,8 @@ class MaintenanceScheduler:
             mask[picks] = True
             # merge everything below each tenant's active volume
             upto = st0["length"] - 2
-            self.fleet = fleet_lib.stream_tenants(self.fleet, mask, upto)
+            self.fleet = fleet_lib.stream_tenants(self.fleet, mask, upto,
+                                                  registry=self.registry)
         compacted = False
         still_over = np.flatnonzero(self.fleet.overflow.cpu().numpy())
         need_compact = [int(t) for t in still_over
@@ -323,7 +335,8 @@ class MaintenanceScheduler:
             # this scheduler exists to avoid
             mask = np.zeros(n_t, bool)
             mask[need_compact] = True
-            self.fleet = fleet_lib.compact(self.fleet, mask)
+            self.fleet = fleet_lib.compact(self.fleet, mask,
+                                           registry=self.registry)
             compacted = True
         # park every touched tenant that made no progress (no-op stream,
         # unreclaimable overflow, ...) at its current occupancy, so it is

@@ -1,4 +1,4 @@
-"""Device selection shared by the port's entry points.
+"""Device selection, and the dtype names of the blobs, shared by the port.
 
 Every entry point (``Engine``, ``PagedKVCache``, ``fleet.create``, model
 init) defaults to ``device="cuda"``. The CPU is used only when the caller
@@ -20,3 +20,10 @@ def as_device(device) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype's name as numpy spells it (``torch.float32`` →
+    ``"float32"``), the ``dtype`` field of the tenant and sequence blobs in
+    both packages."""
+    return str(dtype).removeprefix("torch.")

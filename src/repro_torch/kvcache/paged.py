@@ -43,15 +43,29 @@ Never run ``fleet.stream_tenants``/``compact`` on this cache's fleet: it
 is a metadata plane whose pool rows are refcounted KV block ids shared
 across tenants by design, not leased rows.
 
+**Golden prefixes.** ``register_golden`` freezes a sequence as a shared
+base under a content hash of its resolved K/V; forks of it share its
+blocks by refcount, and every write path, ``free_seq`` and ``demote_seq``
+refuse or skip it until ``release_golden``. ``prepare_span``/
+``advance_span`` prepare and commit a bulk write of a forked suffix
+(``serve.paged_decode.paged_suffix_prefill``).
+
+**Migration.** ``export_seq`` packs a live sequence's resolved K/V into a
+self-contained blob (``seq_fingerprint`` is its mid-flight guard) and
+``import_seq`` lands one as a fresh root, whatever the block size, pool
+size or format flag.
+
 Port notes: the pools are updated in place (``commit_pools`` adopts the
 tensors a decode step updated), and the fleet is updated in place by
-``core.fleet``. Golden prefixes and live migration arrive in later slices
-(``_Seq.golden`` is always False until then).
+``core.fleet``. Digests hash raw bytes in the JAX package's order, so they
+agree across the packages; a blob's K/V are CPU tensors (numpy has no
+bfloat16).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -59,7 +73,7 @@ import torch
 
 from repro_torch.core import fleet as fleet_lib
 from repro_torch.core import format as fmt
-from repro_torch.device import as_device
+from repro_torch.device import as_device, dtype_name
 
 
 class FusedStepPlan(NamedTuple):
@@ -98,7 +112,7 @@ class _Seq:
     tenant: Optional[int] = None  # fleet row while unfreed; None once freed
     path: tuple = ()         # fork ancestry, root first, self last
     cold: set = dataclasses.field(default_factory=set)  # host-spilled blks
-    golden: bool = False     # frozen shared-prefix base (golden slice)
+    golden: bool = False     # frozen shared-prefix base (register_golden)
 
 
 #: Initial fleet geometry; both axes grow by doubling on demand.
@@ -150,6 +164,9 @@ class PagedKVCache:
         self._cold_kv: dict[int, dict[int, tuple]] = {}
         self.demoted_blocks = 0   # lifetime spills (tier metrics)
         self.promoted_blocks = 0  # lifetime un-spills
+        # golden prefixes: sid -> content hash (register_golden); the
+        # flagged sequences are frozen: forked, never written or freed
+        self._golden: dict[int, str] = {}
 
     # -- fleet geometry -------------------------------------------------------
 
@@ -214,21 +231,7 @@ class PagedKVCache:
         view of the same tensors), so single-sequence ops don't pay the
         fleet-wide O(T·C·P) resolve. Returns host (table, owner, lookups,
         cold), each (P,) int32."""
-        fl = self.fleet
-        view = dataclasses.replace(
-            fl,
-            spec=self._fleet_spec(1, fl.spec.max_chain),
-            l1=fl.l1[t:t + 1],
-            l2=fl.l2[t:t + 1],
-            lease_index=fl.lease_index[t:t + 1],
-            lease_count=fl.lease_count[t:t + 1],
-            alloc_count=fl.alloc_count[t:t + 1],
-            length=fl.length[t:t + 1],
-            scalable=fl.scalable[t:t + 1],
-            overflow=fl.overflow[t:t + 1],
-            snap_dropped=fl.snap_dropped[t:t + 1],
-            cold_count=fl.cold_count[t:t + 1],
-        )
+        view = fleet_lib.tenant_slice(self.fleet, t)
         grid = torch.arange(self.cfg.max_blocks_per_seq, dtype=torch.int32,
                             device=self.device)[None]
         # single-tenant admission/fork edge, not the per-step loop: the
@@ -324,6 +327,11 @@ class PagedKVCache:
         resolve from their own copies of the ancestor layers.
         """
         seq = self._live_seq(sid)
+        if seq.golden:
+            raise ValueError(
+                f"sequence {sid} is a registered golden prefix; call "
+                "release_golden(sid) before freeing it"
+            )
         seq.freed = True
         t = seq.tenant
         seq.tenant = None
@@ -571,6 +579,7 @@ class PagedKVCache:
         cow_dst: list[int] = []
         for sid in sids:
             seq = self._live_seq(sid)
+            self._check_writable(seq)
             blk = seq.length // bs
             if blk >= self.cfg.max_blocks_per_seq:
                 raise RuntimeError(f"sequence {sid} is at max_blocks_per_seq")
@@ -578,6 +587,14 @@ class PagedKVCache:
                                 writes, cow_src, cow_dst, col_map=col_map)
         self._copy_blocks(cow_src, cow_dst)
         return writes
+
+    @staticmethod
+    def _check_writable(seq: _Seq) -> None:
+        if seq.golden:
+            raise RuntimeError(
+                f"sequence {seq.sid} is a registered golden prefix and is "
+                "frozen; fork it to continue decoding"
+            )
 
     def _stamp_fleet(self, writes: list[tuple[int, int, int]]) -> None:
         """One batched fleet stamp for a step's COW-prepares: each write
@@ -753,6 +770,7 @@ class PagedKVCache:
         partial prefix pays the copy.
         """
         seq = self._live_seq(sid)
+        self._check_writable(seq)
         nt = int(k.shape[1])
         if nt == 0:
             return
@@ -783,6 +801,69 @@ class PagedKVCache:
         self.pool_k[:, slots[0], slots[1]] = k.to(self.cfg.dtype)
         self.pool_v[:, slots[0], slots[1]] = v.to(self.cfg.dtype)
         seq.length = end
+
+    def prepare_span(self, sid: int, n: int):
+        """COW-prepare the next ``n`` token slots of one sequence for an
+        external bulk write (``serve.paged_decode.paged_suffix_prefill``).
+
+        The prepare phase of ``append_prefill`` without the data: one
+        host-side resolve, the per-block COW protocol (only a shared
+        partial first block pays a data copy), one batched stamp. The
+        resolve is the retained host oracle, not a fleet dispatch: this is
+        the single-sequence admission edge, where a device round trip per
+        admitted request would dominate the fork it prepares, and the
+        oracle is bit-identical to the fleet resolve. Returns ``(table,
+        blocks, offsets)``: the sequence's post-prepare resolved table
+        (``(max_blocks,)`` int32, -1 holes) and the pool slot of each of
+        the ``n`` positions. Commit with ``advance_span`` after the
+        external scatter lands.
+        """
+        seq = self._live_seq(sid)
+        self._check_writable(seq)
+        if n <= 0:
+            raise ValueError(f"prepare_span needs n >= 1, got {n}")
+        bs = self.cfg.block_size
+        start, end = seq.length, seq.length + n
+        if (end - 1) // bs >= self.cfg.max_blocks_per_seq:
+            raise RuntimeError(f"sequence {sid} is at max_blocks_per_seq")
+        if seq.cold:
+            self.promote_seq(sid)
+        table_r, owner_r, lookups = self._resolve_oracle(sid)
+        self.lookup_count += lookups
+        # the oracle may return the live host mirrors themselves: copy so
+        # the patched view (and the returned table) never alias cache state
+        table_r = np.array(table_r, dtype=np.int32)
+        owner_r = np.array(owner_r, dtype=np.int32)
+        tables, owners = table_r[None], owner_r[None]
+        row_map = {seq.tenant: 0}
+        writes: list[tuple[int, int, int]] = []
+        cow_src: list[int] = []
+        cow_dst: list[int] = []
+        for blk in range(start // bs, (end - 1) // bs + 1):
+            self._prepare_block(
+                seq, blk, tables, owners, row_map,
+                writes, cow_src, cow_dst,
+                copy_data=blk == start // bs and bool(start % bs),
+            )
+        self._copy_blocks(cow_src, cow_dst)
+        self._stamp_fleet(writes)
+        pos = np.arange(start, end)
+        return (table_r, seq.table[pos // bs].astype(np.int32),
+                (pos % bs).astype(np.int32))
+
+    def advance_span(self, sid: int, n: int) -> None:
+        """Commit ``n`` tokens written externally into slots set up by
+        ``prepare_span`` (the suffix-prefill scatter)."""
+        seq = self._live_seq(sid)
+        bs = self.cfg.block_size
+        for p in range(seq.length, seq.length + n):
+            blk = p // bs
+            if seq.table[blk] < 0 or seq.owner[blk] != sid:
+                raise RuntimeError(
+                    f"sequence {sid} has no prepared slot at position {p}; "
+                    f"call prepare_span(sid, n) before advance_span"
+                )
+        seq.length += n
 
     # -- tiering: host spill of parked sequences' exclusive blocks -------------
 
@@ -922,6 +1003,75 @@ class PagedKVCache:
         """Blocks currently resident in the host tier (spilled K/V)."""
         return sum(len(d) for d in self._cold_kv.values())
 
+    # -- golden prefixes: content-addressed shared-base registration -----------
+
+    def register_golden(self, sid: int) -> str:
+        """Freeze a sequence as a golden shared-prefix base.
+
+        Promotes any spilled blocks first (a base must stay fully
+        device-resident: its block ids back every fork bit for bit), then
+        computes the content address: a sha256 over the length (int64)
+        and the sequence's *resolved* K then V bytes in ``gather``'s
+        (L, T, Hkv, D) C order, so two prefixes hash equal exactly when
+        their cached state is bit-identical, whatever the fork topology or
+        block placement. A registered base is frozen: every write path and
+        ``free_seq`` refuse it, and ``demote_seq`` skips it, until
+        ``release_golden``. Forking it stays the normal ``fork``.
+        Idempotent for an already-registered sid. Returns the content hash.
+        """
+        seq = self._live_seq(sid)
+        if sid in self._golden:
+            return self._golden[sid]
+        if seq.length == 0:
+            raise ValueError(f"sequence {sid} is empty; nothing to register")
+        if seq.cold:
+            self.promote_seq(sid)
+        k, v = self.gather(sid)
+        h = hashlib.sha256()
+        h.update(np.asarray([seq.length], np.int64).tobytes())
+        h.update(_raw_bytes(k))
+        h.update(_raw_bytes(v))
+        digest = h.hexdigest()
+        seq.golden = True
+        self._golden[sid] = digest
+        return digest
+
+    def release_golden(self, sid: int) -> str:
+        """Un-freeze a golden base, returning its content hash. The
+        sequence becomes an ordinary live sequence again (writable,
+        freeable, demotable); forks taken while it was golden keep their
+        shared blocks alive through the usual refcounts."""
+        if sid not in self._golden:
+            raise KeyError(f"sequence {sid} is not a registered golden prefix")
+        digest = self._golden.pop(sid)
+        self._seqs[sid].golden = False
+        return digest
+
+    def is_golden(self, sid: int) -> bool:
+        return sid in self._golden
+
+    def golden_stats(self) -> dict:
+        """Dedup accounting of the registered golden bases.
+
+        ``golden_blocks``: distinct pool blocks referenced by golden
+        sequences. ``golden_blocks_shared``: the subset whose refcount
+        exceeds one, the blocks live forks alias right now.
+        ``dedup_blocks_saved``: sum over golden blocks of ``ref - 1``, the
+        pool blocks a dedup-free serving plane would additionally hold to
+        back the same set of sequences.
+        """
+        blocks: set[int] = set()
+        for sid in self._golden:
+            blocks |= self._seqs[sid].refs
+        shared = sum(1 for b in blocks if int(self._ref[b]) > 1)
+        saved = sum(int(self._ref[b]) - 1 for b in blocks)
+        return dict(
+            golden_seqs=len(self._golden),
+            golden_blocks=len(blocks),
+            golden_blocks_shared=shared,
+            dedup_blocks_saved=saved,
+        )
+
     # -- reads (reference path; kernels/paged_attention is the fast path) ------
 
     def gather(self, sid: int):
@@ -948,6 +1098,82 @@ class PagedKVCache:
     def seq_length(self, sid: int) -> int:
         return self._seqs[sid].length
 
+    # -- live migration: move a sequence's KV state between caches -------------
+
+    def seq_fingerprint(self, sid: int) -> str:
+        """Digest of everything about a live sequence that a decode step,
+        append, spill or promotion could change: the mid-flight guard for
+        ``export_seq``. A fork of the sequence does *not* change it (COW:
+        the parent's data is untouched)."""
+        seq = self._live_seq(sid)
+        h = hashlib.sha256()
+        h.update(np.asarray([seq.length], np.int64).tobytes())
+        h.update(np.ascontiguousarray(seq.table).tobytes())
+        h.update(np.ascontiguousarray(seq.owner).tobytes())
+        h.update(np.asarray(sorted(seq.cold), np.int64).tobytes())
+        return h.hexdigest()
+
+    def export_seq(self, sid: int) -> dict:
+        """Pack a live sequence into a portable, self-contained blob.
+
+        The K/V payload is *resolved*, read back through the fork chain
+        and the host tier, so the blob depends on no other sequence. Pure
+        read: spilled blocks are served from the host tier, not promoted.
+        ``k``/``v`` are (L, T, Hkv, D) CPU tensors of the pool's dtype;
+        ``dtype`` is its name as numpy spells it (``"bfloat16"``,
+        ``"float32"``), as in the JAX package.
+        """
+        cfg = self.cfg
+        k, v = self.gather(sid)
+        return dict(
+            n_layers=cfg.n_layers,
+            n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim,
+            dtype=dtype_name(cfg.dtype),
+            length=self._live_seq(sid).length,
+            k=k.cpu(),
+            v=v.cpu(),
+            fingerprint=self.seq_fingerprint(sid),
+        )
+
+    def import_seq(self, blob: dict) -> int:
+        """Land an exported sequence in this cache as a fresh root.
+
+        The migrated sequence arrives with no parent: its resolved prefix
+        is bulk-appended (``append_prefill``), so its blocks are
+        exclusively owned here. Block size, pool size and format flag may
+        all differ from the source cache; the model geometry must match.
+        ``blob["k"]``/``["v"]`` may be tensors or numpy arrays.
+        """
+        cfg = self.cfg
+        for field in ("n_layers", "n_kv_heads", "head_dim"):
+            if blob[field] != getattr(cfg, field):
+                raise ValueError(
+                    f"imported sequence disagrees on {field}: blob has "
+                    f"{blob[field]}, cache has {getattr(cfg, field)}"
+                )
+        if blob["dtype"] != dtype_name(cfg.dtype):
+            raise ValueError(
+                f"imported sequence dtype {blob['dtype']} != cache dtype "
+                f"{dtype_name(cfg.dtype)}"
+            )
+        if blob["length"] > cfg.max_blocks_per_seq * cfg.block_size:
+            raise ValueError(
+                f"imported sequence length {blob['length']} exceeds this "
+                "cache's max_blocks_per_seq"
+            )
+        sid = self.new_seq()
+        if blob["length"]:
+            self.append_prefill(sid, torch.as_tensor(blob["k"]).to(self.device),
+                                torch.as_tensor(blob["v"]).to(self.device))
+        return sid
+
     def blocks_in_use(self) -> int:
         """Blocks holding sequence data (reserved scratch blocks excluded)."""
         return int(np.sum(self._ref > 0)) - len(self._reserved)
+
+
+def _raw_bytes(x: torch.Tensor) -> bytes:
+    """A tensor's bytes in C order, read through a ``uint8`` view so no
+    dtype (bfloat16 included) enters a digest."""
+    return x.contiguous().view(torch.uint8).cpu().numpy().tobytes()

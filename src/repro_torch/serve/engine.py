@@ -35,8 +35,19 @@ Tiering: ``park_request`` pulls a sequence out of the decode batch and
 spills its exclusively-owned KV blocks to host memory
 (``PagedKVCache.demote_seq``); ``resume_request`` just re-activates it —
 promotion is *lazy*, paid by the first ``step()`` whose batch includes the
-sequence (the cache promotes before it resolves). Golden prefixes and
-migration arrive in later slices.
+sequence (the cache promotes before it resolves).
+
+Golden prefixes: ``register_golden(prompt)`` prefills a prompt once and
+freezes it as a shared base; an ``add_request`` whose prompt extends a
+registered base (a radix-trie probe on token ids) COW-forks the base and
+prefills only the suffix, in one ``paged_suffix_prefill`` pass through the
+CUDA paged-attention kernel against the forked paged prefix, whatever
+``decode_path`` the engine decodes with. The shared span costs no fresh
+pool blocks and no prefill FLOPs.
+
+Migration: ``migrate_request_to`` moves a live sequence's resolved KV
+state to another engine (any block size, pool size or format),
+bit-verifies it there and only then retires it here.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fleet as fleet_lib
+from repro_torch.core.golden import PrefixTrie
 from repro_torch.device import as_device
 from repro_torch.kvcache.paged import PagedKVCache, PagedKVConfig
 from repro_torch.models import layers as L
@@ -53,6 +65,7 @@ from repro_torch.models.api import get_model
 from repro_torch.serve.paged_decode import (
     paged_decode_step,
     paged_decode_step_fused,
+    paged_suffix_prefill,
 )
 
 
@@ -94,6 +107,13 @@ class Engine:
         )
         self.active: dict[int, list[int]] = {}  # sid -> generated tokens
         self.parked: dict[int, list[int]] = {}  # sid -> tokens, off-batch
+        # golden-prefix registry, the admission-time dedup plane: the trie
+        # maps registered prompt token ids -> golden sid; _golden_info
+        # keeps each base's prompt (for trie removal) and its first token
+        # (an exact-match admission skips the model entirely)
+        self._trie = PrefixTrie()
+        self._golden_info: dict[int, tuple[tuple[int, ...], int]] = {}
+        self.golden_hits = 0   # admissions served by forking a base
         # Scratch block absorbing the in-step pool writes of padded batch
         # rows, so a padded decode can never touch a live sequence's blocks.
         self._pad_block = self.kv.reserve_block()
@@ -114,10 +134,89 @@ class Engine:
         return sid, int(torch.argmax(logits[0]))
 
     def add_request(self, prompt_tokens: np.ndarray) -> int:
-        """Admit a prompt (full prefill); returns the sequence id."""
+        """Admit a prompt; returns the sequence id.
+
+        Admission probes the golden-prefix trie first: when a registered
+        base's prompt is a prefix of this one, the base is COW-forked (the
+        shared prefix takes no fresh pool blocks and no prefill FLOPs) and
+        only the suffix runs, in one suffix-prefill pass. An exact match
+        skips the model entirely (the base's first token was recorded at
+        registration). Without a trie hit this is the ordinary full
+        prefill.
+        """
+        toks = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        depth, gsid = self._trie.longest_prefix(toks)
+        if gsid is not None:
+            self.golden_hits += 1
+            sid = self.kv.fork(gsid)
+            suffix = toks[depth:]
+            nxt = (self._suffix_prefill(sid, suffix) if suffix
+                   else self._golden_info[gsid][1])
+            self.active[sid] = [nxt]
+            return sid
         sid, first = self._prefill_seq(prompt_tokens)
         self.active[sid] = [first]
         return sid
+
+    def _suffix_prefill(self, sid: int, tokens) -> int:
+        """Push a prompt suffix through one ``paged_suffix_prefill`` pass
+        against the sequence's paged prefix and return the first generated
+        token. The pass always attends through block tables (the CUDA
+        paged-attention kernel), whatever ``decode_path`` is. The chunk is
+        padded to a power-of-two bucket: padded rows scatter into the
+        reserved scratch block with attention length 1, and their outputs
+        are discarded."""
+        s = len(tokens)
+        pad = self._bucket(s)
+        start = self.kv.seq_length(sid)
+        table, blks, offs = self.kv.prepare_span(sid, s)
+        m = table.size
+        # one host array, one transfer: each row's table (the sequence's,
+        # repeated), then its slot block, slot offset, attention length and
+        # token
+        host = np.zeros((pad, m + 4), np.int32)
+        host[:, :m] = np.where(table >= 0, table, self._pad_block)
+        host[:, m] = self._pad_block
+        host[:s, m] = blks
+        host[:s, m + 1] = offs
+        host[:, m + 2] = 1
+        host[:s, m + 2] = start + 1 + np.arange(s)
+        host[:s, m + 3] = tokens
+        dev = torch.as_tensor(host, device=self.device)
+        logits, pk, pv = paged_suffix_prefill(
+            self.cfg, self.params, self.kv.pool_k, self.kv.pool_v,
+            dev[:, :m].contiguous(), dev[:, m], dev[:, m + 1],
+            dev[:, m + 2].contiguous(), dev[None, :, m + 3].long(),
+        )
+        self.kv.commit_pools(pk, pv)
+        self.kv.advance_span(sid, s)
+        return int(torch.argmax(logits[s - 1]))
+
+    def register_golden(self, prompt_tokens: np.ndarray) -> int:
+        """Prefill a prompt and freeze it as a golden shared-prefix base.
+
+        The base never joins the decode batch: it exists to be forked by
+        later ``add_request`` admissions whose prompts extend its token
+        ids. Its KV blocks stay frozen and device-resident
+        (``PagedKVCache.register_golden``) until ``release_golden``.
+        Returns the base's sid.
+        """
+        toks = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        sid, first = self._prefill_seq(prompt_tokens)
+        self.kv.register_golden(sid)
+        self._trie.insert(toks, sid)
+        self._golden_info[sid] = (tuple(toks), first)
+        return sid
+
+    def release_golden(self, sid: int) -> None:
+        """Retire a golden base: unregister it from the trie and the KV
+        plane, then free it. Live forks keep their shared blocks through
+        the usual refcounts (the base is tombstoned until the last fork
+        frees)."""
+        toks, _ = self._golden_info.pop(sid)
+        self._trie.remove(list(toks))
+        self.kv.release_golden(sid)
+        self.kv.free_seq(sid)
 
     def fork_request(self, sid: int) -> int:
         child = self.kv.fork(sid)   # promotes a parked parent first
@@ -151,6 +250,38 @@ class Engine:
         it before its resolve, so a resume costs nothing until the
         sequence actually decodes."""
         self.active[sid] = self.parked.pop(sid)
+
+    def migrate_request_to(self, dst: "Engine", sid: int) -> int:
+        """Live-migrate a sequence to another engine; returns its sid there.
+
+        The sequence's resolved KV state is exported from this engine's
+        cache, imported into ``dst`` as a fresh root (the fork topology
+        stays behind), bit-verified against the export, and only then
+        retired here via ``finish_request``, which tombstones/reaps exactly
+        as a normal finish. A parked sequence migrates too (its host-tier
+        spill is read, never promoted) and lands *active* on ``dst``.
+        Raises ``RuntimeError``, with the destination copy rolled back, if
+        a decode step landed on the source mid-migration (stale export) or
+        the landed bytes differ.
+        """
+        blob = self.kv.export_seq(sid)
+        tokens = list(self.active.get(sid) or self.parked.get(sid) or [])
+        new_sid = dst.kv.import_seq(blob)
+        k, v = dst.kv.gather(new_sid)
+        landed_ok = (fleet_lib._same_bytes(k, blob["k"])
+                     and fleet_lib._same_bytes(v, blob["v"]))
+        stale = self.kv.seq_fingerprint(sid) != blob["fingerprint"]
+        if stale or not landed_ok:
+            dst.kv.free_seq(new_sid)
+            raise RuntimeError(
+                f"migration of sid {sid} aborted "
+                + ("(source sequence changed mid-migration)" if stale
+                   else "(destination KV not bit-identical)")
+                + "; source left intact"
+            )
+        dst.active[new_sid] = tokens
+        self.finish_request(sid)
+        return new_sid
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -235,6 +366,8 @@ class Engine:
             lookups=self.kv.lookup_count,
             n_seqs=len(self.active),
             n_parked=len(self.parked),
+            golden_hits=self.golden_hits,
+            **self.kv.golden_stats(),
         )
         if self.scheduler is not None:
             stats["maintenance"] = self.scheduler.stats()

@@ -493,3 +493,76 @@ def test_direct_single_chain_misaligned_views_bit_exact(cuda, n, alloc_dtype):
         torch.cuda.synchronize()
         assert _build.LAUNCHES["resolve_direct"] == before + 1
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prefix,suffix", [(392, 200), (392, 17), (16, 1)])
+def test_paged_attention_suffix_prefill_shape(cuda, dtype, prefix, suffix):
+    """K3 at the shape golden admission's suffix prefill hands it: the
+    padded suffix bucket on the batch axis, every row the one sequence's
+    table (a contiguous repeat), lengths prefix + i + 1 for the real rows
+    and 1 for the padded ones."""
+    rng = np.random.default_rng(prefix + suffix)
+    h, hkv, d, bs, m, nb = 16, 2, 128, 16, 128, 1024
+    pad = 1 << (suffix - 1).bit_length()
+    lengths = np.ones(pad, np.int32)
+    lengths[:suffix] = prefix + 1 + np.arange(suffix)
+    q, pk, pv = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+                 .to(cuda, dtype)
+                 for s in ((pad, h, d), (nb, bs, hkv, d), (nb, bs, hkv, d)))
+    row = rng.permutation(nb)[:m].astype(np.int32)
+    row[-(-(prefix + suffix) // bs):] = -1
+    tables = torch.as_tensor(np.repeat(row[None], pad, 0), device=cuda)
+    lens = torch.as_tensor(lengths, device=cuda)
+    got = pa.paged_attention_cuda(q, pk, pv, tables, lens)
+    torch.cuda.synchronize()
+    want = pa_ref.paged_attention_ref(q, pk, pv, tables, lens).float()
+    _close_to_plain(got, want, dtype)
+    # outputs over ~500 positions spread little: the relative L2 error is
+    # what a dropped page or a short length would move
+    assert float((got.float() - want).norm() / want.norm()) <= 1e-2
+
+
+def test_materialize_tenant_on_card_equals_cpu(cuda):
+    """``materialize_tenant`` on the card (K1/K2 resolve, K5 gather, cold
+    pages from the host tier) equals the CPU result for every tenant, and a
+    migration between two card fleets verifies and lands those bytes."""
+    import dataclasses
+
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.core import migrate as tmigrate
+    from repro_torch.core.store import TieredStore
+
+    spec = tfleet.FleetSpec(n_tenants=4, n_pages=4096, page_size=64,
+                            max_chain=40, pool_capacity=64 * 256,
+                            lease_quantum=64)
+    fl = tfleet.create(spec, scalable=[True, False, True, False], device="cpu")
+    g = torch.Generator().manual_seed(0)
+    lengths = torch.tensor([1, 8, 20, 39])
+    for layer in range(39):
+        mask = lengths > layer
+        if layer:
+            tfleet.snapshot(fl, mask)
+        ids = torch.argsort(torch.rand((4, 4096), generator=g), dim=1)[:, :64]
+        tfleet.write(fl, ids, torch.randn((4, 64, 64), generator=g), mask)
+    store = TieredStore.for_fleet(spec)
+    fl, rep = tfleet.demote_tenants(fl, store, [3], max_rows=300)
+    assert rep["rows_demoted"] == 300
+    on_card = dataclasses.replace(fl, **{
+        f.name: getattr(fl, f.name).to(cuda)
+        for f in dataclasses.fields(fl) if f.name != "spec"})
+    before = _build.LAUNCHES["gather_fleet"]
+    for t in range(4):
+        got = tmigrate.materialize_tenant(on_card, t, store=store)
+        assert got.is_cuda
+        assert _same_bytes(got.cpu(), tmigrate.materialize_tenant(fl, t, store=store))
+    assert _build.LAUNCHES["gather_fleet"] == before + 4
+    dst = tfleet.create(dataclasses.replace(spec, n_tenants=2, lease_quantum=128),
+                        scalable=False, device=cuda)
+    dst_store = TieredStore.for_fleet(dst.spec)
+    want = tmigrate.materialize_tenant(fl, 3, store=store)
+    on_card, dst, report = tmigrate.migrate_tenant(
+        on_card, 3, dst, 1, src_store=store, dst_store=dst_store)
+    assert report["verified"] and report["rows_cold"] > 0
+    assert _same_bytes(tmigrate.materialize_tenant(dst, 1, store=dst_store).cpu(),
+                       want)

@@ -277,18 +277,6 @@ def test_random_maintenance_ops(seed):
             p.compact(mask)
 
 
-def test_registry_is_not_ported_yet():
-    p = Pair(2, True)
-    p.grow(3, seed=5)
-    for call in (lambda: tfleet.stream_tenants(p.tf, True, 0, registry=object()),
-                 lambda: tfleet.compact(p.tf, registry=object()),
-                 lambda: TSched(p.tf, registry=object()),
-                 lambda: tcheck(p.tf, registry=object())):
-        with pytest.raises(NotImplementedError, match="golden"):
-            call()
-    p.check()                                        # nothing moved
-
-
 # -- MaintenanceScheduler ------------------------------------------------------
 
 

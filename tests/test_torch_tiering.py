@@ -223,16 +223,6 @@ def test_clone_refuses_cold_source():
             mod.clone_tenant(f, 0, 2)
 
 
-def test_golden_registry_is_not_ported_yet():
-    p = FleetPair()
-    p.grow(3, seed=2)
-    for call in (lambda: tfleet.demote_tenants(p.tf, p.ts, [0], registry=object()),
-                 lambda: tfleet.free_tenant(p.tf, [0], registry=object())):
-        with pytest.raises(NotImplementedError, match="golden"):
-            call()
-    p.check()                                  # nothing moved
-
-
 def test_tenant_chain_view_reads_like_the_fleet():
     from repro_torch.core import store as tstore
 
