@@ -143,9 +143,38 @@ Phases, each printing its own lines:
    ``MaintenanceScheduler(registry=...)`` over a device budget ticks 3
    times, ``check_fleet_invariants(registry=...)`` after each, the owner
    never streamed and every fork page on a pinned row still on it, hot.
+10. paper — the paper's evaluation plane; its lines carry ``"phase":
+   "paper"`` and the card's name and power limit. (a) Fig 17: Qwen2.5-3B's
+   params in bf16 (drawn as phase 4 draws them) and an int32 step in a
+   ``SnapshotCheckpointer`` (8 KiB pages, pool slack 4, max_chain 34,
+   streaming off), one format at a time (scalable, then vanilla): 32
+   saves, before each a small bf16 delta to layer i % 36 of
+   ``layers.attn.wo`` and a step bump; after saves 1, 8 and 32 every
+   method's restore (all four on the scalable chain; the walks and
+   ``auto`` on the vanilla one, whose active volume alone indexes
+   nothing) is bit-equal to the live state and timed by CUDA events
+   beside the bound (the image in and out), with ``resolve_cost``. On the
+   vanilla chain at depth 32: the threshold set to 30 and ``maybe_stream``
+   (K9 at full width, held against its plain version first), a restore
+   again, then 4 ``save_async`` calls each followed at once by an
+   in-place change, each restoring to the state at its submission. K1,
+   K2, K6, K7, K8 and K9 at the checkpoint chain's shape against their
+   plain versions (``ckpt_shape`` on their rows). (b) Figs 13, 14 and 16:
+   the Qcow2 slice-cache model on phase 6's two depth-500 disks (their
+   index tables, kept on the host through phases 7-9): a sequential sweep
+   of 16,384 clusters and phase 6's YCSB-C batch, 1 MiB of L2 cache a file
+   (8,192 slots), ``summarize``, Eq. 1 latencies (mean, p99) and ms a
+   request; then 30-100 % of the disk's slices, the unified cache S slots
+   and each vanilla file S // 500, modelled IOPS. Probes equal the walk's
+   lookups (unified: one a request), hits the resolvers' found, misses on
+   the random stream a host ``OrderedDict`` LRU oracle, and the first 256
+   requests the same simulation on the CPU. (c) Fig 12's cache-memory model
+   and Eq. 2 (models, not card numbers). (d) In phase 7, after its
+   demotions, ``tier_residency`` equals the phase's own counters.
 
 Launch counts are zeroed just before each phase's main path (an engine's
-run, a store depth, a fleet, each part of phase 9) and read just after it,
+run, a store depth, a fleet, each part of phase 9, each checkpoint chain
+of phase 10) and read just after it,
 before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
 floor under the same flush and spin.
@@ -158,7 +187,9 @@ directory without the repo's ``src/``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -222,7 +253,20 @@ MIGRATE_COLD = 256                      # rows demoted from the deeper two first
 MIGRATE_POOL = 9_216                    # destination rows: ~7,900 hot + slack
 REGISTRY_OWNER, REGISTRY_FORKS, REGISTRY_SHALLOW = 16, 8, 64
 REGISTRY_TICKS, REGISTRY_STREAMS = 3, 16
-DEV = "cuda"                     # phases 6-9 run here
+# phase 10: the paper's evaluation plane. Fig 17 as paper_figs.fig17_boot:
+# delta saves into a chain two deeper than the saves, streaming off
+CKPT_SAVES = 32
+CKPT_RESTORE_AT = (1, 8, 32)
+CKPT_MAX_CHAIN = CKPT_SAVES + 2
+CKPT_STREAM_AT = 30              # SETUP.streaming_threshold, set at depth 32
+CKPT_ASYNC = 4
+CKPT_TIMED = 3                   # CUDA-event timed restores per method
+# a delta: one layer of wo (8 MiB, straddling a page boundary) + step's page
+CKPT_DELTA_PAGES = (1_025, 1_026)
+SIM_SWEEP = 16_384               # clusters of the sequential stream
+SIM_PREFIX = 256                 # requests held against the CPU simulation
+FIG12_LENGTHS, FIG12_SLOTS = (1, 5, 50, 100, 500, 1000), 64
+DEV = "cuda"                     # phases 6-10 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -1078,9 +1122,15 @@ def store_phase(torch, mods):
                                      k6, flush)
         del planes, k6, k7, k8, yref
         torch.cuda.empty_cache()
+    # phase 10's cache model reads the depth-500 disks' index tables (their
+    # pools go): kept on the host until then, with the YCSB-C batch
+    indexes = dict(ycsb=ycsb.cpu(), disks={
+        "scalable" if c.scalable else "vanilla": dict(
+            spec=c.spec, scalable=c.scalable, l1=c.l1.cpu(), l2=c.l2.cpu(),
+            length=store.chain_length(c)) for c in chains})
     del chains, van, sca
     torch.cuda.empty_cache()
-    return measured, total, per_call
+    return measured, total, per_call, indexes
 
 
 def single_chain_planes(torch, fmt, van, sca):
@@ -1261,6 +1311,15 @@ def fleet_phase(torch, mods):
             demote.append(dict(ms=1e3 * (time.perf_counter() - t0),
                                rows=rep["rows_demoted"], tenants=len(rep["tenants"])))
         require(all(d["rows"] == DEMOTE_ROWS for d in demote), "demoted rows")
+        # (phase 10d) the tier-residency counters equal the phase's own
+        residency = mods["metrics"].tier_residency(fl, store)
+        st = fleet_lib.fleet_stats(fl)
+        demoted = sum(d["rows"] for d in demote)
+        require(residency == mods["metrics"].TierResidency(
+            device_rows=st["rows_allocated"], host_rows=demoted,
+            cold_tenants=st["cold_tenants"], demoted_rows=demoted,
+            promoted_rows=0) and st["rows_cold"] == demoted,
+            f"{name}: tier_residency differs from the phase's counters")
         dev_read, dres = fleet_lib.read(fl, ids, method="auto")
         cold = dres.cold & dres.found & ~dres.zero
         require(bool(cold.any()), f"{name}: nothing read cold after demotion")
@@ -1307,6 +1366,7 @@ def fleet_phase(torch, mods):
               "read_pallas_vanilla_device_ms_by_spin": pv_by_spin,
               "read_pallas_vanilla_profile": pv_profile,
               "auto_equals_vanilla": True, "demote": demote, "promote": promote,
+              "tier_residency_after_demotion": dataclasses.asdict(residency),
               "device_read_zero_where_cold": True, "tiered_equals_before": True,
               "promoted_equals_before": True, "host_rows_after_free": 0,
               "launches": launches, "stats": fleet_lib.fleet_stats(fl),
@@ -2225,6 +2285,410 @@ def golden_fleet(torch, mods, fl, store):
     return launches
 
 
+# -- phase 10: the paper's evaluation plane ----------------------------------
+
+
+def _paper(obj, mods):
+    """A phase-10 line: the card's name and power limit beside its numbers."""
+    emit({"phase": "paper", "card": mods["smi"], **obj})
+
+
+def _same_leaves(torch, got, want) -> bool:
+    """Two states of one structure, bit for bit (bf16 through int16)."""
+    def same(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.is_floating_point():
+            return torch.equal(_bits(torch, a.reshape(-1)), _bits(torch, b.reshape(-1)))
+        return torch.equal(a, b)
+
+    return all(same(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+
+
+def _checkpoint_state(torch, mods, cfg):
+    """Qwen2.5-3B's params in bf16, drawn as phase 4 draws them, and a step."""
+    params = mods["init_params"](cfg, torch.Generator(device=DEV).manual_seed(0),
+                                 device=DEV, dtype=mods["layers"].COMPUTE_DTYPE)
+    return dict(params, step=torch.zeros((), dtype=torch.int32, device=DEV))
+
+
+def _restores(torch, ck, live, methods, flush):
+    """Every method's restore bit-equal to ``live``, then timed by CUDA
+    events (L2 flushed, a spin first), with its lookups."""
+    out = {}
+    for m in methods:
+        got = ck.restore(method=m)
+        require(_same_leaves(torch, got, live), f"checkpoint restore {m} differs")
+        del got
+        out[m] = dict(ms=timed_ms(torch, lambda: ck.restore(method=m),
+                                  CKPT_TIMED, flush),
+                      lookups=ck.resolve_cost(m))
+    return out
+
+
+def checkpoint_phase(torch, mods, cfg, flush):
+    """10a: Fig 17 on a Qwen2.5-3B checkpoint chain, one format at a time."""
+    ckpt, _build = mods["ckpt"], mods["_build"]
+    total, shapes, lines = {}, {}, {}
+    for scalable in (True, False):
+        name = "scalable" if scalable else "vanilla"
+        torch.cuda.reset_peak_memory_stats()
+        state = _checkpoint_state(torch, mods, cfg)
+        wo = state["layers"]["attn"]["wo"]
+        g = torch.Generator(device=DEV).manual_seed(17)
+        ck = ckpt.SnapshotCheckpointer(state, max_chain=CKPT_MAX_CHAIN,
+                                       scalable=scalable, stream_threshold=10**9,
+                                       device=DEV)
+        image_bytes = ck.spec.n_pages * ck.spec.page_size * 4
+        methods = (("vanilla", "direct", "pallas_vanilla", "pallas_direct")
+                   if scalable else ("vanilla", "pallas_vanilla", "auto"))
+        _build.reset_launches()
+        saves, restores = [], {}
+        for i in range(1, CKPT_SAVES + 1):
+            layer = wo[i % cfg.n_layers]
+            layer += (torch.randn(layer.shape, generator=g, device=DEV)
+                      * 1e-3).to(layer.dtype)
+            state["step"] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = ck.save(state)
+            saves.append(dict(ms=1e3 * (time.perf_counter() - t0), **st))
+            if i in CKPT_RESTORE_AT:
+                restores[i] = _restores(torch, ck, state, methods, flush)
+        require(saves[0]["pages_written"] == ck.spec.n_pages, "first save not full")
+        require(all(CKPT_DELTA_PAGES[0] <= s["pages_written"] <= CKPT_DELTA_PAGES[1]
+                    for s in saves[1:]), "delta saves wrote the wrong page count")
+        require(ck.chain.length.item() == CKPT_SAVES + 1, "checkpoint chain length")
+        line = dict(part="fig17", format=name, model=cfg.name,
+                    n_pages=ck.spec.n_pages, page_bytes=ck.spec.page_size * 4,
+                    pool_rows=ck.spec.pool_capacity, image_GB=image_bytes / 1e9,
+                    restore_bound_ms=1e3 * 2 * image_bytes / HBM_BYTES_PER_S,
+                    first_save_ms=saves[0]["ms"],
+                    delta_save_ms_mean=float(np.mean([s["ms"] for s in saves[1:]])),
+                    delta_save_ms_max=max(s["ms"] for s in saves[1:]),
+                    pages_written=[s["pages_written"] for s in saves],
+                    restores={str(k): v for k, v in restores.items()},
+                    restores_bitwise_equal=True)
+        if not scalable:
+            # K9 at the chain's shape, then the provider's streaming policy
+            shapes["merge"] = _ckpt_merge(torch, mods, ck, flush)
+            ck.stream_threshold = CKPT_STREAM_AT
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            require(ck.maybe_stream(), "maybe_stream did not stream")
+            torch.cuda.synchronize()
+            line["stream_ms"] = 1e3 * (time.perf_counter() - t0)
+            line["length_after_stream"] = ck.chain.length.item()
+            line["restores_after_stream"] = _restores(torch, ck, state, methods, flush)
+            line["async"] = _async_saves(torch, ck, state, wo)
+        launches = dict(_build.LAUNCHES)            # read just after the run
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        line.update(launches=launches,
+                    peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+        lines[name] = line
+        _paper(line, mods)
+        del state, wo, layer
+        with uncounted(_build):
+            shapes.update(_ckpt_kernels(torch, mods, ck, flush))
+        del ck
+        torch.cuda.empty_cache()
+    for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather", "merge"):
+        require(total[k] > 0, f"paper: kernel {k} never launched")
+    for row in shapes.values():
+        row["launches_on_path"] = total[row["kernel"]]
+    _paper(dict(part="fig17_kernel_shapes", shapes=shapes), mods)
+    return total, shapes
+
+
+def _async_saves(torch, ck, state, wo):
+    """``save_async`` then, at once, an in-place change (a layer of ``wo``
+    negated, bit-exact to undo): each checkpoint restores to the state as
+    it was at its submission."""
+    out = []
+    for i in range(CKPT_ASYNC):
+        j = i % wo.shape[0]
+        state["step"] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fut = ck.save_async(state)
+        submit_ms = 1e3 * (time.perf_counter() - t0)
+        wo[j].neg_()
+        st = fut.result()
+        torch.cuda.synchronize()
+        done_ms = 1e3 * (time.perf_counter() - t0)
+        got = ck.restore(method="pallas_vanilla")
+        wo[j].neg_()                    # the state as it was at submission
+        require(_same_leaves(torch, got, state), "async save saw a later change")
+        wo[j].neg_()                    # the change stays for the next save
+        del got
+        out.append(dict(submit_ms=submit_ms, done_ms=done_ms, **st))
+    require([s["chain_length"] for s in out]
+            == list(range(out[0]["chain_length"], out[0]["chain_length"] + CKPT_ASYNC)),
+            "async saves out of order")
+    return out
+
+
+def _ckpt_merge(torch, mods, ck, flush):
+    """K9's word entry on the layers ``maybe_stream`` will merge."""
+    sm, sm_ref = mods["sm"], mods["sm_ref"]
+    length = ck.chain.length.item()
+    k = length - max(2, CKPT_STREAM_AT // 2)     # merge_upto + 1
+    sub = ck.chain.l2[:k]
+    with uncounted(mods["_build"]):
+        want = sm_ref.merge_entries_ref(sub)
+        walked = int(torch.where(want[2] >= 0, k - want[2], k).sum())
+        del want
+        row, _ = measure(torch, "merge", lambda: sm.merge_entries_cuda(sub),
+                         lambda: sm_ref.merge_entries_ref(sub),
+                         8 * walked + 13 * sub.shape[1], 0, None, flush,
+                         n_kernel=20, n_plain=3)
+    return _shape_row(row, "merge", K_N=[k, sub.shape[1]], words_walked=walked)
+
+
+def _shape_row(row, kernel, **extra):
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bytes",
+            "max_abs_err")
+    return dict(kernel=kernel, **{k: row[k] for k in keep}, **extra)
+
+
+def _ckpt_kernels(torch, mods, ck, flush):
+    """The single-chain and one-tenant kernels at the checkpoint chain's
+    shape against their plain versions, timed: K2, K7 and K8 on the
+    scalable chain; K1 and K6 on the vanilla one."""
+    cr, cr_ref, cg, cg_ref, fmt = (mods["cr"], mods["cr_ref"], mods["cg"],
+                                   mods["cg_ref"], mods["fmt"])
+    ch = ck.chain
+    l2, length = ch.l2, ch.length
+    c, n = l2.shape[0], l2.shape[1]
+    out = {}
+    if ch.scalable:
+        w0, w1, lens = l2[None][..., 0], l2[None][..., 1], length[None]
+        row, _ = measure(torch, "resolve_direct_fleet",
+                         lambda: cr.resolve_direct_fleet_cuda(w0, w1, lens),
+                         lambda: cr_ref.resolve_direct_fleet_ref(w0, w1, lens),
+                         20 * n + 4, 0, None, flush, n_plain=3)
+        out["resolve_direct_fleet"] = _shape_row(row, "resolve_direct_fleet",
+                                                 T_C_P=[1, c, n])
+        act = l2[length.item() - 1]
+        planes = (fmt.entry_allocated(act).to(torch.int32),
+                  fmt.entry_bfi(act).contiguous(), fmt.entry_ptr(act).contiguous())
+        row, _ = measure(torch, "resolve_direct",
+                         lambda: cr.resolve_direct_cuda(*planes),
+                         lambda: cr_ref.resolve_direct_ref(*planes),
+                         20 * n, 0, None, flush, n_plain=3)
+        out["resolve_direct"] = _shape_row(row, "resolve_direct", N=n)
+        _, res = mods["store"].read(ch, torch.arange(n, device=l2.device),
+                                    method="direct")
+        rows, ok = mods["readable_rows"](res)
+        page = ch.pool.shape[1] * ch.pool.element_size()
+        row, _ = measure(torch, "gather", lambda: cg.gather_cuda(ch.pool, rows, ok),
+                         lambda: cg_ref.gather_ref(ch.pool, rows, ok),
+                         (int(ok.sum()) + n) * page + 5 * n, 0, None, flush,
+                         library=lambda: torch.index_select(ch.pool, 0, rows),
+                         n_kernel=10, n_plain=3)
+        out["gather"] = _shape_row(row, "gather", B=n, page_bytes=page)
+    else:
+        w0, lens = l2[None][..., 0], length[None]
+        want = cr_ref.resolve_vanilla_fleet_ref(w0, lens)
+        top = min(length.item(), c)
+        walked = int(torch.where(want[0] >= 0, top - want[0], top).sum())
+        hits = int((want[0] >= 0).sum())
+        del want
+        row, _ = measure(torch, "resolve_vanilla_fleet",
+                         lambda: cr.resolve_vanilla_fleet_cuda(w0, lens),
+                         lambda: cr_ref.resolve_vanilla_fleet_ref(w0, lens),
+                         8 * walked + 4 + 8 * n, 0, None, flush,
+                         n_kernel=20, n_plain=3)
+        out["resolve_vanilla_fleet"] = _shape_row(
+            row, "resolve_vanilla_fleet", T_C_P=[1, c, n], words_walked=walked,
+            walk=cr.fleet_walk(1, n))
+        alloc = fmt.entry_allocated(l2).to(torch.int32)
+        ptrs = fmt.entry_ptr(l2).contiguous()
+        row, _ = measure(torch, "resolve_vanilla",
+                         lambda: cr.resolve_vanilla_cuda(alloc, ptrs, length),
+                         lambda: cr_ref.resolve_vanilla_ref(alloc, ptrs, length),
+                         4 * (walked + hits + 1) + 8 * n, 0, None, flush,
+                         n_kernel=20, n_plain=3)
+        out["resolve_vanilla"] = _shape_row(row, "resolve_vanilla", C_N=[c, n],
+                                            words_walked=walked)
+    return out
+
+
+def _index_chain(torch, mods, disk, device=None):
+    """A phase-6 disk's index tables on ``device`` (``DEV`` by default),
+    with no pool: all the cache model reads."""
+    device = device or DEV
+    return mods["chain"].Chain(
+        spec=disk["spec"], scalable=disk["scalable"], l1=disk["l1"].to(device),
+        l2=disk["l2"].to(device),
+        pool=torch.empty((0, disk["spec"].page_size), device=device),
+        pool_cursor=torch.zeros((), dtype=torch.int32, device=device),
+        length=torch.tensor(disk["length"], dtype=torch.int32, device=device),
+        overflow=torch.zeros((), dtype=torch.bool, device=device),
+        snap_dropped=torch.zeros((), dtype=torch.bool, device=device))
+
+
+def lru_oracle(disk, pages, n_slots, unified):
+    """Slice fetches per request of the Qcow2 caches, on the host from the
+    raw words: one ``OrderedDict`` LRU per file. A request probes the
+    active volume down to the first file holding its page allocated (the
+    whole chain on a miss; sQEMU: the active volume only); a probe that
+    finds the slice refreshes it; a miss fetches where the file holds the
+    slice's L2 table (sQEMU: always), evicting the least recently used."""
+    spec, length = disk["spec"], disk["length"]
+    l1 = disk["l1"].numpy()[:length] != 0
+    w0 = disk["l2"].numpy()[:length, pages, 0].view(np.uint32)
+    alloc = (w0 & np.uint32(1 << 31)) != 0                       # (L, R)
+    caches = [collections.OrderedDict() for _ in range(length)]
+    misses = []
+    for r, p in enumerate(pages.tolist()):
+        s = p // spec.slice_len
+        if unified:
+            files = [length - 1]
+        else:
+            hit = np.nonzero(alloc[:, r])[0]
+            low = int(hit[-1]) if hit.size else 0
+            # a file without the slice's L2 table never caches the slice
+            on_disk = l1[low:, p // spec.l2_per_table]
+            files = (np.nonzero(on_disk)[0] + low).tolist()
+        m = 0
+        for f in files:
+            cache = caches[f]
+            if s in cache:
+                cache.move_to_end(s)
+                continue
+            m += 1
+            if len(cache) >= n_slots:
+                cache.popitem(last=False)
+            cache[s] = True
+        misses.append(m)
+    return np.asarray(misses, np.int32)
+
+
+def _simulate(torch, mods, chain, pages, n_slots):
+    """One format's simulation: vQemu's per-file caches on the vanilla
+    disk, sQEMU's unified cache on the scalable one; ms a request on the
+    host clock."""
+    cache = mods["cache"]
+    sim = cache.simulate_unified if chain.scalable else cache.simulate_vanilla
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace = sim(chain, pages, n_slots)
+    torch.cuda.synchronize()
+    return trace, 1e3 * (time.perf_counter() - t0) / pages.numel()
+
+
+def cache_phase(torch, mods, indexes):
+    """10b: the Qcow2 slice-cache model (Figs 13, 14, 16) on phase 6's
+    depth-500 disks, checked against the resolvers, a host LRU oracle and
+    the same simulation on the CPU."""
+    cache, metrics, resolve = mods["cache"], mods["metrics"], mods["resolve"]
+    setup = mods["paper_chain"].SETUP
+    disks = indexes["disks"]
+    spec = disks["vanilla"]["spec"]
+    slots = setup.default_l2_cache_bytes // (spec.slice_len * 8)   # 1 MiB
+    streams = dict(sequential=torch.arange(SIM_SWEEP, device=DEV),
+                   random=indexes["ycsb"].to(DEV))
+    lines = {}
+    for name, disk in disks.items():
+        chain = _index_chain(torch, mods, disk)
+        for sname, pages in streams.items():
+            trace, ms = _simulate(torch, mods, chain, pages, slots)
+            lat = metrics.trace_latencies(trace).cpu().numpy()
+            summary = cache.summarize(trace)
+            n_req = pages.numel()
+            # the kernel resolvers (K1 walk, K2 direct) as the reference
+            with uncounted(mods["_build"]):
+                res = resolve.get_resolver(
+                    "pallas_direct" if disk["scalable"] else "pallas_vanilla")(
+                        chain, pages)
+            if disk["scalable"]:
+                require(summary["probes"] == n_req, "unified probes != requests")
+            else:
+                require(summary["probes"] == int(res.lookups.sum()),
+                        "vanilla probes differ from the walk's lookups")
+            require(summary["hits"] == int(res.found.sum()), f"{name} hits != found")
+            require(int(trace.hist.sum()) == summary["probes"], "hist != probes")
+            if sname == "random":
+                oracle = lru_oracle(disk, pages.cpu().numpy(), slots,
+                                    disk["scalable"])
+                require(np.array_equal(trace.misses.cpu().numpy(), oracle),
+                        f"{name}: misses differ from the host LRU oracle")
+                ref, _ = _simulate(torch, mods, _index_chain(torch, mods, disk, "cpu"),
+                                   pages[:SIM_PREFIX].cpu(), slots)
+                require(all(torch.equal(a[:SIM_PREFIX].cpu(), b)
+                            for a, b in zip(trace[:5], ref[:5])),
+                        f"{name}: the card's first {SIM_PREFIX} requests differ "
+                        "from the CPU's")
+            lines[f"{name}/{sname}"] = dict(
+                n_slots=slots, requests=n_req, **summary,
+                lat_mean_us=float(lat.mean()) * 1e6,
+                lat_p99_us=float(np.percentile(lat, 99)) * 1e6,
+                ms_per_request=ms, hist_nonzero_files=int((trace.hist > 0).sum()))
+        del chain
+    _paper(dict(part="fig13_fig14", chain_length=disks["vanilla"]["length"],
+                n_pages=spec.n_pages, slice_len=spec.slice_len,
+                cache_bytes_per_file=setup.default_l2_cache_bytes,
+                checks=["vanilla probes = walk lookups", "unified probes = R",
+                        "hits = found", "misses = host LRU oracle (random)",
+                        f"first {SIM_PREFIX} requests = CPU (random)"],
+                traces=lines), mods)
+    # Fig 16: the equal-memory protocol on the random stream
+    pages = streams["random"]
+    n_req = pages.numel()
+    chains = {n: _index_chain(torch, mods, d) for n, d in disks.items()}
+    length = disks["vanilla"]["length"]
+    fig16 = []
+    for frac in setup.cache_fracs:
+        s_slots = int(frac * spec.n_slices)
+        per_file = max(1, s_slots // length)
+        tv, ms_v = _simulate(torch, mods, chains["vanilla"], pages, per_file)
+        tu, ms_u = _simulate(torch, mods, chains["scalable"], pages, s_slots)
+        if frac == min(setup.cache_fracs):
+            for t, d, k in ((tv, disks["vanilla"], per_file),
+                            (tu, disks["scalable"], s_slots)):
+                require(np.array_equal(t.misses.cpu().numpy(), lru_oracle(
+                    d, pages.cpu().numpy(), k, d["scalable"])),
+                        "fig16: misses differ from the host LRU oracle")
+        lv = float(metrics.trace_latencies(tv).sum())
+        lu = float(metrics.trace_latencies(tu).sum())
+        fig16.append(dict(cache_frac=frac, unified_slots=s_slots,
+                          vanilla_slots_per_file=per_file,
+                          vanilla_misses=int(tv.misses.sum()),
+                          unified_misses=int(tu.misses.sum()),
+                          vanilla_iops=n_req / lv, unified_iops=n_req / lu,
+                          speedup=lv / lu, vanilla_ms_per_request=ms_v,
+                          unified_ms_per_request=ms_u))
+    del chains
+    _paper(dict(part="fig16", requests=n_req, n_slices=spec.n_slices,
+                chain_length=length, model_not_card_numbers=True,
+                oracle_checked_at=min(setup.cache_fracs), points=fig16), mods)
+    return lines, fig16
+
+
+def paper_models(torch, mods, spec):
+    """10c: Fig 12's cache-memory model and Eq. 2 (models, not card
+    numbers)."""
+    cache, metrics = mods["cache"], mods["metrics"]
+    claims = mods["paper_chain"].headline_claims()
+    fig12 = {}
+    for n in FIG12_LENGTHS:
+        v = cache.cache_memory_bytes(spec, FIG12_SLOTS, n, unified=False)
+        u = cache.cache_memory_bytes(spec, FIG12_SLOTS, n, unified=True)
+        fig12[n] = dict(vanilla_bytes=v, unified_bytes=u, reduction=v / u)
+    require(fig12[1000]["reduction"] > fig12[500]["reduction"] > 10,
+            "fig12: the per-file caches must cost more with chain length")
+    _paper(dict(part="fig12_eq2", model_not_card_numbers=True,
+                slots=FIG12_SLOTS, fig12=fig12,
+                reduction_at_500=fig12[500]["reduction"],
+                paper_reduction_at_500=claims["memory_reduction_at_500"],
+                reduction_at_1000=fig12[1000]["reduction"],
+                paper_reduction_at_1000=claims["memory_reduction_at_1000"],
+                eq2_overhead_bytes_50GB=metrics.eq2_snapshot_overhead_bytes(50 * 2**30),
+                paper_overhead_bytes_50GB=claims["snapshot_overhead_bytes_50gb"]),
+          mods)
+
+
 def main() -> int:
     import torch
 
@@ -2247,7 +2711,9 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ref as pa_ref
     from repro_torch.kernels.stream_merge import ref as sm_ref
     from repro_torch.kernels.stream_merge import stream_merge as sm
-    from repro_torch.core import chain, migrate
+    from repro_torch.checkpoint import snapstore_ckpt
+    from repro_torch.configs import paper_chain
+    from repro_torch.core import cache, chain, metrics, migrate, resolve
     from repro_torch.core.golden import GoldenRegistry
     from repro_torch.core.invariants import (check_fleet_invariants,
                                              check_kv_invariants)
@@ -2281,7 +2747,9 @@ def main() -> int:
                 sm_ref=sm_ref, Sched=MaintenanceScheduler,
                 check_fleet_invariants=check_fleet_invariants,
                 check_kv_invariants=check_kv_invariants, migrate=migrate,
-                GoldenRegistry=GoldenRegistry)
+                GoldenRegistry=GoldenRegistry, metrics=metrics, cache=cache,
+                resolve=resolve, ckpt=snapstore_ckpt, paper_chain=paper_chain,
+                smi=smi)
 
     # 3. smoke-size reference: the card against the plain versions on the CPU
     t0 = time.perf_counter()
@@ -2324,7 +2792,7 @@ def main() -> int:
 
     # 6. one virtual disk: dd and YCSB-C through the snapshot chain
     t0 = time.perf_counter()
-    store_rows, store_launches, store_per_call = store_phase(torch, mods)
+    store_rows, store_launches, store_per_call, disk_indexes = store_phase(torch, mods)
     emit({"phase": "store", "seconds": time.perf_counter() - t0})
     per_step_of.update(store_per_call)
 
@@ -2353,6 +2821,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "golden", "seconds": time.perf_counter() - t0})
 
+    # 10. the paper's evaluation plane: Fig 17 on a checkpoint chain, the
+    # cache model on phase 6's disks, Fig 12 and Eq. 2
+    t0 = time.perf_counter()
+    _paper({"held_GB_at_start": torch.cuda.memory_allocated() / 1e9}, mods)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    paper_launches, ckpt_shapes = checkpoint_phase(torch, mods, cfg, flush)
+    cache_phase(torch, mods, disk_indexes)
+    paper_models(torch, mods, disk_indexes["disks"]["vanilla"]["spec"])
+    del disk_indexes, flush
+    _paper({"seconds": time.perf_counter() - t0}, mods)
+
     # launches on the main paths: the engines' runs, both store depths,
     # both fleets, the maintenance runs and the golden and migration runs
     # (each counted from zero just before its run)
@@ -2362,13 +2841,16 @@ def main() -> int:
                                               serve8_launches,
                                               golden_fleet_launches,
                                               admission_launches,
-                                              seqmig_launches))
+                                              seqmig_launches, paper_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
     rows[1]["fleet_shape"] = fleet_shapes["k2_fleet_shape"]   # K2's row
     rows[2]["suffix_shape"] = suffix_row                      # K3's row
     rows += fleet_rows + store_rows + merge_rows
+    for row in rows:                      # the checkpoint chain's shapes
+        if row["name"] in ckpt_shapes:
+            row["ckpt_shape"] = ckpt_shapes[row["name"]]
     floor, floor_clean = floor_ms(torch, torch.empty(64 * 2**20, dtype=torch.uint8,
                                                      device="cuda"))
     for row in rows:

@@ -47,8 +47,12 @@ CHAIN_FIELDS = ("l1", "l2", "pool", "pool_cursor", "length", "overflow",
 
 
 def _pages(a, dtype, dev) -> torch.Tensor:
-    """Page data of any float type (bf16 included) through float32, which
-    holds every bf16 value exactly."""
+    """Page data: a float type (bf16 included) through float32, which holds
+    every bf16 value exactly; an integer pool (a checkpoint's ``uint32``
+    words) as the ``int32`` carrier by bit view, since float32 would round
+    every word above 2^24."""
+    if not dtype.is_floating_point:
+        return fmt.words(a, device=dev).to(dtype)
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev,
                                                                dtype=dtype)
 

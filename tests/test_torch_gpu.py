@@ -14,6 +14,8 @@ bound holds on the card because the kernels accumulate in f32 and the
 plain versions run with TF32 off.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -566,3 +568,76 @@ def test_materialize_tenant_on_card_equals_cpu(cuda):
     assert report["verified"] and report["rows_cold"] > 0
     assert _same_bytes(tmigrate.materialize_tenant(dst, 1, store=dst_store).cpu(),
                        want)
+
+
+def _ckpt_state(device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return dict(
+        w=torch.randn((67, 33), generator=g).to(torch.bfloat16).to(device),
+        b=torch.randn((129,), generator=g).to(device),
+        step=torch.tensor(seed, dtype=torch.int32, device=device),
+    )
+
+
+@pytest.mark.parametrize("scalable", [True, False])
+def test_checkpoint_kernel_restore_on_card_equals_cpu(cuda, scalable):
+    """The same delta saves on the card and on the CPU give the same chain,
+    and a restore through the kernels (K1 or K2, then K8) equals the CPU's
+    plain restore bit for bit."""
+    from repro_torch.checkpoint.snapstore_ckpt import SnapshotCheckpointer
+
+    cks = {dev: SnapshotCheckpointer(_ckpt_state(dev), page_size=64,
+                                     max_chain=12, scalable=scalable, device=dev)
+           for dev in ("cpu", cuda)}
+    for i in range(6):
+        for dev, ck in cks.items():
+            state = _ckpt_state(dev)
+            state["w"][i * 7:(i + 1) * 7] += 1
+            state["step"].fill_(i)
+            ck.save(state)
+    for name in ("l1", "l2", "pool", "pool_cursor", "length"):
+        assert torch.equal(getattr(cks[cuda].chain, name).cpu(),
+                           getattr(cks["cpu"].chain, name)), name
+    plain = "direct" if scalable else "vanilla"
+    want = cks["cpu"].restore(method=plain)
+    for method in (("pallas_direct", "pallas_vanilla") if scalable
+                   else ("pallas_vanilla",)):
+        kernel = "resolve_direct_fleet" if method == "pallas_direct" \
+            else "resolve_vanilla_fleet"
+        before = dict(_build.LAUNCHES)
+        got = cks[cuda].restore(method=method)
+        assert _build.LAUNCHES[kernel] == before[kernel] + 1
+        assert _build.LAUNCHES["gather"] == before["gather"] + 1
+        for k in want:
+            assert got[k].is_cuda and got[k].dtype == want[k].dtype
+            assert _same_bytes(got[k].cpu().reshape(-1), want[k].reshape(-1)), \
+                (method, k)
+    assert cks[cuda].resolve_cost("pallas_vanilla") == \
+        cks["cpu"].resolve_cost("vanilla")
+
+
+@pytest.mark.parametrize("n_slots", [1, 16, 256])
+def test_cache_simulators_on_card_equal_cpu(cuda, n_slots):
+    """Both cache simulators on the card equal the CPU field for field."""
+    from repro_torch.core import cache, store
+
+    g = torch.Generator().manual_seed(n_slots)
+    chains = {}
+    for scalable in (False, True):
+        ch = store.create(4096, 4, max_chain=48, scalable=scalable,
+                          pool_capacity=8192, device="cpu")
+        for _ in range(40):
+            ids = torch.randperm(4096, generator=g)[:64]
+            store.write(ch, ids, torch.ones((64, 4)))
+            store.snapshot(ch)
+        chains[scalable] = ch
+    reqs = torch.cat([torch.arange(2048), torch.randint(0, 4096, (1024,), generator=g)])
+    for scalable, ch in chains.items():
+        on_card = dataclasses.replace(ch, **{
+            f.name: getattr(ch, f.name).to(cuda)
+            for f in dataclasses.fields(ch) if f.name not in ("spec", "scalable")})
+        for sim in (cache.simulate_vanilla, cache.simulate_unified):
+            want = sim(ch, reqs, n_slots)
+            got = sim(on_card, reqs.to(cuda), n_slots)
+            for field, w, x in zip(want._fields, want, got):
+                assert x.is_cuda and torch.equal(x.cpu(), w), (sim.__name__, field)
