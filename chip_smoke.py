@@ -171,10 +171,31 @@ Phases, each printing its own lines:
    requests the same simulation on the CPU. (c) Fig 12's cache-memory model
    and Eq. 2 (models, not card numbers). (d) In phase 7, after its
    demotions, ``tier_residency`` equals the phase's own counters.
+11. families — the rest of the decoder-only family; its lines carry
+   ``"phase": "families"`` and the card's name and power limit. (a) Phase
+   3 for the smoke configs of Qwen2-MoE-A2.7B, Phi-3.5-MoE, Nemotron-4-15B
+   and Chameleon-34B, the MoE ones with a golden suffix admission in the
+   lifecycle. (b) Qwen2-MoE-A2.7B at full width and depth (bf16 weights
+   drawn on the card from seed 0; every parameter counted by kind; the
+   init's peak memory): phase 4's four engines and profile, the profile's
+   device time under the MoE's steps by ``record_function`` range (expert
+   products, shared expert, dispatch/combine) beside the weight-read
+   bound; K3/K4 at its engine state and at the long context (16 KV heads,
+   group 1) beside dense SDPA; phase 9a's golden admission (a hit and its
+   duplicate, two identical rows of one batch, may decode apart under the
+   experts' capacity); then one decode step (8 padded rows) and the
+   200-token admission (the 256-row bucket) again with every layer's MoE
+   input recorded: the dropped assignments a layer, and layer 12's input
+   through ``moe_apply`` on the card in bf16 against the CPU in f32
+   (``moe_check``: routing and drops equal off near ties, outputs within
+   2e-2 relative L2). (c) Nemotron-4-15B and Qwen2-7B whole, Chameleon-34B
+   (24 of 48 layers), Phi-3.5-MoE (16 of 32) and Qwen2-72B (16 of 80) at
+   full width on a vanilla engine of 256 blocks: 8 timed steps on each
+   path, the same tokens on both, K3/K4 at the engine's state.
 
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet, each part of phase 9, each checkpoint chain
-of phase 10) and read just after it,
+of phase 10, each engine of phase 11) and read just after it,
 before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
 floor under the same flush and spin.
@@ -190,6 +211,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -266,7 +288,19 @@ CKPT_DELTA_PAGES = (1_025, 1_026)
 SIM_SWEEP = 16_384               # clusters of the sequential stream
 SIM_PREFIX = 256                 # requests held against the CPU simulation
 FIG12_LENGTHS, FIG12_SLOTS = (1, 5, 50, 100, 500, 1000), 64
-DEV = "cuda"                     # phases 6-10 run here
+# phase 11: the rest of the decoder-only family. Qwen2-MoE-A2.7B whole;
+# the dense variants and Phi-3.5-MoE whole where they fit one card, else
+# at full width with the depth cut to fit beside a pool of 256 blocks
+FAMILY_SMOKE = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "nemotron-4-15b",
+                "chameleon-34b")
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CHECK_LAYER = 12             # the layer whose MoE input is held to the CPU
+MOE_REL_TOL = 2e-2               # bf16 on the card against f32 on the CPU
+FAMILY_DEPTHS = (("nemotron-4-15b", None), ("qwen2-7b", None),
+                 ("chameleon-34b", 24), ("phi3.5-moe-42b-a6.6b", 16),
+                 ("qwen2-72b", 16))
+FAMILY_POOL, FAMILY_STEPS = 256, 8
+DEV = "cuda"                     # phases 6-11 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -308,11 +342,15 @@ def nvidia_smi_line() -> str:
 # -- phase 3: smoke-size reference, card against CPU -------------------------
 
 
-def reference_phase(torch, mods):
+def reference_phase(torch, mods, arch="qwen2.5-3b", line=emit, golden=False):
+    """The smoke config of ``arch`` in float32: the lifecycle's tokens on
+    the card equal the CPU's, both formats x both decode paths; with
+    ``golden`` the lifecycle also registers a golden prompt and admits an
+    extension of it (a suffix-prefill pass)."""
     L, Engine, smoke_config, init_params = (mods["layers"], mods["Engine"],
                                             mods["smoke_config"],
                                             mods["init_params"])
-    cfg = smoke_config("qwen2.5-3b")
+    cfg = smoke_config(arch)
     saved = L.COMPUTE_DTYPE
     L.COMPUTE_DTYPE = torch.float32
     try:
@@ -320,6 +358,7 @@ def reference_phase(torch, mods):
         gpu_params = _to(torch, cpu_params, "cuda")
         rng = np.random.default_rng(3)
         prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 3)]
+        base = rng.integers(0, cfg.vocab_size, size=6) if golden else None
         for scalable in (True, False):
             for path in ("tables", "fused"):
                 toks = []
@@ -327,10 +366,13 @@ def reference_phase(torch, mods):
                     eng = Engine(cfg, params, scalable=scalable, n_blocks=256,
                                  block_size=4, max_blocks_per_seq=128,
                                  decode_path=path, device=dev)
-                    toks.append(_lifecycle_tokens(eng, prompts, depth=12))
+                    toks.append(_lifecycle_tokens(eng, prompts, depth=12,
+                                                  golden=base))
                 require(toks[0] == toks[1],
-                        f"card vs CPU tokens differ (scalable={scalable}, {path})")
-                emit({"phase": "reference", "scalable": scalable, "path": path,
+                        f"{arch}: card vs CPU tokens differ (scalable={scalable}, "
+                        f"{path})")
+                line({"phase": "reference", "model": arch, "scalable": scalable,
+                      "path": path, "golden_admission": golden,
                       "tokens_equal_card_vs_cpu": True,
                       "n_tokens": sum(len(v) for v in toks[0].values())})
     finally:
@@ -343,7 +385,7 @@ def _to(torch, tree, device):
     return tree.to(device)
 
 
-def _lifecycle_tokens(eng, prompts, depth):
+def _lifecycle_tokens(eng, prompts, depth, golden=None):
     sids = [eng.add_request(p) for p in prompts]
     eng.fork_request(sids[1])
     sid = sids[0]
@@ -353,9 +395,15 @@ def _lifecycle_tokens(eng, prompts, depth):
         sid = child
         if d % 4 == 0:
             eng.step()
+    if golden is not None:
+        gsid = eng.register_golden(golden)
+        eng.add_request(np.concatenate([golden, prompts[1][:3]]))
+        require(eng.golden_hits == 1, "the golden extension did not fork")
     for _ in range(3):
         eng.step()
     out = {s: list(t) for s, t in eng.active.items()}
+    if golden is not None:
+        eng.release_golden(gsid)
     for s in sorted(eng.active):
         eng.finish_request(s)
     require(eng.kv.blocks_in_use() == 0, "blocks leaked at smoke size")
@@ -365,9 +413,20 @@ def _lifecycle_tokens(eng, prompts, depth):
 # -- phase 4: full-size serving ----------------------------------------------
 
 
-def serve_phase(torch, mods, cfg, params, prompts):
+def serve_phase(torch, mods, cfg, params, prompts, tag=None, groups=None,
+                ranges=None):
+    """Four engines over ``prompts``, each step timed, profiled and
+    launch-counted. Phase 4's lines are ``{"phase": "serve"|"profile"}``;
+    with ``tag`` (phase 11) each line is ``tag`` with ``"part"``. The
+    profile groups kernels by name (``groups``, phase 4's by default) and,
+    with ``ranges``, the device time under the MoE's steps by range
+    (``moe_ranges``)."""
     Engine, _build = mods["Engine"], mods["_build"]
     results, captured = {}, None
+
+    def line(kind, obj):
+        emit({"phase": kind, **obj} if tag is None else {**tag, "part": kind, **obj})
+
     for scalable in (True, False):
         for path in ("tables", "fused"):
             name = f"{'scalable' if scalable else 'vanilla'}/{path}"
@@ -404,8 +463,9 @@ def serve_phase(torch, mods, cfg, params, prompts):
             per_step = {k: (_build.LAUNCHES[k] - before[k]) / timed
                         for k in before}
             step_ms = float(np.mean(ms))
-            profile = profile_calls(torch, eng.step, PROFILED, step_ms,
-                                    SERVE_GROUPS)
+            with moe_ranges(torch, mods, ranges):
+                profile = profile_calls(torch, eng.step, PROFILED, step_ms,
+                                        groups or SERVE_GROUPS, ranges=ranges)
             launches = dict(_build.LAUNCHES)       # read just after the run
             tokens = {s: list(t) for s, t in eng.active.items()}
             if not scalable and path == "fused":
@@ -420,22 +480,21 @@ def serve_phase(torch, mods, cfg, params, prompts):
                 require(launches[k] > 0, f"{name}: kernel {k} never launched")
             results[name] = dict(tokens=tokens, launches=launches,
                                  per_step=per_step)
-            emit({"phase": "serve", "engine": name, "model": cfg.name,
+            line("serve", {"engine": name, "model": cfg.name,
                   "batch": batch, "steps_timed": len(ms),
                   "ms_per_step": step_ms,
                   "tokens_per_s": batch * 1000.0 / step_ms,
                   "max_chain": eng.kv.fleet.spec.max_chain,
                   "launches": launches, "launches_per_step": per_step,
                   "blocks_in_use_after": eng.kv.blocks_in_use()})
-            emit({"phase": "profile", "engine": name, **profile})
+            line("profile", {"engine": name, **profile})
             del eng
             torch.cuda.empty_cache()
     for fmt_name in ("scalable", "vanilla"):
         same = (results[f"{fmt_name}/tables"]["tokens"]
                 == results[f"{fmt_name}/fused"]["tokens"])
         require(same, f"{fmt_name}: tables and fused paths emitted different tokens")
-        emit({"phase": "serve", "format": fmt_name,
-              "tables_equal_fused_tokens": True})
+        line("serve", {"format": fmt_name, "tables_equal_fused_tokens": True})
     return results, captured
 
 
@@ -466,7 +525,8 @@ def uncounted(_build):
         _build.LAUNCHES.update(before)
 
 
-def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None):
+def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None,
+                  ranges=None):
     """Kernel time by kernel over ``n`` calls of ``fn`` under torch.profiler:
     a kernel's ms a call is its total over the trace divided by ``n``. The
     device idle share compares the device time per call with the
@@ -477,7 +537,10 @@ def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None):
     events, or with a kernel seen a number of times that is not a multiple
     of ``n``, is taken again, up to ``tries`` times, its launches left
     uncounted. ``complete`` says whether the last trace was whole; a split
-    from an incomplete one is an estimate (it misses the dropped events)."""
+    from an incomplete one is an estimate (it misses the dropped events).
+    ``ranges`` maps a group to ``torch.profiler.record_function`` names:
+    the device time of the kernels launched under those ranges is that
+    group's, taken out of the name groups (``other``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(tries):
@@ -491,8 +554,10 @@ def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None):
             torch.cuda.synchronize()
         # device events only: a CPU op also reports the device time of the
         # kernels it launched, which would count them twice
+        range_names = {r for rs in (ranges or {}).values() for r in rs}
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.key not in range_names]
         complete = bool(events) and all(e.count % n == 0 for e in events)
         if complete:
             break
@@ -509,6 +574,12 @@ def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None):
         g = next((g for g, keys in groups.items() if any(x in k for x in keys)),
                  "other")
         by_group[g] += v
+    for g, names in (ranges or {}).items():
+        by_group[g] = sum(e.device_time_total for e in prof.events()
+                          if e.name in names
+                          and e.device_type == torch.autograd.DeviceType.CPU
+                          ) / 1e3 / n
+        by_group["other"] -= by_group[g]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(
         calls_profiled=n, device_ms_per_call=device_ms,
@@ -644,6 +715,19 @@ def attention_cost(tables_h, len_h, bs, hkv, d, elt, n_heads):
             qo_bytes, nblk)
 
 
+def walk_cost(w0_h, cl_h, ten_h, nblk, allocated_bit):
+    """The bytes K4 reads beyond K3's K/V, q and out: the words its walks
+    read (each tenant's pages up to its longest row's), a chain length a
+    tenant, a tenant and a length a row."""
+    pages_of = {}
+    for r in range(len(nblk)):
+        if nblk[r]:
+            tt = int(ten_h[r])
+            pages_of[tt] = np.arange(max(nblk[r], len(pages_of.get(tt, []))))
+    return 4 * (walk_words(w0_h, cl_h, pages_of, allocated_bit) + len(pages_of)
+                + 2 * len(nblk))
+
+
 def measure(torch, name, kern, plain, nbytes, ops, tol, flush, library=None,
             n_kernel=50, n_plain=10):
     """Hold ``kern`` against ``plain`` on the same inputs (bit-exact where
@@ -715,13 +799,7 @@ def kernel_phase(torch, mods, state):
     k2_bytes = 4 * (2 * t * p + t + 3 * t * p)
     k3_bytes, attn_ops, kv_bytes, qo_bytes, nblk = attention_cost(
         tables_h, len_h, bs, hkv, d, elt, cfg.n_heads)
-    pages_of = {}
-    for r in range(b):
-        if nblk[r]:
-            tt = int(ten_h[r])
-            pages_of[tt] = np.arange(max(nblk[r], len(pages_of.get(tt, []))))
-    k4_bytes = kv_bytes + qo_bytes + 4 * (walk_words(w0_h, cl_h, pages_of, alloc_bit)
-                                          + len(pages_of) + 2 * b)
+    k4_bytes = kv_bytes + qo_bytes + walk_cost(w0_h, cl_h, ten_h, nblk, alloc_bit)
 
     runs = {
         "resolve_vanilla_fleet": (
@@ -823,16 +901,18 @@ def split_report(pa, q, hkv, n_pages, bs, lengths):
                 working_blocks=plan.working_blocks(lengths, bs, n_pages))
 
 
-def long_context(torch, mods, flush):
+def long_context(torch, mods, flush, cfg=None, line=emit):
     """K3/K4 at a long context: 8 rows of 2,048 tokens, each through 128
     distinct blocks of the engine's 1,024-block pool at one layer (bf16,
-    bs 16, 2 KV heads of 128), and for K4 a 64-deep chain (65 layers of
-    word0; each page's owner drawn from the 65 layers, older copies below
-    it). Each is held against its plain version and timed against its
-    bytes bound; scaled_dot_product_attention over the same K/V gathered
-    dense is timed beside them as a yardstick (``dense_sdpa_ms``: it
-    computes no paged function and the port never calls it)."""
-    pa, pa_ref, fmt, cfg = mods["pa"], mods["pa_ref"], mods["fmt"], mods["cfg"]
+    bs 16, ``cfg``'s heads: phase 4's model's 2 KV heads of 128 by
+    default), and for K4 a 64-deep chain (65 layers of word0; each page's
+    owner drawn from the 65 layers, older copies below it). Each is held
+    against its plain version and timed against its bytes bound;
+    scaled_dot_product_attention over the same K/V gathered dense is timed
+    beside them as a yardstick (``dense_sdpa_ms``: it computes no paged
+    function and the port never calls it)."""
+    pa, pa_ref, fmt = mods["pa"], mods["pa_ref"], mods["fmt"]
+    cfg = cfg or mods["cfg"]
     b, n_pages, bs, nb, depth, chain = 8, 128, 16, 1024, CHAIN_DEPTH + 1, 128
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = torch.Generator(device=DEV).manual_seed(2)
@@ -905,8 +985,8 @@ def long_context(torch, mods, flush):
             **split_report(pa, q, hkv, n_pages, bs, [n_pages * bs] * b))
     require(torch.equal(outs["paged_attention"][0], outs["fused_chain_attention"][0]),
             "long context: paged_attention and fused_chain_attention differ")
-    emit({"phase": "kernels", "shape": "long_context", "k3_equals_k4_bitwise": True,
-          **{k: v for k, v in out.items()}})
+    line({"phase": "kernels", "shape": "long_context", "model": cfg.name,
+          "heads": [h, hkv], "k3_equals_k4_bitwise": True, **out})
     return out
 
 
@@ -1915,14 +1995,15 @@ def _engine(mods, cfg, params, *, scalable, path="auto", block_size=16,
                           resolver="auto", decode_path=path)
 
 
-def golden_admission(torch, mods, cfg, params):
+def golden_admission(torch, mods, cfg, params, line=emit):
     """9a: a golden prompt of 392 tokens (24 full blocks of 16 and a
     shared partial one) registered on two engines, four admissions that
     extend it by 0, 17, 100 and 200 tokens and one miss. Each hit's first
     token and K/V equal, bit for bit, a duplicate-storage admission through
     the same ``_suffix_prefill``; hits and duplicates then decode the same
-    tokens, across ``release_golden`` too. Returns the launches and K3's
-    row at the 256-row suffix shape."""
+    tokens, across ``release_golden`` too (a dense model's: an MoE's
+    capacity may part two identical rows of one batch). Returns the
+    launches and K3's row at the 256-row suffix shape."""
     _build, check_kv = mods["_build"], mods["check_kv_invariants"]
     rng = np.random.default_rng(9)
     golden = rng.integers(0, cfg.vocab_size, GOLDEN_PROMPT)
@@ -1976,9 +2057,14 @@ def golden_admission(torch, mods, cfg, params):
                 eng.release_golden(gsid)      # the forks decode on
                 check_kv(kv)
             eng.step()
-        for sid, dup in zip(hits, dups):
-            require(eng.active[sid] == eng.active[dup],
-                    f"{name}: hit and duplicate decoded different tokens")
+        # a hit and its duplicate are two identical rows of one decode batch:
+        # a dense model decodes them alike; an MoE routes both to the same
+        # experts, whose capacity keeps the earlier row's assignment and may
+        # drop the later one's, so there their tokens may part (as in JAX)
+        same_decode = [eng.active[sid] == eng.active[dup]
+                       for sid, dup in zip(hits, dups)]
+        require(cfg.is_moe or all(same_decode),
+                f"{name}: hit and duplicate decoded different tokens")
         require(len(eng.active[hits[0]]) == 1 + GOLDEN_STEPS, "decode steps")
         launches = dict(_build.LAUNCHES)          # read just after the run
         require(launches["paged_attention"] > 0,
@@ -1996,7 +2082,7 @@ def golden_admission(torch, mods, cfg, params):
             eng.finish_request(s)
         require(kv.blocks_in_use() == 0, f"{name}: blocks leaked")
         total = {k: total.get(k, 0) + v for k, v in launches.items()}
-        emit({"phase": "golden", "part": "admission", "engine": name,
+        line({"phase": "golden", "part": "admission", "engine": name,
               "model": cfg.name, "golden_tokens": GOLDEN_PROMPT,
               "extensions": list(GOLDEN_EXTENSIONS),
               "buckets": [eng._bucket(n) if n else 0 for n in GOLDEN_EXTENSIONS],
@@ -2008,15 +2094,16 @@ def golden_admission(torch, mods, cfg, params):
               "blocks_same_sequences_without_dedup": blocks_dups,
               "golden_stats_after_hits": stats,
               "hits_equal_duplicates_bitwise": True,
-              "tokens_equal_over_steps": GOLDEN_STEPS,
+              "tokens_equal_over_steps": GOLDEN_STEPS if all(same_decode) else None,
+              "hits_decoding_as_their_duplicates": sum(same_decode),
               "release_golden_at_step": GOLDEN_STEPS // 2,
               "launches": launches})
         del eng, kv
         torch.cuda.empty_cache()
-    return total, suffix_kernel(torch, mods, suffix_state)
+    return total, suffix_kernel(torch, mods, suffix_state, cfg, line)
 
 
-def suffix_kernel(torch, mods, s):
+def suffix_kernel(torch, mods, s, cfg, line=emit):
     """K3 at the suffix prefill's shape, on the engine's own layer-0 pools
     and the 200-token admission's table: 256 rows (200 real, lengths
     393-592, and 56 padded of length 1) reading one table, held against
@@ -2027,7 +2114,7 @@ def suffix_kernel(torch, mods, s):
     its bound, with its ms by pass (the split pass, the combine).
     ``scaled_dot_product_attention`` over the same K/V gathered dense,
     with the causal mask, is timed beside it as a yardstick."""
-    pa, pa_ref, cfg = mods["pa"], mods["pa_ref"], mods["cfg"]
+    pa, pa_ref = mods["pa"], mods["pa_ref"]
     n = max(GOLDEN_EXTENSIONS)
     pad = mods["Engine"]._bucket(n)
     lens_h = np.ones(pad, np.int32)
@@ -2091,7 +2178,8 @@ def suffix_kernel(torch, mods, s):
                fault_errors=faults, dense_sdpa_ms=dense_ms,
                device_ms_by_pass=by_pass,
                **split_report(pa, q, hkv, tables.shape[1], bs, lens_h))
-    emit({"phase": "golden", "part": "k3_suffix_shape", **out})
+    line({"phase": "golden", "part": "k3_suffix_shape", "model": cfg.name,
+          "heads": [cfg.n_heads, hkv], **out})
     return out
 
 
@@ -2689,6 +2777,411 @@ def paper_models(torch, mods, spec):
           mods)
 
 
+# -- phase 11: the rest of the decoder-only family ---------------------------
+
+
+MOE_RANGES = {"expert products": ("moe.expert_products",),
+              "shared expert": ("moe.shared_expert",),
+              "dispatch/combine": ("moe.route", "moe.aux_loss", "moe.dispatch",
+                                   "moe.combine")}
+MOE_GROUPS = {k: v for k, v in SERVE_GROUPS.items() if k != "matmul"}
+
+
+def _families(obj, mods):
+    """A phase-11 line: the card's name and power limit beside its numbers."""
+    emit({**obj, "phase": "families", "card": mods["smi"]})
+
+
+def param_breakdown(cfg) -> dict:
+    """Every parameter of ``cfg``'s model by kind: ``param_count()`` (the
+    matrices and the router), then the norms, QKV biases, qk-norm weights
+    and shared-expert gates it leaves out; ``exact`` is their sum."""
+    d, hd, n = cfg.d_model, cfg.hd, cfg.n_layers
+    parts = dict(
+        param_count=cfg.param_count(),
+        norms=n * 2 * d + d,
+        qkv_biases=n * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) if cfg.qkv_bias else 0,
+        qk_norms=n * 2 * hd if cfg.qk_norm else 0,
+        shared_gates=n * d if cfg.is_moe and cfg.n_shared_experts else 0,
+    )
+    parts["exact"] = sum(parts.values())
+    return parts
+
+
+@contextlib.contextmanager
+def moe_ranges(torch, mods, ranges):
+    """While inside, each MoE step that ``ranges`` names (``moe.<name>``)
+    runs under a ``torch.profiler.record_function`` of that name, so a
+    profile can read the device time of the kernels it launched. Nothing
+    is wrapped when ``ranges`` is None."""
+    moe = mods["moe"]
+    names = [r.removeprefix("moe.") for rs in (ranges or {}).values() for r in rs]
+    saved = {name: getattr(moe, name) for name in names}
+
+    def ranged(name, fn):
+        def call(*args):
+            with torch.profiler.record_function(f"moe.{name}"):
+                return fn(*args)
+        return call
+
+    try:
+        for name, fn in saved.items():
+            setattr(moe, name, ranged(name, fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+@contextlib.contextmanager
+def moe_inputs(mods):
+    """While inside, every ``moe_apply`` call's input (cloned) and layer
+    weights are recorded, in call order: one pass of a model gives one
+    entry a layer."""
+    moe = mods["moe"]
+    apply, seen = moe.moe_apply, []
+
+    def recording(cfg, p, x):
+        seen.append((x.clone(), p))
+        return apply(cfg, p, x)
+
+    moe.moe_apply = recording
+    try:
+        yield seen
+    finally:
+        moe.moe_apply = apply
+
+
+def attention_pair(torch, mods, cfg, s, flush):
+    """K3 and K4 on an engine's own layer-0 state (``capture_state``) at
+    ``cfg``'s heads: each held against its plain version (bf16 2e-2) and
+    the two bitwise against each other, timed beside its bound and beside
+    ``scaled_dot_product_attention`` over each row's K/V gathered dense
+    with a length mask (``dense_sdpa_ms``, a yardstick)."""
+    pa, pa_ref, _build = mods["pa"], mods["pa_ref"], mods["_build"]
+    pool_k, pool_v = s["pool_k"], s["pool_v"]
+    nb, bs, hkv, d = pool_k.shape
+    b = s["tables"].shape[0]
+    g = torch.Generator(device=DEV).manual_seed(11)
+    q = torch.randn((b, cfg.n_heads, d), generator=g, device=DEV).to(pool_k.dtype)
+    w0, cl, tn, lens = s["w0"], s["chain_lengths"], s["tenants"], s["lengths"]
+    tables_h, len_h = s["tables"].cpu().numpy(), lens.cpu().numpy()
+    nbytes, ops, kv_bytes, qo_bytes, nblk = attention_cost(
+        tables_h, len_h, bs, hkv, d, pool_k.element_size(), cfg.n_heads)
+    k4_bytes = kv_bytes + qo_bytes + walk_cost(
+        w0.cpu().numpy(), cl.cpu().numpy(), tn.cpu().numpy(), nblk,
+        mods["fmt"].FLAG_ALLOCATED_I32)
+    m = int(len_h.max())
+    blocks = s["tables"][:, : -(-m // bs)].clamp(min=0).long()
+    kd, vd = (x[blocks].reshape(b, -1, hkv, d)[:, :m].transpose(1, 2).contiguous()
+              for x in (pool_k, pool_v))
+    mask = (torch.arange(m, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+
+    def dense():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True)
+
+    runs = {
+        "paged_attention": (
+            lambda: pa.paged_attention_cuda(q, pool_k, pool_v, s["tables"], lens),
+            lambda: pa_ref.paged_attention_ref(q, pool_k, pool_v, s["tables"], lens),
+            nbytes, pa.plan(b, cfg.n_heads, hkv, s["tables"].shape[1], bs, q.dtype,
+                            pa.sm_count(q.device))),
+        "fused_chain_attention": (
+            lambda: pa.fused_chain_attention_cuda(q, pool_k, pool_v, w0, cl, tn, lens),
+            lambda: pa_ref.fused_chain_attention_ref(q, pool_k, pool_v, w0, cl, tn,
+                                                     lens),
+            k4_bytes, pa.plan(b, cfg.n_heads, hkv, w0.shape[2], bs, q.dtype,
+                              pa.sm_count(q.device))),
+    }
+    out, got = {}, {}
+    with uncounted(_build):
+        dense_ms = timed_ms(torch, dense, 50, flush)
+        for name, (kern, plain, nb_, plan) in runs.items():
+            row, got[name] = measure(torch, name, kern, plain, nb_, ops, 2e-2, flush)
+            out[name] = dict(batch=b, heads=[cfg.n_heads, hkv], head_dim=d,
+                             kv_lengths=len_h.tolist(), ms=row["ms"],
+                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                             bound_by=row["bound_by"], max_abs_err=row["max_abs_err"],
+                             dense_sdpa_ms=dense_ms, pages_per_split=plan.pages_per_split,
+                             grid=list(plan.grid))
+    require(torch.equal(got["paged_attention"][0], got["fused_chain_attention"][0]),
+            f"{cfg.name}: K3 and K4 differ on the engine's rows")
+    return out
+
+
+def moe_check(torch, mods, cfg, x, p, what):
+    """One layer's MoE input from a real pass, on the card in bf16 against
+    the CPU in f32 with that layer's weights. The card's router logits
+    (bf16) must lie within bf16's resolution of the f32 ones: 2^-7 of the
+    row's largest magnitude, plus 1e-3 for the order of the f32 sums. A
+    row whose k-th and (k+1)-th f32 logits are no further apart than twice
+    its largest logit error may rank them either way: it is a near tie,
+    counted and left out. Elsewhere the routed experts must agree, and so
+    must each (token, expert) assignment's kept or dropped status, except
+    where a near tie moved an expert's load (a cascade: that expert's
+    later tokens shift a rank); the outputs of the other rows within
+    ``MOE_REL_TOL`` relative L2."""
+    moe = mods["moe"]
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    t = x.shape[0] * x.shape[1]
+    cap = moe.capacity(t, cfg)
+
+    def run(x, p):
+        xt = x.reshape(1, t, d)
+        _, _, top_i = moe.route(cfg, p, xt)
+        slot = moe.dispatch(xt, top_i, e, cap)[1]
+        member = torch.zeros((t, e), dtype=torch.bool, device=x.device)
+        kept = torch.zeros((t, e), dtype=torch.bool, device=x.device)
+        member.scatter_(1, top_i[0], True)
+        kept.scatter_(1, top_i[0], (slot[0] < e * cap).reshape(t, k))
+        out = moe.moe_apply(cfg, p, x)[0].reshape(t, d)
+        return member.cpu(), kept.cpu(), out.float().cpu()
+
+    def f32_cpu(v):
+        if isinstance(v, dict):
+            return {n: f32_cpu(w) for n, w in v.items()}
+        return v.to("cpu").float()
+
+    p_cpu, x_cpu = f32_cpu(p), f32_cpu(x)
+    member_card, kept_card, out_card = run(x, p)
+    member_cpu, kept_cpu, out_cpu = run(x_cpu, p_cpu)
+    logits = x_cpu.reshape(t, d) @ p_cpu["router"]
+    err = ((x.reshape(t, d) @ p["router"]).float().cpu() - logits).abs().amax(-1)
+    top = logits.abs().amax(-1)
+    require(bool((err <= 2.0 ** -7 * top + 1e-3).all()),
+            f"{what}: router logits off by {float(err.max())} (largest {float(top.max())})")
+    ranked = logits.sort(dim=-1, descending=True).values
+    near = ranked[:, k - 1] - ranked[:, k] <= 2 * err
+    same = (member_card == member_cpu).all(dim=-1)
+    require(bool(same[~near].all()),
+            f"{what}: {int((~same & ~near).sum())} rows routed differently "
+            "beyond a near tie")
+    flipped = (member_card != member_cpu)[near].any(dim=0)            # (E,)
+    kept_diff = (kept_card != kept_cpu) & ~near[:, None]
+    require(not bool((kept_diff & ~flipped[None, :]).any()),
+            f"{what}: a kept/dropped assignment differs at an expert no near "
+            "tie moved")
+    cascade = kept_diff.any(dim=-1)
+    rows = ~near & ~cascade
+    want = out_cpu[rows]
+    rel = float((out_card[rows] - want).norm() / want.norm())
+    require(rel <= MOE_REL_TOL, f"{what}: MoE output relative L2 {rel}")
+    require(bool(torch.isfinite(out_card).all()), f"{what}: MoE output not finite")
+    return dict(input=what, tokens=t, capacity=cap, near_tie_rows=int(near.sum()),
+                max_logit_err=float(err.max()), max_logit=float(top.max()),
+                cascade_rows=int(cascade.sum()), rows_compared=int(rows.sum()),
+                rel_l2=rel, max_abs_err=float((out_card[rows] - want).abs().max()),
+                rel_tol=MOE_REL_TOL,
+                dropped_card=int((member_card & ~kept_card).sum()),
+                dropped_cpu=int((member_cpu & ~kept_cpu).sum()))
+
+
+def dropped_assignments(torch, mods, cfg, inputs):
+    """Dropped (token, k) assignments in each layer of one pass (untimed)."""
+    moe = mods["moe"]
+    out = []
+    for x, p in inputs:
+        t = x.shape[0] * x.shape[1]
+        cap = moe.capacity(t // cfg.dispatch_groups, cfg)
+        xt = x.reshape(cfg.dispatch_groups, -1, cfg.d_model)
+        slot = moe.dispatch(xt, moe.route(cfg, p, xt)[2], cfg.n_experts, cap)[1]
+        out.append(int((slot == cfg.n_experts * cap).sum()))
+    return out
+
+
+def _init_full(torch, mods, cfg):
+    """``cfg``'s bf16 weights drawn on the card from seed 0, every parameter
+    counted: (params, the init line's numbers)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mods["init_params"](cfg, torch.Generator(device=DEV).manual_seed(0),
+                                 device=DEV, dtype=mods["layers"].COMPUTE_DTYPE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    parts = param_breakdown(cfg)
+    n = sum(x.numel() for x in leaves)
+    require(n == parts["exact"], f"{cfg.name}: {n} parameters, {parts['exact']} "
+            "expected")
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    # a decode step reads every weight but the embedding table (a row a token)
+    read = nbytes - params["embed"].numel() * params["embed"].element_size()
+    return params, dict(model=cfg.name, n_layers=cfg.n_layers, params=n, **parts,
+                        weights_GB=nbytes / 1e9, init_seconds=init_s,
+                        init_peak_GB=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                        init_extra_GB=(torch.cuda.max_memory_allocated() - base
+                                       - nbytes) / 1e9,
+                        weight_read_bound_ms=1e3 * read / HBM_BYTES_PER_S)
+
+
+def _prompts(cfg):
+    """Phase 4's prompt lengths, ids drawn from ``cfg``'s vocabulary."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=n) for n in PROMPT_LENGTHS]
+
+
+def moe_serve(torch, mods, flush):
+    """11b: Qwen2-MoE-A2.7B at full width and depth on the four engines,
+    K3/K4 at its state and the long context, golden admission, the drops
+    at the suffix bucket and the full-width MoE check. Returns the main
+    paths' launches and K3/K4's shapes."""
+    cfg = mods["get_config"](MOE_ARCH)
+    prompts = _prompts(cfg)                     # phase 4's: the same vocabulary
+    params, init = _init_full(torch, mods, cfg)
+    _families({"part": "init", **init}, mods)
+    tag = {"phase": "families", "card": mods["smi"], "model": cfg.name}
+    results, state = serve_phase(torch, mods, cfg, params, prompts, tag=tag,
+                                 groups=MOE_GROUPS, ranges=MOE_RANGES)
+    launches = collections.Counter()
+    for r in results.values():
+        launches.update(r["launches"])
+    shapes = {"engine_state": attention_pair(torch, mods, cfg, state, flush)}
+    del state
+    long = long_context(torch, mods, flush, cfg=cfg,
+                        line=lambda o: _families({**o, "part": "long_context"}, mods))
+    admitted, suffix = golden_admission(torch, mods, cfg, params,
+                                        line=lambda o: _families(o, mods))
+    launches.update(admitted)
+
+    # one decode step (the padded 8 rows) and the 200-token admission (the
+    # 256-row bucket) again, their MoE inputs recorded; a check's launches
+    with uncounted(mods["_build"]):
+        eng = _engine(mods, cfg, params, scalable=False, path="tables")
+        sids = [eng.add_request(p) for p in prompts]
+        eng.fork_request(sids[0])
+        eng.fork_request(sids[1])
+        with moe_inputs(mods) as decode:
+            eng.step()
+        rng = np.random.default_rng(9)          # golden_admission's prompts
+        golden = rng.integers(0, cfg.vocab_size, GOLDEN_PROMPT)
+        tail = rng.integers(0, cfg.vocab_size, max(GOLDEN_EXTENSIONS))
+        gsid = eng.register_golden(golden)
+        with moe_inputs(mods) as admit:
+            eng.add_request(np.concatenate([golden, tail]))
+        require(eng.golden_hits == 1, "the extension did not fork the golden")
+        eng.release_golden(gsid)
+        for s in sorted(eng.active):
+            eng.finish_request(s)
+        require(eng.kv.blocks_in_use() == 0, "capture engine: blocks leaked")
+        del eng
+        require(len(decode) == len(admit) == cfg.n_layers, "one MoE input a layer")
+        require(tuple(decode[0][0].shape[:2]) == (8, 1)
+                and tuple(admit[0][0].shape[:2]) == (1, 256), "captured shapes")
+        drops = {"decode_8_rows": dropped_assignments(torch, mods, cfg, decode),
+                 "suffix_256_rows": dropped_assignments(torch, mods, cfg, admit)}
+        _families({"part": "drops", "model": cfg.name, "top_k": cfg.top_k,
+                   "capacity": {"decode_8_rows": mods["moe"].capacity(8, cfg),
+                                "suffix_256_rows": mods["moe"].capacity(256, cfg)},
+                   "assignments_per_layer": {"decode_8_rows": 8 * cfg.top_k,
+                                             "suffix_256_rows": 256 * cfg.top_k},
+                   "dropped_by_layer": drops,
+                   "dropped_total": {k: sum(v) for k, v in drops.items()}}, mods)
+        for what, inputs in (("decode_8_rows", decode), ("suffix_256_rows", admit)):
+            x, p = inputs[MOE_CHECK_LAYER]
+            _families({"part": "moe_check", "model": cfg.name,
+                       "layer": MOE_CHECK_LAYER,
+                       **moe_check(torch, mods, cfg, x, p, what)}, mods)
+        del decode, admit
+    del params
+    torch.cuda.empty_cache()
+    shapes["long_context"] = long
+    return launches, shapes, suffix
+
+
+def dense_family(torch, mods, flush):
+    """11c: each of ``FAMILY_DEPTHS`` at full width (the depth cut where
+    the model does not fit one card whole) on a vanilla engine of 256
+    blocks, tables then fused path, 8 timed steps each: the same tokens
+    on both paths, ms a step, and K3/K4 at its head layout. Returns the
+    runs' launches and K3/K4's shapes."""
+    _build, Engine = mods["_build"], mods["Engine"]
+    launches, shapes = collections.Counter(), {}
+    for arch, depth in FAMILY_DEPTHS:
+        full = mods["get_config"](arch)
+        cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+        prompts = _prompts(cfg)
+        params, init = _init_full(torch, mods, cfg)
+        tokens, state, per_path = {}, None, {}
+        for path in ("tables", "fused"):
+            _build.reset_launches()
+            eng = Engine(cfg, params, scalable=False, n_blocks=FAMILY_POOL,
+                         block_size=16, max_blocks_per_seq=128, resolver="auto",
+                         decode_path=path)
+            sids = [eng.add_request(p) for p in prompts]
+            eng.fork_request(sids[0])
+            eng.fork_request(sids[1])
+            eng.step()                                  # warm-up
+            ms = []
+            for _ in range(FAMILY_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                eng.step()
+                b.record()
+                b.synchronize()
+                ms.append(a.elapsed_time(b))
+            run = dict(_build.LAUNCHES)                 # read just after the run
+            attn = "paged_attention" if path == "tables" else "fused_chain_attention"
+            for kname in ("resolve_vanilla_fleet", "resolve_direct_fleet", attn):
+                require(run[kname] > 0, f"{arch} {path}: {kname} never launched")
+            launches.update(run)
+            tokens[path] = {s: list(t) for s, t in eng.active.items()}
+            if path == "fused":
+                state = capture_state(torch, eng)
+            batch = len(eng.active)
+            for s in sorted(eng.active):
+                eng.finish_request(s)
+            require(eng.kv.blocks_in_use() == 0, f"{arch} {path}: blocks leaked")
+            per_path[path] = dict(ms_per_step=float(np.mean(ms)),
+                                  ms_min=float(np.min(ms)), ms_max=float(np.max(ms)),
+                                  tokens_per_s=batch * 1000.0 / float(np.mean(ms)),
+                                  launches=run)
+            del eng
+        require(tokens["tables"] == tokens["fused"],
+                f"{arch}: tables and fused paths emitted different tokens")
+        pair = attention_pair(torch, mods, cfg, state, flush)
+        shapes[arch] = pair
+        _families({"part": "dense", **init, "of_layers": full.n_layers,
+                   "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+                   "pool_blocks": FAMILY_POOL, "batch": batch,
+                   "steps_timed": FAMILY_STEPS, "paths": per_path,
+                   "tables_equal_fused_tokens": True,
+                   "k3_ms": pair["paged_attention"]["ms"],
+                   "k4_ms": pair["fused_chain_attention"]["ms"],
+                   "k3_bound_ms": pair["paged_attention"]["bound_ms"],
+                   "dense_sdpa_ms": pair["paged_attention"]["dense_sdpa_ms"]}, mods)
+        del params, state
+        torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def families_phase(torch, mods, flush):
+    """11: (a) the smoke configs of ``FAMILY_SMOKE`` card against CPU, (b)
+    Qwen2-MoE-A2.7B at full width, (c) the dense variants. Returns the
+    main paths' launches and K3/K4's shapes by model."""
+    t0 = time.perf_counter()
+    for arch in FAMILY_SMOKE:
+        reference_phase(torch, mods, arch, golden=mods["smoke_config"](arch).is_moe,
+                        line=lambda o: _families({**o, "part": "reference"}, mods))
+    _families({"part": "reference", "seconds": time.perf_counter() - t0}, mods)
+    t0 = time.perf_counter()
+    launches, moe_shapes, suffix = moe_serve(torch, mods, flush)
+    _families({"part": "moe", "seconds": time.perf_counter() - t0}, mods)
+    t0 = time.perf_counter()
+    dense_launches, dense_shapes = dense_family(torch, mods, flush)
+    _families({"part": "dense", "seconds": time.perf_counter() - t0}, mods)
+    launches.update(dense_launches)
+    shapes = {name: {MOE_ARCH: {"engine_state": moe_shapes["engine_state"][name],
+                                "long_context": moe_shapes["long_context"][name]},
+                     **{arch: pair[name] for arch, pair in dense_shapes.items()}}
+              for name in ("paged_attention", "fused_chain_attention")}
+    shapes["paged_attention"][MOE_ARCH]["suffix_shape"] = suffix
+    return launches, shapes
+
+
 def main() -> int:
     import torch
 
@@ -2718,7 +3211,7 @@ def main() -> int:
     from repro_torch.core.invariants import (check_fleet_invariants,
                                              check_kv_invariants)
     from repro_torch.core.scheduler import MaintenanceScheduler
-    from repro_torch.models import layers
+    from repro_torch.models import layers, moe
     from repro_torch.models.transformer import init_params, prefill
     from repro_torch.serve.engine import Engine
 
@@ -2749,7 +3242,7 @@ def main() -> int:
                 check_kv_invariants=check_kv_invariants, migrate=migrate,
                 GoldenRegistry=GoldenRegistry, metrics=metrics, cache=cache,
                 resolve=resolve, ckpt=snapstore_ckpt, paper_chain=paper_chain,
-                smi=smi)
+                smi=smi, get_config=get_config, moe=moe)
 
     # 3. smoke-size reference: the card against the plain versions on the CPU
     t0 = time.perf_counter()
@@ -2769,9 +3262,8 @@ def main() -> int:
     require(tuple(logits.shape) == (1, cfg.vocab_size), "prefill logits shape")
     require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     n_params = sum(x.numel() for x in _leaves(params))
-    require(n_params == cfg.param_count() + cfg.n_layers * (
-        2 * cfg.d_model + cfg.hd * (cfg.n_heads + 2 * cfg.n_kv_heads)) + cfg.d_model,
-        "parameter count of the full-width model")
+    require(n_params == param_breakdown(cfg)["exact"],
+            "parameter count of the full-width model")
     emit({"phase": "serve", "model": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params,
           "param_dtype": str(layers.COMPUTE_DTYPE),
@@ -2824,29 +3316,49 @@ def main() -> int:
     # 10. the paper's evaluation plane: Fig 17 on a checkpoint chain, the
     # cache model on phase 6's disks, Fig 12 and Eq. 2
     t0 = time.perf_counter()
-    _paper({"held_GB_at_start": torch.cuda.memory_allocated() / 1e9}, mods)
+    held = torch.cuda.memory_allocated()
+    gc.collect()        # tensors of earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    _paper({"held_GB_at_start": torch.cuda.memory_allocated() / 1e9,
+            "held_GB_before_collect": held / 1e9}, mods)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     paper_launches, ckpt_shapes = checkpoint_phase(torch, mods, cfg, flush)
     cache_phase(torch, mods, disk_indexes)
     paper_models(torch, mods, disk_indexes["disks"]["vanilla"]["spec"])
-    del disk_indexes, flush
+    del disk_indexes
     _paper({"seconds": time.perf_counter() - t0}, mods)
 
+    # 11. the rest of the decoder-only family: the smoke configs card
+    # against CPU, Qwen2-MoE-A2.7B at full width, the dense variants
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _families({"part": "start",
+               "held_GB_at_start": torch.cuda.memory_allocated() / 1e9,
+               "held_GB_before_collect": held / 1e9}, mods)
+    family_launches, family_shapes = families_phase(torch, mods, flush)
+    del flush
+    _families({"part": "end", "seconds": time.perf_counter() - t0}, mods)
+
     # launches on the main paths: the engines' runs, both store depths,
-    # both fleets, the maintenance runs and the golden and migration runs
-    # (each counted from zero just before its run)
+    # both fleets, the maintenance runs, the golden and migration runs and
+    # phase 11's engines (each counted from zero just before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
                    + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
                                               disk_launches, maint_launches,
                                               serve8_launches,
                                               golden_fleet_launches,
                                               admission_launches,
-                                              seqmig_launches, paper_launches))
+                                              seqmig_launches, paper_launches,
+                                              family_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
     rows[1]["fleet_shape"] = fleet_shapes["k2_fleet_shape"]   # K2's row
     rows[2]["suffix_shape"] = suffix_row                      # K3's row
+    rows[2]["families"] = family_shapes["paged_attention"]    # phase 11
+    rows[3]["families"] = family_shapes["fused_chain_attention"]
     rows += fleet_rows + store_rows + merge_rows
     for row in rows:                      # the checkpoint chain's shapes
         if row["name"] in ckpt_shapes:

@@ -1,15 +1,30 @@
 """Arch registry of the port: ``get_config(arch_id)`` and smoke-reduced
-variants. This slice serves one model, qwen2.5-3b; the other families of
-``repro.configs`` arrive with their model code."""
+variants, for the decoder-only transformers of ``repro.configs`` (the
+dense and MoE families); the SSM, hybrid and encoder-decoder configs
+arrive with their model code."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen2_5_3b
+from repro_torch.configs import (
+    chameleon_34b,
+    nemotron_4_15b,
+    phi3_5_moe,
+    qwen2_5_3b,
+    qwen2_7b,
+    qwen2_72b,
+    qwen2_moe_a2_7b,
+)
 from repro_torch.configs.base import ModelConfig
 
-_REGISTRY = {c.CONFIG.name: c.CONFIG for c in (qwen2_5_3b,)}
+_REGISTRY = {
+    c.CONFIG.name: c.CONFIG
+    for c in (
+        qwen2_72b, qwen2_5_3b, nemotron_4_15b, qwen2_7b, chameleon_34b,
+        qwen2_moe_a2_7b, phi3_5_moe,
+    )
+}
 
 
 def list_archs() -> list[str]:
@@ -25,15 +40,15 @@ def get_config(arch: str) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """A reduced same-family config for CPU smoke tests — the same rule as
-    ``repro.configs.smoke_config``: small widths, depth and vocab, with
-    every structural feature kept (GQA ratio, bias, activation)."""
+    ``repro.configs.smoke_config``: small widths, depth and vocab, few
+    experts, with every structural feature kept (GQA ratio, bias,
+    activation, qk-norm, MoE topology)."""
     c = get_config(arch)
     kv = max(1, min(c.n_kv_heads, 2 if c.n_kv_heads < c.n_heads else 4))
     heads = 4 if c.n_heads != c.n_kv_heads else kv
     if c.n_heads == c.n_kv_heads:
         heads = kv = 4
-    return dataclasses.replace(
-        c,
+    updates = dict(
         n_layers=min(c.n_layers, 2),
         d_model=64,
         n_heads=heads,
@@ -42,3 +57,7 @@ def smoke_config(arch: str) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
     )
+    if c.is_moe:
+        updates.update(n_experts=4, top_k=min(c.top_k, 2), moe_d_ff=32,
+                       n_shared_experts=min(c.n_shared_experts, 1))
+    return dataclasses.replace(c, **updates)

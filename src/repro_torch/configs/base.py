@@ -28,8 +28,16 @@ class ModelConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    n_experts: int = 0          # MoE layers arrive in a later slice
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
     use_rope: bool = True
+    # run-time knobs, as in the JAX package
+    dispatch_groups: int = 1    # MoE dispatch groups (each with its capacity)
+    cache_f32: bool = False     # storage dtype of the plain decode KV cache
 
     @property
     def hd(self) -> int:
@@ -40,10 +48,32 @@ class ModelConfig:
         return self.n_experts > 0
 
     def param_count(self) -> int:
-        """Approximate parameter count of a dense decoder (matrices only,
-        as ``repro.configs.base.ModelConfig.param_count``)."""
+        """Approximate parameter count of a decoder (matrices and the
+        router; no norms, biases or shared-expert gate), as
+        ``repro.configs.base.ModelConfig.param_count`` for the dense and
+        MoE families."""
         d, hd = self.d_model, self.hd
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        per = attn + (3 if self.gated_mlp else 2) * d * self.d_ff
+        if self.is_moe:
+            mlp = (3 if self.gated_mlp else 2) * d * self.moe_d_ff
+            routed = self.n_experts * mlp
+            shared = self.n_shared_experts * mlp
+            router = d * self.n_experts
+            blocks = self.n_layers * (attn + routed + shared + router)
+        else:
+            mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+            blocks = self.n_layers * (attn + mlp)
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return self.n_layers * per + embed
+        return blocks + embed
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k + shared)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        mlp = (3 if self.gated_mlp else 2) * d * self.moe_d_ff
+        active = self.n_layers * (
+            self.hd * d * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * self.hd * d
+            + (self.top_k + self.n_shared_experts) * mlp + d * self.n_experts
+        )
+        return active + self.vocab_size * d * (1 if self.tie_embeddings else 2)

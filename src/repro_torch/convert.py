@@ -21,9 +21,13 @@ from repro_torch.device import as_device
 def params_from_jax(tree, device="cuda", dtype=None):
     """The JAX params pytree as numpy — ``embed``, ``ln_f``, ``w_out`` and
     ``layers`` stacked on a leading L axis with ``ln1``, ``ln2``,
-    ``attn.{wq,wk,wv,wo,bq,bk,bv}``, ``ff.{w_up,w_gate,w_down}`` — as the
-    port's params on ``device`` (leaves keep their dtype unless ``dtype``
-    is given)."""
+    ``attn.{wq,wk,wv,wo}`` (and ``bq,bk,bv`` with a QKV bias, ``q_norm,
+    k_norm`` with qk-norm), and ``ff.{w_up,w_gate,w_down}`` (no
+    ``w_gate`` in an ungated MLP) or, in a MoE layer, ``ff.{router,
+    e_gate,e_up,e_down}`` (the experts (L, E, ...)) with
+    ``ff.shared.{w_gate,w_up,w_down}`` and ``ff.shared_gate`` where the
+    config has shared experts — as the port's params on ``device`` (leaves
+    keep their dtype unless ``dtype`` is given)."""
     dev = as_device(device)
 
     def conv(x):

@@ -1,3 +1,3 @@
-"""Model code: the dense transformer of this slice."""
+"""Model code: the decoder-only transformers (dense and MoE)."""
 
 from repro_torch.models.api import LM, get_model  # noqa: F401

@@ -1,14 +1,19 @@
 """Uniform LM interface (PyTorch port of ``repro.models.api``).
 
-This slice serves the ``dense`` family; ``get_model`` raises for the
-families whose model code arrives in later slices.
+The port serves the decoder-only transformers, the ``dense`` and ``moe``
+families, through ``init``, ``prefill``, ``init_cache`` and
+``decode_step``; ``get_model`` raises for the SSM, hybrid and
+encoder-decoder families, whose model code is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import transformer
 
 
@@ -16,16 +21,23 @@ from repro_torch.models import transformer
 class LM:
     cfg: ModelConfig
 
+    def init(self, generator: torch.Generator, device="cuda",
+             dtype=L.PARAM_DTYPE):
+        return transformer.init_params(self.cfg, generator, device, dtype)
+
+    def init_cache(self, batch: int, max_seq: int, device="cuda"):
+        return transformer.init_cache(self.cfg, batch, max_seq, device)
+
     def prefill(self, params, batch):
         return transformer.prefill(self.cfg, params, batch["tokens"])
 
+    def decode_step(self, params, cache, tokens):
+        return transformer.decode_step(self.cfg, params, cache, tokens)
+
 
 def get_model(cfg: ModelConfig) -> LM:
-    if cfg.family == "moe" or cfg.is_moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            "MoE (models/moe.py) is ported in a later slice of the port")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; this slice "
-            "serves dense transformers")
+            f"model family {cfg.family!r} is not ported yet; the port serves "
+            "the decoder-only transformers (dense and moe)")
     return LM(cfg)

@@ -30,7 +30,7 @@ PARAM_DTYPE = torch.float32
 
 def _normal(generator: torch.Generator, shape, scale: float, dtype, device):
     x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * scale).to(device=as_device(device), dtype=dtype)
+    return x.mul_(scale).to(device=as_device(device), dtype=dtype)
 
 
 def dense_init(generator, d_in, d_out, *, scale=None, dtype=PARAM_DTYPE,
@@ -81,14 +81,61 @@ def apply_rope(x, positions, theta: float = 1e4):
 # activations
 # ---------------------------------------------------------------------------
 
+def _f32(c: float) -> float:
+    return float(torch.tensor(c, dtype=torch.float32))
+
+
+# XLA's f32 tanh (Eigen's rational approximation, its multiply-adds fused),
+# which jax.nn.gelu's tanh lowers to; torch.tanh differs from it by an ulp
+# on about a third of f32 inputs. Coefficients as the f32 constants they are
+_TANH_CLAMP = 7.99881172180175781
+_TANH_NUM = tuple(map(_f32, (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03)))
+_TANH_DEN = tuple(map(_f32, (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03)))
+
+
+def _tanh(x):
+    """tanh as XLA computes it on the CPU: in f32, rounded to ``x``'s dtype.
+    Each fused multiply-add is one f64 multiply-add rounded to f32 (the
+    product of two f32 is exact in f64)."""
+    x32 = x.float()
+    xc = x32.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = (xc * xc).double()
+
+    def poly(coeffs):
+        acc = torch.full_like(x32, coeffs[0])
+        for c in coeffs[1:]:
+            acc = (x2 * acc.double() + c).float()
+        return acc
+
+    out = xc * poly(_TANH_NUM) / poly(_TANH_DEN)
+    return torch.where(x32.abs() < 0.0004, x32, out).to(x.dtype)
+
+
+def _gelu(x):
+    """jax.nn.gelu's default (tanh) form, op by op in ``x``'s dtype with its
+    constants rounded to that dtype first, as XLA evaluates it (the erf
+    form of ``F.gelu`` is another function)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32).to(x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + _tanh(c * (x + k * (x * x * x)))))
+
+
 def activation_fn(name: str):
     if name == "silu":
         # jax.nn.silu is x * logistic(x), and XLA expands logistic into
         # 1 / (1 + exp(-x)), rounding to the compute dtype after each op;
         # the same ops here give the same bf16 bits (F.silu rounds once)
         return lambda x: x * (1 / (1 + torch.exp(-x)))
-    raise ValueError(f"activation {name!r} arrives with its model family "
-                     "in a later slice of the port")
+    if name == "gelu":
+        return _gelu
+    if name == "relu2":  # nemotron-4 squared ReLU
+        return lambda x: torch.square(torch.relu(x))
+    raise ValueError(f"unknown activation {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -137,12 +184,19 @@ def attention_ref(q, k, v, *, causal: bool, kv_len=None, q_chunk: int = 1024):
     return torch.cat(outs, dim=1)
 
 
+def decode_attention_ref(q, k_cache, v_cache, kv_len):
+    """Single-position attention against a (possibly oversized) KV cache.
+
+    q: (B, 1, H, D); caches: (B, S, Hkv, D); kv_len: the valid prefix."""
+    return attention_ref(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+
+
 # ---------------------------------------------------------------------------
 # attention block parameters
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias,
-              n_layers_scale=1, dtype=PARAM_DTYPE, device="cuda"):
+              qk_norm=False, n_layers_scale=1, dtype=PARAM_DTYPE, device="cuda"):
     kw = dict(dtype=dtype, device=as_device(device))
     p = dict(
         wq=dense_init(generator, d_model, n_heads * head_dim, **kw),
@@ -155,6 +209,9 @@ def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias,
         p["bq"] = torch.zeros((n_heads * head_dim,), **kw)
         p["bk"] = torch.zeros((n_kv_heads * head_dim,), **kw)
         p["bv"] = torch.zeros((n_kv_heads * head_dim,), **kw)
+    if qk_norm:
+        p["q_norm"] = torch.ones((head_dim,), **kw)
+        p["k_norm"] = torch.ones((head_dim,), **kw)
     return p
 
 
@@ -173,6 +230,11 @@ def attn_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, *, rope_theta,
     q = q.reshape(b, s, n_heads, head_dim)
     k = k.reshape(b, s, n_kv_heads, head_dim)
     v = v.reshape(b, s, n_kv_heads, head_dim)
+    if "q_norm" in p:
+        # after the bias, before rope, at rmsnorm's default eps (not the
+        # config's norm_eps), as the JAX package
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)

@@ -1,10 +1,19 @@
-"""Decoder-only dense transformer (PyTorch port of ``repro.models.transformer``).
+"""Decoder-only transformer, dense GQA and MoE (PyTorch port of
+``repro.models.transformer``).
+
+Covers qwen2-72b/7b, qwen2.5-3b, nemotron-4-15b (squared-ReLU, ungated),
+chameleon-34b (qk-norm), qwen2-moe-a2.7b and phi3.5-moe-42b-a6.6b
+(``cfg.is_moe`` → the routed FF of ``models.moe``).
 
 Parameters keep the JAX package's layout: a dict with ``embed``, ``ln_f``,
 ``w_out`` and ``layers``, whose leaves are stacked along a leading L axis
-(``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo,bq,bk,bv}``, ``ff.{w_up,w_gate,
-w_down}``). The JAX scan over layers becomes a Python loop over
-``layer(params["layers"], i)`` views. MoE layers arrive in a later slice.
+(``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo,bq,bk,bv,q_norm,k_norm}``, and
+``ff.{w_up,w_gate,w_down}`` or the MoE's ``ff.{router,e_gate,e_up,e_down,
+shared.{w_gate,w_up,w_down},shared_gate}``). The JAX scan over layers
+becomes a Python loop over ``layer(params["layers"], i)`` views. The
+plain decode path (``init_cache``, ``decode_step``) keeps a dense
+(L, B, S, Hkv, D) cache per request; serving reads a paged pool instead
+(``serve.paged_decode``).
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 
 def layer(stacked: dict, i: int) -> dict:
@@ -22,11 +32,31 @@ def layer(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
-def _stack(per_layer: list[dict]) -> dict:
-    first = per_layer[0]
-    return {k: _stack([p[k] for p in per_layer]) if isinstance(first[k], dict)
-            else torch.stack([p[k] for p in per_layer])
-            for k in first}
+def _empty_stack(p: dict, n: int) -> dict:
+    return {k: _empty_stack(v, n) if isinstance(v, dict)
+            else v.new_empty((n,) + tuple(v.shape)) for k, v in p.items()}
+
+
+def _put(stacked: dict, p: dict, i: int) -> None:
+    for k, v in p.items():
+        if isinstance(v, dict):
+            _put(stacked[k], v, i)
+        else:
+            stacked[k][i] = v
+
+
+def _stacked(draw, n: int) -> dict:
+    """``n`` calls of ``draw()`` stacked along a leading axis. Each leaf is
+    allocated once at (n, ...) and filled as its layer is drawn, so no
+    stacked leaf exists twice (a list of layers and its ``torch.stack``):
+    the init's peak is the model plus one layer's or one leaf's draws."""
+    out = None
+    for i in range(n):
+        p = draw()
+        if out is None:
+            out = _empty_stack(p, n)
+        _put(out, p, i)
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
@@ -36,28 +66,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     ``dtype``. The JAX package keeps f32 parameters and casts them to the
     compute dtype at every use; passing ``dtype=L.COMPUTE_DTYPE`` casts
     once here instead, which gives the same values at use."""
-    if cfg.is_moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            "MoE layers (models/moe.py) are ported in a later slice")
+            f"model family {cfg.family!r} is not ported yet; the port "
+            "serves the decoder-only transformers (dense and moe)")
     dev = as_device(device)
     kw = dict(dtype=dtype, device=dev)
 
     def layer_init():
-        return dict(
+        p = dict(
             ln1=torch.ones((cfg.d_model,), **kw),
             ln2=torch.ones((cfg.d_model,), **kw),
             attn=L.attn_init(generator, cfg.d_model, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, qkv_bias=cfg.qkv_bias,
-                             n_layers_scale=cfg.n_layers, **kw),
-            ff=L.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                          gated=cfg.gated_mlp, n_layers_scale=cfg.n_layers,
-                          **kw),
+                             qk_norm=cfg.qk_norm, n_layers_scale=cfg.n_layers,
+                             **kw),
         )
+        if cfg.is_moe:
+            p["ff"] = moe_lib.moe_init(cfg, generator, **kw)
+        else:
+            p["ff"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                 gated=cfg.gated_mlp,
+                                 n_layers_scale=cfg.n_layers, **kw)
+        return p
 
     params = dict(
         embed=L.embed_init(generator, cfg.vocab_size, cfg.d_model, **kw),
         ln_f=torch.ones((cfg.d_model,), **kw),
-        layers=_stack([layer_init() for _ in range(cfg.n_layers)]),
+        layers=_stacked(layer_init, cfg.n_layers),
     )
     if not cfg.tie_embeddings:
         params["w_out"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
@@ -79,8 +115,16 @@ def embed_tokens(params, tokens):
     return table.to(L.COMPUTE_DTYPE)[ids]
 
 
+def ff(cfg: ModelConfig, p_ff, h):
+    """The block's feed-forward: (out, aux); a dense MLP's aux is 0.0 (a
+    Python float: no device op a layer)."""
+    if cfg.is_moe:
+        return moe_lib.moe_apply(cfg, p_ff, h)
+    return L.mlp_apply(p_ff, h, cfg.activation), 0.0
+
+
 def block_fwd(cfg: ModelConfig, p, x, positions):
-    """Full-sequence (prefill) block. Returns (x, k, v)."""
+    """Full-sequence (prefill) block. Returns (x, k, v, aux)."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          positions, rope_theta=cfg.rope_theta,
@@ -89,22 +133,65 @@ def block_fwd(cfg: ModelConfig, p, x, positions):
     attn = attn.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.hd)
     x = x + attn @ p["attn"]["wo"].to(x.dtype)
     h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["ff"], h2, cfg.activation)
-    return x, k, v
+    ff_out, aux = ff(cfg, p["ff"], h2)
+    return x + ff_out, k, v, aux
+
+
+def block_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int):
+    """One-token block. x: (B, 1, d); caches (B, S, Hkv, D), written at
+    ``pos`` in place; attends over positions ``<= pos``."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         positions, rope_theta=cfg.rope_theta,
+                         use_rope=cfg.use_rope)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    attn = L.decode_attention_ref(q, k_cache, v_cache, pos + 1)
+    attn = attn.reshape(x.shape[0], 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    x = x + attn @ p["attn"]["wo"].to(x.dtype)
+    h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    ff_out, _ = ff(cfg, p["ff"], h2)
+    return x + ff_out
 
 
 def prefill(cfg: ModelConfig, params, tokens):
     """tokens: (B, S). Returns (last-position logits (B, V) f32, cache)
-    with cache ``k``/``v`` of shape (L, B, S, Hkv, D)."""
+    with cache ``k``/``v`` of shape (L, B, S, Hkv, D) and ``pos`` S."""
     b, s = tokens.shape
     x = embed_tokens(params, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = block_fwd(cfg, layer(params["layers"], i), x, positions)
+        x, k, v, _ = block_fwd(cfg, layer(params["layers"], i), x, positions)
         ks.append(k)
         vs.append(v)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = (x[:, -1] @ output_matrix(cfg, params).to(x.dtype)).float()
     cache = dict(k=torch.stack(ks), v=torch.stack(vs), pos=s)
     return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
+    """An empty plain decode cache: ``k``/``v`` (L, B, max_seq, Hkv, D) in
+    f32 where ``cfg.cache_f32`` says so, else the compute dtype; ``pos`` 0."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    dt = torch.float32 if cfg.cache_f32 else L.COMPUTE_DTYPE
+    dev = as_device(device)
+    return dict(k=torch.zeros(shape, dtype=dt, device=dev),
+                v=torch.zeros(shape, dtype=dt, device=dev), pos=0)
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """tokens: (B, 1), every row at ``cache["pos"]``. Returns (logits (B, V)
+    f32, cache): the new cache holds the same ``k``/``v`` tensors, written
+    at ``pos`` in place, and ``pos + 1``."""
+    pos = int(cache["pos"])
+    x = embed_tokens(params, tokens)
+    for i in range(cfg.n_layers):
+        x = block_decode(cfg, layer(params["layers"], i), x, cache["k"][i],
+                         cache["v"][i], pos)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = (x[:, 0] @ output_matrix(cfg, params).to(x.dtype)).float()
+    return logits, dict(k=cache["k"], v=cache["v"], pos=pos + 1)

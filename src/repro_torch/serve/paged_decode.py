@@ -1,4 +1,4 @@
-"""Paged decode step for dense transformers (PyTorch port of
+"""Paged decode step for dense and MoE transformers (PyTorch port of
 ``repro.serve.paged_decode``).
 
 Reads K/V through *direct block tables* (``paged_decode_step``) or
@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import embed_tokens, layer, output_matrix
+from repro_torch.models.transformer import embed_tokens, ff, layer, output_matrix
 
 
 def _layers(cfg: ModelConfig, params, pool_k, pool_v, x, positions, write_at,
@@ -32,8 +32,10 @@ def _layers(cfg: ModelConfig, params, pool_k, pool_v, x, positions, write_at,
     decode step: R sequences of one token each; a suffix prefill: one row
     of N tokens). Per layer: project, scatter the R·N new K/V rows at
     ``write_at = (blocks, offsets)`` (each (R·N,)), then attend through
-    ``attend(q, pk, pv)`` with the R·N queries on its batch axis, MLP.
-    Returns the final hidden state."""
+    ``attend(q, pk, pv)`` with the R·N queries on its batch axis, then the
+    feed-forward (an MLP, or the MoE over all R·N rows: padded rows are
+    routed and take expert capacity, as in the JAX package). Returns the
+    final hidden state."""
     r, n = x.shape[:2]
     blk, off = write_at
     for i in range(cfg.n_layers):
@@ -48,7 +50,7 @@ def _layers(cfg: ModelConfig, params, pool_k, pool_v, x, positions, write_at,
         attn = attend(q.flatten(0, 1).to(L.COMPUTE_DTYPE).contiguous(), pk, pv)
         x = x + attn.reshape(r, n, -1).to(x.dtype) @ p["attn"]["wo"].to(x.dtype)
         h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(p["ff"], h2, cfg.activation)
+        x = x + ff(cfg, p["ff"], h2)[0]
     return L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 

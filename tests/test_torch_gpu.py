@@ -641,3 +641,60 @@ def test_cache_simulators_on_card_equal_cpu(cuda, n_slots):
             got = sim(on_card, reqs.to(cuda), n_slots)
             for field, w, x in zip(want._fields, want, got):
                 assert x.is_cuda and torch.equal(x.cpu(), w), (sim.__name__, field)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(16, 16), (28, 4), (48, 8), (64, 8)])
+def test_attention_kernels_at_the_family_head_layouts(cuda, dtype, h, hkv):
+    """K3 and K4 at the head layouts of the decoder-only configs, head dim
+    128 and pages of 16: Qwen2-MoE's 16 over 16 (group 1: one query head
+    in the mma's 16 rows), Qwen2-7B's 28 over 4 (group 7), Nemotron-4's
+    48 over 8 (group 6), Qwen2-72B's and Chameleon's 64 over 8 (group 8);
+    a length-0 row, a partial page, a split boundary and a full row."""
+    rng = np.random.default_rng(h * hkv)
+    args = lengths_case(rng, [0, 17, 300, 2048], h, hkv, 128, 16, 128, 512,
+                        dtype, cuda)
+    got = pa.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    _close_to_plain(got, pa_ref.paged_attention_ref(*args), dtype)
+    assert torch.count_nonzero(got[0]) == 0
+    args = fused_case(rng, 4, 6, 128, 4, 512, 16, h, hkv, 128, dtype, cuda,
+                      density=0.55)
+    got = pa.fused_chain_attention_cuda(*args)
+    torch.cuda.synchronize()
+    _close_to_plain(got, pa_ref.fused_chain_attention_ref(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_apply_on_card_equals_cpu(cuda, arch, dtype):
+    """``moe_apply`` of a smoke config on the card against the CPU on the
+    same weights and tokens (64 tokens in two dispatch groups, capacity
+    drops included): the same routing and drops, outputs within the
+    dtype's tolerance, the same aux loss."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(smoke_config(arch), dispatch_groups=2,
+                              capacity_factor=0.5)
+    p = moe.moe_init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                     dtype=dtype)
+    x = torch.randn((4, 16, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1)).to(dtype)
+    p_card = {k: ({kk: vv.to(cuda) for kk, vv in v.items()} if isinstance(v, dict)
+                  else v.to(cuda)) for k, v in p.items()}
+    want, want_aux = moe.moe_apply(cfg, p, x)
+    got, got_aux = moe.moe_apply(cfg, p_card, x.to(cuda))
+    xt = x.reshape(2, 32, cfg.d_model)
+    cap = moe.capacity(32, cfg)
+    (_, _, ti_cpu), (_, _, ti_card) = (moe.route(cfg, p, xt),
+                                       moe.route(cfg, p_card, xt.to(cuda)))
+    assert torch.equal(ti_card.cpu(), ti_cpu)
+    slot_cpu = moe.dispatch(xt, ti_cpu, cfg.n_experts, cap)[1]
+    slot_card = moe.dispatch(xt.to(cuda), ti_card, cfg.n_experts, cap)[1]
+    assert torch.equal(slot_card.cpu(), slot_cpu)
+    assert int((slot_cpu == cfg.n_experts * cap).sum()) > 0      # drops
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype] * scale)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
