@@ -159,7 +159,11 @@ Phases, each printing its own lines:
    again, then 4 ``save_async`` calls each followed at once by an
    in-place change, each restoring to the state at its submission. K1,
    K2, K6, K7, K8 and K9 at the checkpoint chain's shape against their
-   plain versions (``ckpt_shape`` on their rows). (b) Figs 13, 14 and 16:
+   plain versions (``ckpt_shape`` on their rows). Then the page gather's
+   sweep (``page_sweep`` on K5's and K8's rows): 6.79 GB of all-found
+   pages of 8, 16 and 64 KiB and two small reads, each bit-exact, timed
+   beside ``torch.index_select`` and the card's contiguous copy of the
+   same bytes. (b) Figs 13, 14 and 16:
    the Qcow2 slice-cache model on phase 6's two depth-500 disks (their
    index tables, kept on the host through phases 7-9): a sequential sweep
    of 16,384 clusters and phase 6's YCSB-C batch, 1 MiB of L2 cache a file
@@ -193,6 +197,12 @@ Phases, each printing its own lines:
    full width on a vanilla engine of 256 blocks: 8 timed steps on each
    path, the same tokens on both, K3/K4 at the engine's state.
 
+Phases 10 and 11 start with ``gc.collect()``, and before it a report
+of what it frees (``cycles``): the CUDA tensors that only reference
+cycles hold, largest first, with the objects that refer to them;
+``held_GB_before_collect`` must then stay within 1 GB of
+``held_GB_at_start``.
+
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet, each part of phase 9, each checkpoint chain
 of phase 10, each engine of phase 11) and read just after it,
@@ -212,6 +222,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import subprocess
 import sys
@@ -288,6 +299,17 @@ CKPT_DELTA_PAGES = (1_025, 1_026)
 SIM_SWEEP = 16_384               # clusters of the sequential stream
 SIM_PREFIX = 256                 # requests held against the CPU simulation
 FIG12_LENGTHS, FIG12_SLOTS = (1, 5, 50, 100, 500, 1000), 64
+# the page gather (K8; K5 on the fleet row, the same body) over page
+# sizes: the checkpoint chain's 6.79 GB image as all-found pages of 8, 16
+# and 64 KiB in random order, and two small reads (a grid that cannot
+# fill the card). (label, page bytes, pool rows, B)
+GATHER_SWEEP = (
+    ("image_8KiB", 8_192, 829_376, 829_376),
+    ("image_16KiB", 16_384, 414_688, 414_688),
+    ("image_64KiB", 65_536, 103_672, 103_672),
+    ("few_8KiB", 8_192, 829_376, 256),
+    ("few_64KiB", 65_536, 98_304, 64),
+)
 # phase 11: the rest of the decoder-only family. Qwen2-MoE-A2.7B whole;
 # the dense variants and Phi-3.5-MoE whole where they fit one card, else
 # at full width with the depth cut to fit beside a pool of 256 blocks
@@ -503,7 +525,7 @@ SERVE_GROUPS = {"attention (K3/K4)": ("paged_attention_kernel",
                                       "attention_combine_kernel"),
                 "chain resolve (K1/K2)": ("fleet_kernel",),
                 "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
-READ_GROUPS = {"gather (K5/K8)": ("gather_rows_kernel",),
+READ_GROUPS = {"gather (K5/K8)": ("gather_pages_kernel",),
                "walk (K1)": ("vanilla_fleet_kernel",),
                "direct (K2)": ("direct_fleet_kernel",),
                "single-chain resolve (K6/K7)": ("vanilla_kernel", "direct_kernel"),
@@ -581,6 +603,14 @@ def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None,
                           ) / 1e3 / n
         by_group["other"] -= by_group[g]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # The first profiler's set-up imports torch._inductor (its
+    # hasattr(torch, "_inductor") goes through torch's lazy import), and
+    # that import leaves a reference cycle holding the frames then on the
+    # stack: ``fn`` and the callers' locals (phase 4's engine and its
+    # weights, 7.4 GB at phase 10's start). Collected here, where it is
+    # made, with the profiler's own cycles of events.
+    del prof, events
+    gc.collect()
     return dict(
         calls_profiled=n, device_ms_per_call=device_ms,
         device_idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
@@ -764,6 +794,8 @@ def measure(torch, name, kern, plain, nbytes, ops, tol, flush, library=None,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=library_ms,
     )
+    if library_ms is not None:
+        row["library_ratio"] = kernel_ms / library_ms
     return row, got
 
 
@@ -1262,6 +1294,7 @@ def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
                          library=library)
         rows.append(row)
     rows[1]["size_sweep"] = k7_size_sweep(torch, mods, flush)
+    rows[2]["variant"] = cg.gather_variant(page).name
     emit({"phase": "store", "kernel_shapes": {
         "resolve_vanilla_C_N": [c, n], "length": int(length),
         "words_walked": walked, "hits": hits, "gather_pages": b,
@@ -1483,6 +1516,7 @@ def fleet_kernel(torch, mods, pool, res, flush):
         (int(ok.sum()) + tb) * page + 5 * tb, 0, None, flush,
         library=lambda: torch.index_select(pool, 0, safe_rows.view(-1)),
         n_kernel=10, n_plain=3)
+    row["variant"] = cg.gather_variant(page).name
     return [row]
 
 
@@ -1931,6 +1965,10 @@ def serve_maintenance(torch, mods, cfg, params, prompts):
     require(streamed >= MAINT_STEPS, f"only {streamed} tenants streamed")
     got, _ = fleet_lib.read(sched.fleet, ids, method="auto")
     require(_same(torch, got, fref), "scheduler fleet read differs")
+    # the wrapper closes over sched's own bound method: as an attribute of
+    # sched it is a reference cycle that would hold the fleet (17 GB) until
+    # the cycle collector ran
+    del sched.tick
     del plain, maint, got, fref, sched, fl
     torch.cuda.empty_cache()
 
@@ -1980,6 +2018,7 @@ def serve_maintenance(torch, mods, cfg, params, prompts):
           "park": dict(blocks_spilled=spilled, demote_ms=demote_ms,
                        promote_ms=promote_ms, steps_parked=PARK_STEPS),
           "tokens_equal_across_park_resume": True, "launches": launches})
+    del eng.kv.promote_seq          # a cycle through kv, as sched.tick above
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -2534,9 +2573,9 @@ def _ckpt_merge(torch, mods, ck, flush):
 
 
 def _shape_row(row, kernel, **extra):
-    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bytes",
-            "max_abs_err")
-    return dict(kernel=kernel, **{k: row[k] for k in keep}, **extra)
+    keep = ("ms", "plain_ms", "library_ms", "library_ratio", "bound_ms",
+            "bound_by", "bytes", "max_abs_err")
+    return dict(kernel=kernel, **{k: row[k] for k in keep if k in row}, **extra)
 
 
 def _ckpt_kernels(torch, mods, ck, flush):
@@ -2574,7 +2613,9 @@ def _ckpt_kernels(torch, mods, ck, flush):
                          (int(ok.sum()) + n) * page + 5 * n, 0, None, flush,
                          library=lambda: torch.index_select(ch.pool, 0, rows),
                          n_kernel=10, n_plain=3)
-        out["gather"] = _shape_row(row, "gather", B=n, page_bytes=page)
+        out["gather"] = _shape_row(
+            row, "gather", B=n, page_bytes=page,
+            variant=cg.gather_variant(page).name)
     else:
         w0, lens = l2[None][..., 0], length[None]
         want = cr_ref.resolve_vanilla_fleet_ref(w0, lens)
@@ -2600,6 +2641,133 @@ def _ckpt_kernels(torch, mods, ck, flush):
         out["resolve_vanilla"] = _shape_row(row, "resolve_vanilla", C_N=[c, n],
                                             words_walked=walked)
     return out
+
+
+def gather_sweep(torch, mods, flush, n=10):
+    """K8 over ``GATHER_SWEEP``, every page found: each shape's output
+    held bit-exact against the plain version, then timed in turns, twice
+    (the second round kept: the first calls after the set-up run slower),
+    beside ``torch.index_select`` of the same rows. Where every page of
+    the pool is read once, ``copy_ms`` times the card's contiguous copy of
+    the pool (``Tensor.copy_``), a ceiling for any gather of those bytes.
+    The bound is each page in and out, with the indices, over 3.35 TB/s.
+    It calls nothing but the wrapper and its plain version, so it times
+    an earlier kernel the same way."""
+    cg, cg_ref = mods["cg"], mods["cg_ref"]
+    g = torch.Generator(device=DEV).manual_seed(21)
+    out = []
+    for label, page, pool_rows, b in GATHER_SWEEP:
+        pool = torch.empty((pool_rows, page // 4), dtype=torch.float32,
+                           device=DEV)
+        pool.view(torch.int32).random_(generator=g)
+        if b == pool_rows:
+            rows = torch.randperm(pool_rows, generator=g, device=DEV)
+        else:
+            rows = torch.randint(0, pool_rows, (b,), generator=g, device=DEV)
+        rows = rows.to(torch.int32)
+        ok = torch.ones(b, dtype=torch.bool, device=DEV)
+        require(torch.equal(cg.gather_cuda(pool, rows, ok).view(torch.uint8),
+                            cg_ref.gather_ref(pool, rows, ok).view(torch.uint8)),
+                f"gather sweep {label}: not bit-exact")
+        calls = {"kernel": lambda: cg.gather_cuda(pool, rows, ok),
+                 "library": lambda: torch.index_select(pool, 0, rows)}
+        ms = {}
+        for _ in range(2):
+            for name, call in calls.items():
+                ms[name] = timed_ms(torch, call, n, flush)
+        copy_ms = None
+        if b == pool_rows:
+            # the card's own copy of the same bytes, contiguous: a ceiling
+            dst = torch.empty_like(pool)
+            copy_ms = timed_ms(torch, lambda: dst.copy_(pool), n, flush)
+            del dst
+        nbytes = 2 * b * page + 5 * b
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        out.append(dict(shape=label, page_bytes=page, B=b, pool_rows=pool_rows,
+                        bytes=nbytes, bound_ms=bound, ms=ms["kernel"],
+                        library_ms=ms["library"],
+                        library_ratio=ms["kernel"] / ms["library"],
+                        copy_ms=copy_ms, bound_share=bound / ms["kernel"],
+                        library_bound_share=bound / ms["library"]))
+        del pool, rows, ok, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def _garbage_name(o, child) -> str:
+    """A short name for ``o``, an object that refers to ``child``."""
+    if isinstance(o, dict):
+        keys = [k for k, v in o.items() if v is child][:2]
+        return f"dict[{', '.join(repr(k)[:40] for k in keys)}]"
+    if inspect.isfunction(o):
+        return f"function {o.__qualname__}"
+    if inspect.isframe(o):
+        return f"frame {o.f_code.co_name}:{o.f_lineno}"
+    if inspect.ismethod(o):
+        return f"method {o.__func__.__qualname__}"
+    t = type(o)
+    attrs = [k for k, v in getattr(o, "__dict__", {}).items() if v is child][:2]
+    return f"{t.__module__}.{t.__qualname__}" + (f".{attrs}" if attrs else "")
+
+
+def cycle_report(torch, top=6, depth=10):
+    """What the cycle collector frees now: the CUDA storages that only
+    reference cycles keep alive, largest first, each with the chain of
+    objects that refer to it inside the garbage (type names, a function's
+    or frame's name, a dict's key), and the garbage's commonest types.
+    Collected with ``DEBUG_SAVEALL`` so the garbage can be read; then
+    dropped, so the caller's ``gc.collect()`` frees it."""
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        garbage = list(gc.garbage)
+        gc.garbage.clear()
+    finally:
+        gc.set_debug(0)
+    inside = {id(o) for o in garbage}
+    parents = collections.defaultdict(list)
+    for o in garbage:
+        for r in gc.get_referents(o):
+            if id(r) in inside:
+                parents[id(r)].append(o)
+    storages = {}
+    for o in garbage:
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            s = o.untyped_storage()
+            storages.setdefault(s.data_ptr(), (s.nbytes(), o))
+    held = []
+    for nbytes, t in sorted(storages.values(), key=lambda x: -x[0])[:top]:
+        chain, node, seen = [], t, {id(t)}
+        for _ in range(depth):
+            up = next((p for p in parents[id(node)] if id(p) not in seen), None)
+            if up is None:
+                break
+            chain.append(_garbage_name(up, node))
+            seen.add(id(up))
+            node = up
+        held.append(dict(GB=nbytes / 1e9, shape=list(t.shape), dtype=str(t.dtype),
+                         referrers=chain))
+    report = dict(garbage_objects=len(garbage),
+                  garbage_cuda_GB=sum(n for n, _ in storages.values()) / 1e9,
+                  largest=held,
+                  types=collections.Counter(
+                      type(o).__qualname__ for o in garbage).most_common(12))
+    return report
+
+
+def collect_cycles(torch, line):
+    """A phase's start: ``cycle_report``, then ``gc.collect()``, both on
+    ``line``. What the collection frees must be under 1 GB of device
+    memory: no reference cycle holds an earlier phase's tensors."""
+    held = torch.cuda.memory_allocated()
+    cycles = cycle_report(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
+    line({"held_GB_at_start": at_start / 1e9,
+          "held_GB_before_collect": held / 1e9, "cycles": cycles})
+    require(held - at_start < 1e9,
+            f"{(held - at_start) / 1e9:.2f} GB sat in reference cycles")
 
 
 def _index_chain(torch, mods, disk, device=None):
@@ -3316,13 +3484,12 @@ def main() -> int:
     # 10. the paper's evaluation plane: Fig 17 on a checkpoint chain, the
     # cache model on phase 6's disks, Fig 12 and Eq. 2
     t0 = time.perf_counter()
-    held = torch.cuda.memory_allocated()
-    gc.collect()        # tensors of earlier phases left in reference cycles
-    torch.cuda.empty_cache()
-    _paper({"held_GB_at_start": torch.cuda.memory_allocated() / 1e9,
-            "held_GB_before_collect": held / 1e9}, mods)
+    collect_cycles(torch, lambda obj: _paper(obj, mods))
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     paper_launches, ckpt_shapes = checkpoint_phase(torch, mods, cfg, flush)
+    with uncounted(_build):
+        page_sweep = gather_sweep(torch, mods, flush)
+    _paper(dict(part="gather_sweep", sweep=page_sweep), mods)
     cache_phase(torch, mods, disk_indexes)
     paper_models(torch, mods, disk_indexes["disks"]["vanilla"]["spec"])
     del disk_indexes
@@ -3331,12 +3498,7 @@ def main() -> int:
     # 11. the rest of the decoder-only family: the smoke configs card
     # against CPU, Qwen2-MoE-A2.7B at full width, the dense variants
     t0 = time.perf_counter()
-    held = torch.cuda.memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
-    _families({"part": "start",
-               "held_GB_at_start": torch.cuda.memory_allocated() / 1e9,
-               "held_GB_before_collect": held / 1e9}, mods)
+    collect_cycles(torch, lambda obj: _families({"part": "start", **obj}, mods))
     family_launches, family_shapes = families_phase(torch, mods, flush)
     del flush
     _families({"part": "end", "seconds": time.perf_counter() - t0}, mods)
@@ -3360,6 +3522,9 @@ def main() -> int:
     rows[2]["families"] = family_shapes["paged_attention"]    # phase 11
     rows[3]["families"] = family_shapes["fused_chain_attention"]
     rows += fleet_rows + store_rows + merge_rows
+    for row in rows:                      # the page gather's two rows
+        if row["name"] in ("gather", "gather_fleet"):
+            row["page_sweep"] = page_sweep
     for row in rows:                      # the checkpoint chain's shapes
         if row["name"] in ckpt_shapes:
             row["ckpt_shape"] = ckpt_shapes[row["name"]]

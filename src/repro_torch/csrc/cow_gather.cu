@@ -6,53 +6,69 @@
 //   gather        <- gather_pallas       (_gather_kernel), the T = 1 case
 // Both launch the one kernel below; the wrappers count them apart.
 //
-// What it computes: out[i] = pool[rows[i]] where found[i], else zeros, for
-// every output page i of the flattened (T * B) batch.
+// What it computes: out[i] = pool[rows[i]] where found[i] and
+// 0 <= rows[i] < R, else zero bytes, for every output page i of the
+// flattened (T * B) batch. Pages are copied as raw bytes, so one kernel
+// serves every element type (f32, bf16, ...).
 //
 // What bounds it on the card: device-memory bytes. It does no arithmetic:
 // each found page is read once and every output page written once, so the
 // least time is (found pages + output pages) * page bytes over 3.35 TB/s.
+// To reach it the card needs a few MB of loads in flight.
 //
-// What the design does about it: one block per output page, which copies
-// the page as raw bytes, so one kernel serves every element type (f32,
-// bf16, ...). Where the source and destination rows are both 16-byte
-// aligned (any page of 4 f32 / 8 bf16 multiples) the block moves 16-byte
-// vectors, four in flight per thread before the stores, with neighbouring
-// threads on neighbouring addresses; a row that is only 8-, 4- or 2-byte
-// aligned moves in that width, and the bytes past the last whole vector
-// are copied one at a time (the tail). Where a page is not found the block
-// writes zeros and never touches the pool, so a masked row's pointer (a
-// hole, a ZERO cluster, or a COLD entry's host-tier row) is never
-// dereferenced; a found row outside [0, R) is written as zeros too, so
-// the kernel can never read past the pool.
+// What the design does about it: a group of G warps (G = 1, 2, 4 or 8)
+// owns a page, and a block of eight warps owns 8 / G pages; no warp takes
+// a second page (chip_smoke.py's sweep measured that slower: a block holds
+// its SM slot until its slowest page is done). Each warp loads its page's
+// row and found entries first. Then each lane issues U 16-byte loads
+// (read-only path, ld.global.nc) before any of their stores, the group's
+// lanes on neighbouring 16 bytes, so one load instruction of the group
+// reads G * 512 contiguous bytes. The wrapper picks G and U from the page
+// bytes alone: an 8 KiB page goes to 4 warps of 4 loads a lane, a 64 KiB
+// page to 8 warps of 16, one round each. Nothing is staged through shared
+// memory: a gather moves each byte once, so registers are the shortest way
+// from load to store. Where a page's source and destination are not both
+// 16-byte aligned the group moves the widest of 8/4/2/1 bytes that divides
+// both addresses, and the bytes past the last whole unit one at a time
+// (the tail). Where a page is not found the group writes zeros and never
+// touches the pool, so a masked row's pointer (a hole, a ZERO cluster, or
+// a COLD entry's host-tier row) is never dereferenced; a found row outside
+// [0, R) is written as zeros too, so the kernel can never read past the
+// pool.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kInFlight = 4;
+constexpr int kWarps = 8;              // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kNarrowUnits = 4;        // loads a lane a round below 16 B
 
-template <typename V>
-__device__ __forceinline__ void copy_units(const V* __restrict__ src,
-                                           V* __restrict__ dst, long long n) {
-  long long i = threadIdx.x;
-  const long long step = (long long)kThreads * kInFlight;
-  for (; i + (kInFlight - 1) * kThreads < n; i += step) {
-    V v[kInFlight];
+// a page's n units by the group's `threads` lanes, this one of rank `me`:
+// U loads a lane in flight, then their U stores, a round at a time
+template <typename V, int U>
+__device__ __forceinline__ void copy_rounds(const V* __restrict__ src,
+                                            V* __restrict__ dst, long long n,
+                                            int me, int threads) {
+  for (long long base = me; base < n; base += (long long)threads * U) {
+    V v[U];
 #pragma unroll
-    for (int k = 0; k < kInFlight; ++k) v[k] = src[i + k * kThreads];
+    for (int u = 0; u < U; ++u) {
+      if (base + (long long)u * threads < n) v[u] = __ldg(src + base + u * threads);
+    }
 #pragma unroll
-    for (int k = 0; k < kInFlight; ++k) dst[i + k * kThreads] = v[k];
+    for (int u = 0; u < U; ++u) {
+      if (base + (long long)u * threads < n) dst[base + u * threads] = v[u];
+    }
   }
-  for (; i < n; i += kThreads) dst[i] = src[i];
 }
 
 template <typename V>
-__device__ __forceinline__ void zero_units(V* __restrict__ dst, long long n) {
+__device__ __forceinline__ void zero_units(V* __restrict__ dst, long long n,
+                                           int me, int threads) {
   const V z{};
-  for (long long i = threadIdx.x; i < n; i += kThreads) dst[i] = z;
+  for (long long i = me; i < n; i += threads) dst[i] = z;
 }
 
 // widest of 16/8/4/2/1 bytes that divides the address
@@ -64,55 +80,89 @@ __device__ __forceinline__ int width_of(uintptr_t addr) {
   return 1;
 }
 
-template <typename V>
-__device__ __forceinline__ void move(const uint8_t* src, uint8_t* dst,
-                                     long long nbytes) {
+template <typename V, int U>
+__device__ __forceinline__ void move(const uint8_t* __restrict__ src,
+                                     uint8_t* __restrict__ dst,
+                                     long long nbytes, int me, int threads) {
   const long long n = nbytes / (long long)sizeof(V);
   if (src) {
-    copy_units<V>((const V*)src, (V*)dst, n);
+    copy_rounds<V, U>((const V*)src, (V*)dst, n, me, threads);
   } else {
-    zero_units<V>((V*)dst, n);
+    zero_units<V>((V*)dst, n, me, threads);
   }
   // the tail: bytes past the last whole unit
-  for (long long b = n * (long long)sizeof(V) + threadIdx.x; b < nbytes;
-       b += kThreads) {
-    dst[b] = src ? src[b] : (uint8_t)0;
+  for (long long b = n * (long long)sizeof(V) + me; b < nbytes; b += threads) {
+    dst[b] = src ? __ldg(src + b) : (uint8_t)0;
   }
 }
 
-__global__ void gather_rows_kernel(const uint8_t* __restrict__ pool,
-                                   const int32_t* __restrict__ rows,
-                                   const uint8_t* __restrict__ found,
-                                   uint8_t* __restrict__ out, long long R,
-                                   long long row_bytes) {
-  const long long i = blockIdx.x;
-  const int32_t r = rows[i];
-  const bool ok = found[i] != 0 && r >= 0 && (long long)r < R;
-  const uint8_t* src = ok ? pool + (long long)r * row_bytes : nullptr;
-  uint8_t* dst = out + i * row_bytes;
-  // the same width for every thread of the block: the choice is uniform
-  const int w = width_of((uintptr_t)dst | (src ? (uintptr_t)src : 0));
-  switch (w) {
-    case 16: move<uint4>(src, dst, row_bytes); break;
-    case 8: move<uint2>(src, dst, row_bytes); break;
-    case 4: move<uint32_t>(src, dst, row_bytes); break;
-    case 2: move<uint16_t>(src, dst, row_bytes); break;
-    default: move<uint8_t>(src, dst, row_bytes); break;
+// one page by one group; src is null where the page reads as zeros
+template <int U>
+__device__ __forceinline__ void move_page(const uint8_t* src, uint8_t* dst,
+                                          long long nbytes, int me,
+                                          int threads) {
+  // the same width for every lane of the group: the choice is uniform
+  switch (width_of((uintptr_t)dst | (src ? (uintptr_t)src : 0))) {
+    case 16: move<uint4, U>(src, dst, nbytes, me, threads); break;
+    case 8: move<uint2, kNarrowUnits>(src, dst, nbytes, me, threads); break;
+    case 4: move<uint32_t, kNarrowUnits>(src, dst, nbytes, me, threads); break;
+    case 2: move<uint16_t, kNarrowUnits>(src, dst, nbytes, me, threads); break;
+    default: move<uint8_t, kNarrowUnits>(src, dst, nbytes, me, threads); break;
   }
+}
+
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+gather_pages_kernel(const uint8_t* __restrict__ pool,
+                    const int32_t* __restrict__ rows,
+                    const uint8_t* __restrict__ found,
+                    uint8_t* __restrict__ out, long long n_out, long long R,
+                    long long row_bytes, int warps_per_page) {
+  const int warp = threadIdx.x >> 5;
+  const long long i =
+      (long long)blockIdx.x * (kWarps / warps_per_page) + warp / warps_per_page;
+  if (i >= n_out) return;              // uniform across the group
+  const int32_t r = __ldg(rows + i);
+  const bool ok = __ldg(found + i) != 0 && r >= 0 && (long long)r < R;
+  const int threads = 32 * warps_per_page;
+  move_page<U>(ok ? pool + (long long)r * row_bytes : nullptr,
+               out + i * row_bytes, row_bytes,
+               (warp % warps_per_page) * 32 + (threadIdx.x & 31), threads);
+}
+
+template <int U>
+cudaError_t launch(const void* pool, const void* rows, const void* found,
+                   void* out, long long n_out, long long R, long long row_bytes,
+                   int warps_per_page, cudaStream_t stream) {
+  const long long per_block = kWarps / warps_per_page;
+  const long long blocks = (n_out + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  gather_pages_kernel<U><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+      (const uint8_t*)pool, (const int32_t*)rows, (const uint8_t*)found,
+      (uint8_t*)out, n_out, R, row_bytes, warps_per_page);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // pool (R, row_bytes) bytes; rows (n_out,) int32; found (n_out,) bool;
-// out (n_out, row_bytes) bytes.
+// out (n_out, row_bytes) bytes. units: 16-byte loads a lane a round (1, 2,
+// 4, 8 or 16); warps_per_page: 1, 2, 4 or 8.
 extern "C" int cow_gather(const void* pool, const void* rows, const void* found,
                           void* out, long long n_out, long long R,
-                          long long row_bytes, void* stream) {
+                          long long row_bytes, int units, int warps_per_page,
+                          void* stream) {
   (void)cudaGetLastError();
-  if (n_out > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  gather_rows_kernel<<<(unsigned int)n_out, kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint8_t*)pool, (const int32_t*)rows, (const uint8_t*)found,
-      (uint8_t*)out, R, row_bytes);
-  return (int)cudaGetLastError();
+  if (warps_per_page < 1 || warps_per_page > kWarps ||
+      kWarps % warps_per_page != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (units) {
+#define GATHER_CASE(u) \
+    case u: return (int)launch<u>(pool, rows, found, out, n_out, R, row_bytes, \
+                                  warps_per_page, s);
+    GATHER_CASE(1) GATHER_CASE(2) GATHER_CASE(4) GATHER_CASE(8) GATHER_CASE(16)
+#undef GATHER_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -3,22 +3,61 @@
 The counterpart of ``repro.kernels.cow_gather.cow_gather``'s
 ``gather_pallas`` (K8, one chain's (B,) pages) and ``gather_fleet_pallas``
 (K5, a fleet's (T, B) pages): one hand-written CUDA C++ kernel in
-``csrc/cow_gather.cu`` that copies each page as raw bytes, built for
-Hopper by ``kernels._build``. The wrappers here take CUDA tensors only,
-check what the kernel takes, allocate the output, launch on the current
-stream without synchronising, and count the launch under their own
-name. ``ops`` dispatches CPU tensors to the plain versions in ``ref``.
+``csrc/cow_gather.cu`` that copies each page as raw bytes, one to eight
+warps a page, built for Hopper by ``kernels._build``. The wrappers here
+take CUDA tensors only, check what the kernel takes, pick the kernel's
+variant from the page bytes alone (``gather_variant``), allocate the
+output, launch on the current stream without synchronising, and count the
+launch under their own name. ``ops`` dispatches CPU tensors to the plain
+versions in ``ref``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
+#: 16-byte loads a lane issues before their stores (a round), by bucket
+_UNITS = (1, 2, 4, 8, 16)
+#: warps that copy one page together (a block holds eight warps)
+_WARPS_PER_PAGE = (1, 2, 4, 8)
+#: 16-byte loads a lane should have of a page at least: a page is spread
+#: over as many warps as leave each lane this many
+_MIN_LOADS = 4
+
+
+class GatherVariant(NamedTuple):
+    units: int
+    warps_per_page: int
+
+    @property
+    def name(self) -> str:
+        return f"u{self.units}g{self.warps_per_page}"
+
+
+def gather_variant(page_bytes: int) -> GatherVariant:
+    """The kernel's variant for pages of ``page_bytes``, from the shape
+    alone (no sync, no read of ``found``). Warps a page: the most that
+    leave each lane ``_MIN_LOADS`` 16-byte loads of the page (8 KiB: 4
+    warps; 16 KiB and up: 8). Loads a lane a round: the fewest that cover
+    the page in one round of the group, at most 16 (a 64 KiB page over 8
+    warps). The page count and the SM count do not enter: on the card the
+    best variant was the same at 64 and at 829,376 pages (``PERF.md`` §6)."""
+    g = max((w for w in _WARPS_PER_PAGE if 512 * _MIN_LOADS * w <= page_bytes),
+            default=1)
+    need = -(-page_bytes // (512 * g))
+    units = next((u for u in _UNITS if u >= need), _UNITS[-1])
+    return GatherVariant(units, g)
+
 
 def _launch(name: str, pool: torch.Tensor, rows: torch.Tensor,
-            found: torch.Tensor) -> torch.Tensor:
+            found: torch.Tensor,
+            variant: GatherVariant | None = None) -> torch.Tensor:
+    """Checks, allocates and launches; ``variant`` overrides the pick
+    (the GPU tests run every instantiation of the kernel through it)."""
     for x in (pool, rows, found):
         if not x.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {x.device}")
@@ -34,9 +73,13 @@ def _launch(name: str, pool: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((*rows.shape, p), dtype=pool.dtype, device=pool.device)
     if out.numel() == 0:
         return out
+    page = p * pool.element_size()
+    v = variant or gather_variant(page)
+    if v.units not in _UNITS or v.warps_per_page not in _WARPS_PER_PAGE:
+        raise ValueError(f"{name}: no kernel variant {v}")
     code = _build.library().cow_gather(
         pool.data_ptr(), rows.data_ptr(), found.data_ptr(), out.data_ptr(),
-        rows.numel(), r, p * pool.element_size(),
+        rows.numel(), r, page, v.units, v.warps_per_page,
         torch.cuda.current_stream(pool.device).cuda_stream)
     _build.check_launch(name, code)
     return out

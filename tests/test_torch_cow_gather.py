@@ -86,3 +86,29 @@ def test_cpu_dispatch_takes_the_plain_version():
         tcg.gather_cuda(pool, idx[0], found[0])
     with pytest.raises(ValueError, match="CUDA"):
         tcg.gather_fleet_cuda(pool, idx, found)
+
+
+# page bytes -> the kernel variant the wrapper picks (loads a lane a round,
+# warps a page): odd sizes beside the system's 8, 16 and 64 KiB pages
+PICKS = {2: "u1g1", 3: "u1g1", 16: "u1g1", 100: "u1g1", 511: "u1g1",
+         512: "u1g1", 513: "u2g1", 1029: "u4g1", 2_048: "u4g1",
+         4_096: "u4g2", 8_192: "u4g4", 8_193: "u8g4", 16_384: "u4g8",
+         65_536: "u16g8", 65_537: "u16g8", 1 << 20: "u16g8"}
+
+
+@pytest.mark.parametrize("page", sorted(PICKS))
+def test_gather_variant_from_shape(page):
+    """The kernel's variant from the page bytes alone: it takes an int,
+    so it can read no tensor data, and the batch cannot move it."""
+    assert tcg.gather_variant(page).name == PICKS[page]
+
+
+def test_gather_variant_at_the_systems_shapes():
+    """The picks at the main path's page sizes: the checkpoint chain's
+    8 KiB pages, the disk's and the fleet's 64 KiB clusters, and a tiny
+    page; between them they reach every instantiation of the kernel."""
+    assert tcg.gather_variant(8_192).name == "u4g4"
+    assert tcg.gather_variant(16_384).name == "u4g8"
+    assert tcg.gather_variant(65_536).name == "u16g8"
+    assert tcg.gather_variant(2).name == "u1g1"
+    assert {tcg.gather_variant(p).units for p in PICKS} == set(tcg._UNITS)

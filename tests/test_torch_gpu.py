@@ -292,6 +292,121 @@ def test_gather_all_unfound_and_empty(cuda):
     assert tuple(empty.shape) == (0, 40)
 
 
+def _gather_pool(cuda, dtype, r, row_bytes, offset, seed):
+    """A contiguous (R, row_bytes) pool of random bits whose base lies
+    ``offset`` elements past an aligned allocation (a misaligned view)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    p = row_bytes // elt
+    rng = np.random.default_rng(seed)
+    flat = torch.as_tensor(rng.integers(0, 256, (r * p + offset) * elt,
+                                        dtype=np.uint8), device=cuda)
+    return flat.view(dtype)[offset:].view(r, p)
+
+
+def _gather_check(pool, rows, found, variant=None):
+    """K5 on (T, B) and K8 on each tenant's (B,), bit for bit against the
+    plain versions; a found row outside [0, R) must come out as zeros.
+    ``variant`` forces one instantiation of the kernel (None: the pick)."""
+    r = pool.shape[0]
+    readable = found & (rows >= 0) & (rows < r)
+    got = cg._launch("gather_fleet", pool, rows, found, variant)
+    ones = [cg._launch("gather", pool, rows[i].contiguous(),
+                       found[i].contiguous(), variant)
+            for i in range(rows.shape[0])]
+    torch.cuda.synchronize()
+    assert _same_bytes(got, cg_ref.gather_fleet_ref(pool, rows, readable))
+    for i, one in enumerate(ones):
+        assert _same_bytes(one, got[i])
+    assert not got.view(torch.uint8)[~readable].any()
+
+
+_GATHER_DTYPES = [torch.float32, torch.bfloat16, torch.uint8]
+
+
+def _gather_cases():
+    """(dtype, R, row bytes, T, B, found, misaligned elements): pages of
+    8 and 64 KiB, rows of 2, 4 and 8 bytes and odd byte counts, misaligned
+    views, all / none found and found rows outside [0, R), B not a
+    multiple of a block's pages."""
+    cases = []
+    for dt in _GATHER_DTYPES:
+        elt = torch.empty((), dtype=dt).element_size()
+        for rb in (2, 4, 8, 1029 * elt, 8_193 * elt):
+            if rb % elt == 0:
+                cases.append(pytest.param(dt, 50, rb, 3, 67, "some", 0,
+                                          id=f"{dt}-row{rb}"))
+        for found in ("all", "none", "outside"):
+            cases.append(pytest.param(dt, 64, 8_192, 2, 129, found, 0,
+                                      id=f"{dt}-8KiB-{found}"))
+        cases += [
+            pytest.param(dt, 40, 65_536, 2, 37, "some", 0, id=f"{dt}-64KiB"),
+            pytest.param(dt, 300, 8_192, 5, 333, "some", 1,
+                         id=f"{dt}-8KiB-misaligned"),
+            pytest.param(dt, 30, 65_536 + 2 * elt, 1, 19, "outside", 3,
+                         id=f"{dt}-64KiB-odd-misaligned"),
+        ]
+    return cases
+
+
+@pytest.mark.parametrize("dtype,r,row_bytes,t,b,found,offset", _gather_cases())
+def test_gather_cases_bit_exact(cuda, dtype, r, row_bytes, t, b, found, offset):
+    pool = _gather_pool(cuda, dtype, r, row_bytes, offset, r + row_bytes + b)
+    rng = np.random.default_rng(t * b + offset)
+    rows = rng.integers(0, r, (t, b)).astype(np.int32)
+    hit = {"all": np.ones((t, b), bool), "none": np.zeros((t, b), bool)}.get(
+        found, rng.random((t, b)) < 0.7)
+    if found == "outside":
+        rows[:, ::3] = r + np.arange(rows[:, ::3].shape[1])
+        rows[:, 1::5] = -1 - np.arange(rows[:, 1::5].shape[1])
+        hit[:] = True
+    rows[0, -1] = r - 1
+    _gather_check(pool, torch.as_tensor(rows, device=cuda),
+                  torch.as_tensor(hit, device=cuda))
+
+
+@pytest.mark.parametrize("row_bytes,offset", [(8_192, 0), (65_536, 0),
+                                              (1029, 1), (24, 0)])
+def test_gather_every_variant_bit_exact(cuda, row_bytes, offset):
+    """Each forced (loads a lane a round, warps a page) variant, on uint8
+    pools: every instantiation of the kernel, aligned or not."""
+    pool = _gather_pool(cuda, torch.uint8, 70, row_bytes, offset, row_bytes)
+    rng = np.random.default_rng(row_bytes)
+    rows = torch.as_tensor(rng.integers(-2, 72, (2, 301)).astype(np.int32),
+                           device=cuda)
+    found = torch.as_tensor(rng.random((2, 301)) < 0.8, device=cuda)
+    for u in cg._UNITS:
+        for g in cg._WARPS_PER_PAGE:
+            _gather_check(pool, rows, found, cg.GatherVariant(u, g))
+
+
+@pytest.mark.parametrize("dtype", _GATHER_DTYPES)
+def test_gather_100k_pages_of_8KiB(cuda, dtype):
+    """100,000 pages of 8 KiB (819 MB) through the wrapper's pick."""
+    r, b = 100_000, 100_000
+    pool = _gather_pool(cuda, dtype, r, 8_192, 0, 7)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    rows = torch.randperm(r, generator=g, device=cuda).to(torch.int32)
+    found = torch.rand(b, generator=g, device=cuda) < 0.9
+    got = cg.gather_cuda(pool, rows, found)
+    torch.cuda.synchronize()
+    assert _same_bytes(got, cg_ref.gather_ref(pool, rows, found))
+    assert cg.gather_variant(8_192).name == "u4g4"
+
+
+def test_gather_refuses_what_it_cannot_take(cuda):
+    pool = torch.zeros((4, 8), device=cuda)
+    rows = torch.zeros(3, dtype=torch.int32, device=cuda)
+    found = torch.ones(3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="variant"):
+        cg._launch("gather", pool, rows, found, cg.GatherVariant(3, 1))
+    with pytest.raises(ValueError, match="variant"):
+        cg._launch("gather", pool, rows, found, cg.GatherVariant(16, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        cg.gather_cuda(pool[:, ::2], rows, found)
+    with pytest.raises(TypeError, match="int32"):
+        cg.gather_cuda(pool, rows.long(), found)
+
+
 @pytest.mark.parametrize("c,n", [(1, 128), (7, 1000), (64, 4096), (512, 257)])
 @pytest.mark.parametrize("alloc_dtype", [torch.int32, torch.bool])
 def test_single_chain_resolve_kernels_bit_exact(cuda, c, n, alloc_dtype):
