@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and hold every
-kernel against its plain PyTorch version.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+hold every kernel against its plain PyTorch version.
 
 Run from the repo root, with one card:
 
@@ -196,8 +196,25 @@ Phases, each printing its own lines:
    (24 of 48 layers), Phi-3.5-MoE (16 of 32) and Qwen2-72B (16 of 80) at
    full width on a vanilla engine of 256 blocks: 8 timed steps on each
    path, the same tokens on both, K3/K4 at the engine's state.
+12. train — training on the snapshot-checkpoint chain; its lines carry
+   ``"phase": "train"`` and the card's name and power limit. (c) One
+   training step of the smoke qwen2.5-3b and qwen2-moe on the card
+   against the CPU: ``batch_at``'s tokens bitwise, the loss and every
+   gradient within 2e-2 relative L2. (a) Qwen2.5-3B whole at full width,
+   f32 state, bf16 compute, remat, 1 x 4,096 tokens: 3 steps by CUDA
+   events, tokens/s, peak GB, the model FLOPs' share of the bf16 peak,
+   and a profiled step split into matmuls, attention, AdamW and the rest.
+   (b) The ``Trainer`` at full width with 2 of 36 layers, 12 steps, a save
+   every 2: run whole, then crashed after step 7 and resumed at step 6
+   through direct, pallas_vanilla and pallas_direct (word-exact), its
+   final loss within 1e-5 of the whole run's. After each run's last save,
+   past the pool GC, every restore method reads the saved image back,
+   and each GC merge equals the plain merge (K9 at this shape,
+   ``train_shape`` on its row). The resumed weights serve a forked pair
+   on both decode paths, in bf16 and in f32 against the plain greedy
+   ``prefill``/``decode_step``.
 
-Phases 10 and 11 start with ``gc.collect()``, and before it a report
+Phases 10, 11 and 12 start with ``gc.collect()``, and before it a report
 of what it frees (``cycles``): the CUDA tensors that only reference
 cycles hold, largest first, with the objects that refer to them;
 ``held_GB_before_collect`` must then stay within 1 GB of
@@ -205,7 +222,8 @@ cycles hold, largest first, with the objects that refer to them;
 
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet, each part of phase 9, each checkpoint chain
-of phase 10, each engine of phase 11) and read just after it,
+of phase 10, each engine of phase 11, phase 12b's trainer path) and read
+just after it,
 before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
 floor under the same flush and spin.
@@ -322,7 +340,24 @@ FAMILY_DEPTHS = (("nemotron-4-15b", None), ("qwen2-7b", None),
                  ("chameleon-34b", 24), ("phi3.5-moe-42b-a6.6b", 16),
                  ("qwen2-72b", 16))
 FAMILY_POOL, FAMILY_STEPS = 256, 8
-DEV = "cuda"                     # phases 6-11 run here
+# phase 12: training on the snapshot-checkpoint chain. 12a: Qwen2.5-3B
+# whole, f32 params and AdamW state (54.4 GB), bf16 compute, remat, one
+# sequence of train_4k's 4,096 tokens (its global batch of 256 cut to 1 so
+# that the state fits one card). 12b: the Trainer at full width with the
+# depth cut to fit beside its chain (a pool of 4x the state, a shadow
+# image, a save's fresh image: ~92 B a parameter; 61.5 GB peak at 1 layer
+# on an H100, so 2 layers, ~68.6 GB), the launcher's batch of 4 x 64.
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_TIMED = 4_096, 1, 3
+TRAIN_CHAIN_LAYERS = 2
+TRAIN_CHAIN_STEPS, TRAIN_CHAIN_EVERY, TRAIN_CRASH = 12, 2, 7
+TRAIN_CHAIN_BATCH, TRAIN_CHAIN_SEQ, TRAIN_PAGE = 4, 64, 2_048
+TRAIN_RESTORE_TIMED = 3
+TRAIN_SERVE_STEPS = 4            # tokens the served pair decodes after the first
+TRAIN_SMOKE = ("qwen2.5-3b", "qwen2-moe-a2.7b")
+TRAIN_REL_TOL = 2e-2             # bf16 on the card against bf16 on the CPU
+F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
+DEV = "cuda"                     # phases 6-12 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -3350,6 +3385,546 @@ def families_phase(torch, mods, flush):
     return launches, shapes
 
 
+# -- phase 12: training on the snapshot-checkpoint chain ---------------------
+
+
+def _train(obj, mods):
+    """A phase-12 line: the card's name and power limit beside its numbers."""
+    emit({**obj, "phase": "train", "card": mods["smi"]})
+
+
+TRAIN_ATTENTION, TRAIN_ADAMW = "train.attention", "train.adamw"
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+def train_flops(cfg, seq, batch) -> dict:
+    """One training step's operations, counted from the shapes: ``model``
+    is 6·N·T for the N matrix parameters (every layer's and ``w_out``; the
+    embedding is a lookup) plus the attention's two S x S products
+    forward and backward (3x forward); ``total`` adds the per-layer
+    recompute (remat: the layers' forward again). The score product QK^T
+    runs in f32 (``attention_ref`` scores in f32, TF32 off): its forward,
+    recompute and two backward products are ``f32``; the rest is bf16."""
+    t = seq * batch
+    d, hd = cfg.d_model, cfg.hd
+    attn_w = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d
+    layer_w = cfg.n_layers * (attn_w + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff)
+    n_matrix = layer_w + d * cfg.vocab_size
+    product = 2 * batch * seq * seq * cfg.n_heads * hd      # one S x S product
+    model = 6 * n_matrix * t + cfg.n_layers * 6 * product
+    remat = (2 * layer_w * t + cfg.n_layers * 2 * product) if cfg.remat else 0
+    f32 = cfg.n_layers * (4 if cfg.remat else 3) * product
+    return dict(matrix_params=n_matrix, model=model, total=model + remat,
+                bf16=model + remat - f32, f32=f32)
+
+
+def _kernel_ms(event):
+    """The device kernels a profiled CPU op launched: (name, ms) each."""
+    return [(k.name, k.duration / 1e3) for k in event.kernels]
+
+
+def _is_matmul(kernel_name):
+    return any(g in kernel_name.lower() for g in GEMM_NAMES)
+
+
+def train_profile(torch, mods, run):
+    """One call of ``run`` under torch.profiler, its device time split into
+    matmuls, attention, AdamW and the rest. ``attention_ref`` and
+    ``adamw.apply`` run under ``record_function`` ranges for the call; a
+    kernel launched under the AdamW range is AdamW's, under the attention
+    range (the forward and the remat recompute) or by a backward op whose
+    forward op ran there (matched by sequence number and thread) the
+    attention's; of the rest, GEMM kernels are matmuls."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    L, adamw = mods["layers"], mods["adamw"]
+    attention_ref, apply = L.attention_ref, adamw.apply
+
+    def ranged(name, fn):
+        def wrapped(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    L.attention_ref = ranged(TRAIN_ATTENTION, attention_ref)
+    adamw.apply = ranged(TRAIN_ADAMW, apply)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        L.attention_ref, adamw.apply = attention_ref, apply
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def ranges_of(e):
+        names = set()
+        while e is not None:
+            names.add(e.name)
+            e = e.cpu_parent
+        return names
+
+    attn_fwd = {(e.sequence_nr, e.thread) for e in cpu
+                if e.sequence_nr >= 0 and TRAIN_ATTENTION in ranges_of(e)}
+
+    def attn_bwd(e):
+        while e is not None:
+            if "Backward" in e.name and (e.sequence_nr, e.fwd_thread) in attn_fwd:
+                return True
+            e = e.cpu_parent
+        return False
+
+    groups = dict(matmuls=0.0, attention=0.0, adamw=0.0, other=0.0)
+    matched = 0
+    for e in cpu:
+        spent = _kernel_ms(e)
+        if not spent:
+            continue
+        names = ranges_of(e)
+        group = ("adamw" if TRAIN_ADAMW in names else
+                 "attention" if TRAIN_ATTENTION in names else None)
+        if group is None and attn_bwd(e):
+            group, matched = "attention", matched + 1
+        for name, ms in spent:
+            groups[group or ("matmuls" if _is_matmul(name) else "other")] += ms
+    del prof, cpu
+    gc.collect()
+    return dict(device_ms_by_group=groups, device_ms=sum(groups.values()),
+                attention_backward_ops_matched=matched)
+
+
+def train_full(torch, mods):
+    """12a: Qwen2.5-3B whole at full width, f32 params, bf16 compute, remat:
+    one warm-up step and ``TRAIN_TIMED`` steps of ``make_train_step`` on
+    ``batch_at``'s 4,096-token sequences, each timed by CUDA events, then
+    one profiled step. Its attention alone (one layer's ``attention_ref``
+    forward and backward at the step's shape) is timed beside it."""
+    cfg = mods["get_config"](TRAIN_ARCH)
+    model = mods["get_model"](cfg)
+    leaves, adamw = mods["tree"].leaves, mods["adamw"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in leaves(params))
+    require(n_params == param_breakdown(cfg)["exact"], "train: parameter count")
+    require(all(x.dtype == torch.float32 for x in leaves(params)), "train: f32 params")
+    dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH)
+    step = mods["make_train_step"](model, adamw.AdamWConfig())
+    state = [params, opt]
+    del params, opt
+
+    def one(batch):
+        state[0], state[1], met = step(state[0], state[1], batch)
+        return met
+
+    def batch_at(i):
+        return mods["batch_at"](dcfg, i, device=DEV)
+
+    losses = [float(one(batch_at(0))["loss"])]          # warm-up
+    ms = []
+    for i in range(1, 1 + TRAIN_TIMED):
+        batch = batch_at(i)                     # drawn on the host, outside
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        met = one(batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(met["loss"]))
+    require(all(np.isfinite(losses)), f"train: losses {losses}")
+    require(int(state[1]["step"]) == 1 + TRAIN_TIMED, "train: optimizer step")
+    peak = torch.cuda.max_memory_allocated()
+    batch = batch_at(1 + TRAIN_TIMED)
+    prof = train_profile(torch, mods, lambda: one(batch))
+    attn = _attention_alone(torch, mods, cfg)
+    del state
+    torch.cuda.empty_cache()
+    fl = train_flops(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    step_ms = float(np.mean(ms))
+    state_bytes = 16 * n_params
+    adamw_bytes = 28 * n_params          # p, m, v read and written, g read
+    ops_ms = 1e3 * (fl["bf16"] / BF16_FLOPS + fl["f32"] / F32_FLOPS)
+    line = dict(part="full", model=cfg.name, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, params=n_params, param_dtype="float32",
+                compute_dtype=str(mods["layers"].COMPUTE_DTYPE), remat=cfg.remat,
+                seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                state_GB=state_bytes / 1e9, init_seconds=init_s,
+                losses=losses, ms_per_step=step_ms, ms_min=min(ms), ms_max=max(ms),
+                tokens_per_s=TRAIN_SEQ * TRAIN_BATCH * 1e3 / step_ms,
+                peak_GB=peak / 1e9, flops=fl,
+                model_flops_share_of_bf16_peak=fl["model"] / (step_ms / 1e3) / BF16_FLOPS,
+                bound_ms=max(ops_ms, 1e3 * adamw_bytes / HBM_BYTES_PER_S),
+                bound_by=("operations" if ops_ms > 1e3 * adamw_bytes / HBM_BYTES_PER_S
+                          else "bytes"),
+                ops_bound_ms=ops_ms,
+                ops_bound_all_bf16_ms=1e3 * fl["total"] / BF16_FLOPS,
+                adamw_bytes_bound_ms=1e3 * adamw_bytes / HBM_BYTES_PER_S,
+                profile=prof, attention_alone=attn)
+    _train(line, mods)
+    return line
+
+
+def _attention_alone(torch, mods, cfg):
+    """One layer's ``attention_ref`` at the 12a step's shape, forward and
+    forward + backward, timed by CUDA events (no flush: a layer's q, k and
+    v are made just before), and the step's share: each layer runs the
+    forward twice (remat) and the backward once."""
+    L = mods["layers"]
+    g = torch.Generator(device=DEV).manual_seed(5)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    q = torch.randn(shape + (cfg.n_heads, cfg.hd), generator=g, device=DEV).to(L.COMPUTE_DTYPE)
+    k = torch.randn(shape + (cfg.n_kv_heads, cfg.hd), generator=g, device=DEV).to(L.COMPUTE_DTYPE)
+    v = torch.randn_like(k)
+    q.requires_grad_(True), k.requires_grad_(True), v.requires_grad_(True)
+    dout = torch.randn_like(q)
+
+    def fwd():
+        with torch.no_grad():
+            return L.attention_ref(q, k, v, causal=True)
+
+    def fwd_bwd():
+        out = L.attention_ref(q, k, v, causal=True)
+        torch.autograd.grad(out, (q, k, v), dout)
+
+    def timed(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    f, fb = timed(fwd), timed(fwd_bwd)
+    return dict(forward_ms=f, forward_backward_ms=fb,
+                step_ms=cfg.n_layers * (f + fb) if cfg.remat else cfg.n_layers * fb)
+
+
+@contextlib.contextmanager
+def timed_saves(torch, ck):
+    """Each ``ck.save`` inside, synchronized and timed on the host clock:
+    the list of its stats with ``ms``. The wrapper is an attribute of
+    ``ck`` closing over ``ck``'s bound method, a reference cycle: it is
+    deleted on the way out."""
+    out, save = [], ck.save
+
+    def timed(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = save(state)
+        torch.cuda.synchronize()
+        out.append(dict(ms=1e3 * (time.perf_counter() - t0), **st))
+        return st
+
+    ck.save = timed
+    try:
+        yield out
+    finally:
+        del ck.save
+
+
+@contextlib.contextmanager
+def recorded_merges(ops):
+    """Each call of K9's word entry inside (``plan_merge``'s, in the save's
+    pool GC), kept as (its input, its outputs), copies both: the merge
+    that follows rewrites the merged layers in place. The module's entry
+    is put back on the way out."""
+    calls, merge_entries = [], ops.merge_entries
+
+    def recorded(sub):
+        before = sub.clone()
+        out = merge_entries(sub)
+        calls.append((before, tuple(x.clone() for x in out)))
+        return out
+
+    ops.merge_entries = recorded
+    try:
+        yield calls
+    finally:
+        ops.merge_entries = merge_entries
+
+
+def _require_saved_image(torch, mods, ck, what):
+    """After the run's last save (and the pool GC's merges and compaction
+    before it), every restore method reads the last saved page image back
+    word for word. Check reads: their launches are not the path's."""
+    with uncounted(mods["_build"]):
+        for method in ("direct", "pallas_vanilla", "pallas_direct"):
+            got = mods["store"].materialize(ck.chain, method=method)
+            require(torch.equal(got, ck._shadow),
+                    f"train: {what}: restore({method}) is not the saved image")
+            del got
+
+
+def _train_merge(torch, mods, calls, flush):
+    """K9 at 12b's shape: every merge of both runs' pool GCs bit-equal to
+    the plain merge on its input; the last one's input timed against its
+    plain version (its row's ``train_shape``)."""
+    sm, sm_ref = mods["sm"], mods["sm_ref"]
+    require(calls, "train: the pool GC never merged")
+    for sub, got in calls:
+        want = sm_ref.merge_entries_ref(sub)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                "train: K9's merge in the pool GC differs from the plain merge")
+        del want
+    sub = calls[-1][0]
+    k = sub.shape[0]
+    with uncounted(mods["_build"]):
+        src = sm_ref.merge_entries_ref(sub)[2]
+        walked = int(torch.where(src >= 0, k - src, k).sum())
+        del src
+        row, _ = measure(torch, "merge", lambda: sm.merge_entries_cuda(sub),
+                         lambda: sm_ref.merge_entries_ref(sub),
+                         8 * walked + 13 * sub.shape[1], 0, None, flush,
+                         n_kernel=20, n_plain=3)
+    return _shape_row(row, "merge", K_N=[k, sub.shape[1]], words_walked=walked,
+                      merges_checked=len(calls))
+
+
+def _greedy_plain(torch, mods, cfg, params, prompt, steps):
+    """Greedy tokens of the plain ``prefill`` and ``decode_step`` (dense
+    per-sequence cache, ``decode_attention_ref``): the first token and
+    ``steps`` more."""
+    T = mods["transformer"]
+    toks = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=DEV)
+    logits, pre = T.prefill(cfg, params, toks)
+    s = toks.shape[1]
+    cache = T.init_cache(cfg, 1, s + steps, device=DEV)
+    cache["k"][:, :, :s] = pre["k"]
+    cache["v"][:, :, :s] = pre["v"]
+    cache["pos"] = pre["pos"]
+    out = [int(torch.argmax(logits[0]))]
+    for _ in range(steps):
+        nxt = torch.tensor([[out[-1]]], dtype=torch.int64, device=DEV)
+        logits, cache = T.decode_step(cfg, params, cache, nxt)
+        out.append(int(torch.argmax(logits[0])))
+    return out
+
+
+def _serve_trained(torch, mods, cfg, params):
+    """The trained weights on the port's ``Engine`` through both decode
+    paths (tables: K3; fused: K4), a forked pair decoding
+    ``TRAIN_SERVE_STEPS`` tokens: in the compute dtype (bf16) the pair's
+    tokens are equal; in f32 both of the pair decode the plain
+    ``prefill``/``decode_step`` tokens on the same weights and prompt.
+    Returns the tokens by dtype and path."""
+    L = mods["layers"]
+    prompt = np.random.default_rng(12).integers(0, cfg.vocab_size, 24)
+    compute = L.COMPUTE_DTYPE
+    out = {}
+    try:
+        for dtype in (compute, torch.float32):
+            L.COMPUTE_DTYPE = dtype
+            want = (_greedy_plain(torch, mods, cfg, params, prompt, TRAIN_SERVE_STEPS)
+                    if dtype == torch.float32 else None)
+            for path, width in (("tables", 16), ("fused", 128)):
+                eng = mods["Engine"](cfg, params, scalable=True, n_blocks=64,
+                                     block_size=16, max_blocks_per_seq=width,
+                                     decode_path=path, device=DEV)
+                a = eng.add_request(prompt)
+                b = eng.fork_request(a)
+                for _ in range(TRAIN_SERVE_STEPS):
+                    eng.step()
+                got = list(eng.active[a])
+                require(got == eng.active[b],
+                        f"train: the forked pair decoded apart ({path}, {dtype})")
+                require(want is None or got == want,
+                        f"train: {path} serving {got} against the plain decode {want}")
+                for sid in sorted(eng.active):
+                    eng.finish_request(sid)
+                require(eng.kv.blocks_in_use() == 0, "train: serving leaked blocks")
+                out[f"{path}_{str(dtype).removeprefix('torch.')}"] = got
+                del eng
+    finally:
+        L.COMPUTE_DTYPE = compute
+    return out
+
+
+def train_chain(torch, mods, flush):
+    """12b: the ``Trainer`` at Qwen2.5-3B's full width, ``TRAIN_CHAIN_LAYERS``
+    layers, saving every ``TRAIN_CHAIN_EVERY`` steps into its chain. An
+    uninterrupted run, then a run crashed after step ``TRAIN_CRASH``:
+    resumed through ``direct``, ``pallas_vanilla`` and last
+    ``pallas_direct``, each time the state equal to the last saved page
+    image word for word; finished, its final loss within 1e-5 of the
+    uninterrupted run's. After each run's last save (past its pool GC),
+    every restore method reads the saved image back, and each merge the
+    GC made through K9 equals the plain merge. The resumed weights then
+    serve a forked pair on both decode paths. Launches are counted from
+    the first run to the serving (restores timed or checked for the line
+    uncounted). Returns the launches and K9's row at this shape."""
+    _build, leaves = mods["_build"], mods["tree"].leaves
+    full = mods["get_config"](TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CHAIN_LAYERS)
+    model = mods["get_model"](cfg)
+    dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=TRAIN_CHAIN_SEQ,
+                              global_batch=TRAIN_CHAIN_BATCH)
+    tcfg = mods["TrainerConfig"](total_steps=TRAIN_CHAIN_STEPS,
+                                 ckpt_every=TRAIN_CHAIN_EVERY, page_size=TRAIN_PAGE)
+    opt_cfg = mods["adamw"].AdamWConfig(lr=1e-3, total_steps=TRAIN_CHAIN_STEPS)
+    Trainer, merge_ops = mods["Trainer"], mods["chain"].merge_ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+
+    t0 = time.perf_counter()
+    ref = Trainer(model, opt_cfg, dcfg, tcfg, seed=0, device=DEV)
+    n_params = sum(x.numel() for x in leaves(ref.params))
+    spec = ref.ckpt.spec
+    image_bytes = spec.n_pages * spec.page_size * 4
+    with timed_saves(torch, ref.ckpt) as ref_saves, \
+            recorded_merges(merge_ops) as merges:
+        ref_report = ref.run()
+    ref_losses = list(ref.losses)
+    ref_s = time.perf_counter() - t0
+    merge_after_run = _build.LAUNCHES["merge"]
+    require(merge_after_run > 0, "train: the uninterrupted run's pool GC never ran")
+    _require_saved_image(torch, mods, ref.ckpt, "uninterrupted run")
+    del ref
+    torch.cuda.empty_cache()
+
+    t = Trainer(model, opt_cfg, dcfg, tcfg, seed=0, device=DEV)
+    with timed_saves(torch, t.ckpt) as saves:
+        try:
+            t.run(crash_after=TRAIN_CRASH)
+            crashed = False
+        except RuntimeError as e:
+            crashed = "simulated crash" in str(e)
+    require(crashed and t.step == TRAIN_CRASH, "train: the run did not crash")
+    last_saved = TRAIN_CRASH // TRAIN_CHAIN_EVERY * TRAIN_CHAIN_EVERY
+    restores = {}
+    for method in ("direct", "pallas_vanilla", "pallas_direct"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        at = t.resume(method=method)
+        torch.cuda.synchronize()
+        resume_ms = 1e3 * (time.perf_counter() - t1)
+        require(at == last_saved, f"train: resume({method}) at {at}, not {last_saved}")
+        require(torch.equal(t.ckpt._flatten(t._state()), t.ckpt._shadow),
+                f"train: resume({method}) is not the saved image word for word")
+        with uncounted(_build):
+            ms = timed_ms(torch, lambda: t.ckpt.restore(method=method),
+                          TRAIN_RESTORE_TIMED, flush)
+        restores[method] = dict(resume_ms=resume_ms, restore_ms=ms,
+                                word_exact=True)
+    merges_before = len(merges)
+    with timed_saves(torch, t.ckpt) as saves_after, \
+            recorded_merges(merge_ops) as resumed_merges:
+        report = t.run()
+    final, want = t.losses[-1], ref_losses[-1]
+    require(report["steps"] == TRAIN_CHAIN_STEPS, "train: resumed run's steps")
+    require(abs(final - want) <= 1e-5 * abs(want),
+            f"train: resumed final loss {final} against {want}")
+    require(resumed_merges, "train: the resumed run's pool GC never ran")
+    _require_saved_image(torch, mods, t.ckpt, "resumed run")
+    resumed = t.losses[TRAIN_CRASH:]
+    params, chain_length = t.params, int(t.ckpt.chain.length)
+    peak = torch.cuda.max_memory_allocated()
+    del t
+    torch.cuda.empty_cache()
+
+    served = _serve_trained(torch, mods, cfg, params)
+    launches = dict(_build.LAUNCHES)                  # read just after the path
+    del params
+    torch.cuda.empty_cache()
+    for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather", "merge",
+              "paged_attention", "fused_chain_attention"):
+        require(launches[k] > 0, f"train: kernel {k} never launched")
+    merge_row = _train_merge(torch, mods, merges + resumed_merges, flush)
+    del merges, resumed_merges
+    all_saves = ref_saves + saves + saves_after
+    _train(dict(part="chain", model=cfg.name, n_layers=cfg.n_layers,
+                of_layers=full.n_layers, d_model=cfg.d_model, params=n_params,
+                batch=[TRAIN_CHAIN_BATCH, TRAIN_CHAIN_SEQ], steps=TRAIN_CHAIN_STEPS,
+                ckpt_every=TRAIN_CHAIN_EVERY, crash_after=TRAIN_CRASH,
+                n_pages=spec.n_pages, page_bytes=spec.page_size * 4,
+                pool_rows=spec.pool_capacity, image_GB=image_bytes / 1e9,
+                uninterrupted_seconds=ref_s, ref_losses=ref_losses,
+                resumed_losses=resumed, final_loss=final, ref_final_loss=want,
+                final_loss_rel_diff=abs(final - want) / abs(want),
+                resumed_equal_ref=[x == y for x, y in
+                                   zip(resumed, ref_losses[last_saved:])],
+                resumed_at=last_saved, chain_length=chain_length,
+                ref_report=ref_report, report=report,
+                saves=dict(uninterrupted=ref_saves, crashed=saves, resumed=saves_after),
+                first_save_ms=all_saves[0]["ms"],
+                save_ms_mean=float(np.mean([s["ms"] for s in all_saves[1:]])),
+                merge_launches_first_run=merge_after_run,
+                merges=dict(uninterrupted=merges_before,
+                            resumed=merge_row["merges_checked"] - merges_before),
+                saved_image_after_gc_word_exact=True,
+                restores=restores,
+                restore_bound_ms=1e3 * 2 * image_bytes / HBM_BYTES_PER_S,
+                served_tokens=served, launches=launches,
+                merge_train_shape=merge_row,
+                peak_GB=peak / 1e9), mods)
+    return launches, merge_row
+
+
+def train_reference(torch, mods):
+    """12c: one training step of the smoke configs on the card against the
+    CPU on the same weights (bf16 compute on both): the loss and every
+    gradient leaf within ``TRAIN_REL_TOL`` relative L2, and ``batch_at``'s
+    tokens equal bit for bit."""
+    tree = mods["tree"]
+    for arch in TRAIN_SMOKE:
+        model = mods["get_model"](mods["smoke_config"](arch))
+        cpu_params = model.init(torch.Generator().manual_seed(1), device="cpu")
+        card_params = tree.tree_map(lambda x: x.to(DEV), cpu_params)
+        dcfg = mods["DataConfig"](vocab_size=model.cfg.vocab_size, seq_len=32,
+                                  global_batch=4)
+        cpu_b, card_b = (mods["batch_at"](dcfg, 3, device="cpu"),
+                         mods["batch_at"](dcfg, 3, device=DEV))
+        require(all(torch.equal(card_b[k].cpu(), cpu_b[k]) for k in cpu_b),
+                f"train: {arch} batch_at tokens differ card vs CPU")
+
+        def value_and_grad(params, batch):
+            xs = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+            loss = model.loss(tree.unflatten(params, xs), batch)
+            return loss.detach(), torch.autograd.grad(
+                loss, xs, materialize_grads=True, allow_unused=True)
+
+        def rel(got, want):
+            got, want = got.detach().cpu().double(), want.detach().double()
+            return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+        want_loss, want = value_and_grad(cpu_params, cpu_b)
+        got_loss, got = value_and_grad(card_params, card_b)
+        grad_rel = [rel(b, a) for a, b in zip(want, got)]
+        loss_rel = rel(got_loss, want_loss)
+        require(loss_rel < TRAIN_REL_TOL and max(grad_rel) < TRAIN_REL_TOL,
+                f"train: {arch} card vs CPU loss {loss_rel}, grads {max(grad_rel)}")
+        _train(dict(part="reference", model=arch, tokens_equal=True,
+                    loss_card=float(got_loss), loss_cpu=float(want_loss),
+                    loss_rel=loss_rel, grad_rel_max=max(grad_rel),
+                    grad_leaves=len(grad_rel), tolerance=TRAIN_REL_TOL), mods)
+
+
+def train_phase(torch, mods):
+    """12: (c) the smoke configs card against CPU, (a) Qwen2.5-3B whole,
+    (b) the trainer on its chain. Returns 12b's launches and K9's row at
+    12b's shape."""
+    collect_cycles(torch, lambda obj: _train({"part": "start", **obj}, mods))
+    t0 = time.perf_counter()
+    train_reference(torch, mods)
+    train_full(torch, mods)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+    launches, merge_row = train_chain(torch, mods, flush)
+    _train({"part": "end", "seconds": time.perf_counter() - t0}, mods)
+    return launches, merge_row
+
+
 def main() -> int:
     import torch
 
@@ -3379,9 +3954,14 @@ def main() -> int:
     from repro_torch.core.invariants import (check_fleet_invariants,
                                              check_kv_invariants)
     from repro_torch.core.scheduler import MaintenanceScheduler
-    from repro_torch.models import layers, moe
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import get_model, layers, moe, transformer
     from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.optim import adamw
     from repro_torch.serve.engine import Engine
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -3410,7 +3990,11 @@ def main() -> int:
                 check_kv_invariants=check_kv_invariants, migrate=migrate,
                 GoldenRegistry=GoldenRegistry, metrics=metrics, cache=cache,
                 resolve=resolve, ckpt=snapstore_ckpt, paper_chain=paper_chain,
-                smi=smi, get_config=get_config, moe=moe)
+                smi=smi, get_config=get_config, moe=moe, tree=tree,
+                get_model=get_model, adamw=adamw, DataConfig=DataConfig,
+                batch_at=batch_at, make_train_step=make_train_step,
+                Trainer=Trainer, TrainerConfig=TrainerConfig,
+                transformer=transformer)
 
     # 3. smoke-size reference: the card against the plain versions on the CPU
     t0 = time.perf_counter()
@@ -3503,9 +4087,13 @@ def main() -> int:
     del flush
     _families({"part": "end", "seconds": time.perf_counter() - t0}, mods)
 
+    # 12. training on the snapshot-checkpoint chain
+    train_launches, train_merge_row = train_phase(torch, mods)
+
     # launches on the main paths: the engines' runs, both store depths,
-    # both fleets, the maintenance runs, the golden and migration runs and
-    # phase 11's engines (each counted from zero just before its run)
+    # both fleets, the maintenance runs, the golden and migration runs,
+    # phase 11's engines and phase 12's trainer path (each counted from
+    # zero just before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
                    + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
                                               disk_launches, maint_launches,
@@ -3513,7 +4101,7 @@ def main() -> int:
                                               golden_fleet_launches,
                                               admission_launches,
                                               seqmig_launches, paper_launches,
-                                              family_launches))
+                                              family_launches, train_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
@@ -3528,6 +4116,8 @@ def main() -> int:
     for row in rows:                      # the checkpoint chain's shapes
         if row["name"] in ckpt_shapes:
             row["ckpt_shape"] = ckpt_shapes[row["name"]]
+        if row["name"] == "merge":        # phase 12b's pool GC
+            row["train_shape"] = train_merge_row
     floor, floor_clean = floor_ms(torch, torch.empty(64 * 2**20, dtype=torch.uint8,
                                                      device="cuda"))
     for row in rows:

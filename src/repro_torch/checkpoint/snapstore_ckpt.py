@@ -62,6 +62,9 @@ from repro_torch.core import resolve as resolve_lib
 from repro_torch.core import store as store_lib
 from repro_torch.core.chain import Chain, ChainSpec
 from repro_torch.device import as_device
+from repro_torch.tree import leaves as _leaves
+from repro_torch.tree import tree_map
+from repro_torch.tree import unflatten as _unflatten
 
 #: leaf dtypes held one word an element / two elements a word
 _WORD_DTYPES = (torch.float32, torch.int32, torch.uint32)
@@ -86,38 +89,6 @@ class _Leaf:
     @property
     def n_words(self) -> int:
         return -(-self.size // 2) if self.dtype in _HALF_DTYPES else self.size
-
-
-def _leaves(tree) -> list:
-    """A pytree's leaves in JAX's order: dict keys sorted, lists and tuples
-    in order, ``None`` an empty subtree."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [] if tree is None else [tree]
-
-
-def _unflatten(template, leaves):
-    """Rebuild ``template``'s structure from ``leaves`` in ``_leaves``
-    order (dicts keep the template's key order)."""
-    return _build(template, iter(leaves))
-
-
-def _build(node, it):
-    # module-level, not a closure: a recursive closure is a reference
-    # cycle, and its iterator would keep a restored image alive until the
-    # cycle collector ran
-    if isinstance(node, dict):
-        vals = {k: _build(node[k], it) for k in sorted(node)}
-        return {k: vals[k] for k in node}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_build(v, it) for v in node)
-    return None if node is None else next(it)
-
-
-def _map(tree, fn):
-    return _unflatten(tree, [fn(x) for x in _leaves(tree)])
 
 
 def _leaf_to_words(leaf: torch.Tensor) -> torch.Tensor:
@@ -151,7 +122,8 @@ class SnapshotCheckpointer:
         pool_slack: float = 4.0,
         device="cuda",
     ):
-        self.template = _map(template, lambda x: _Leaf(tuple(x.shape), x.dtype))
+        self.template = tree_map(lambda x: _Leaf(tuple(x.shape), x.dtype),
+                                 template)
         for leaf in _leaves(self.template):
             if leaf.dtype not in _WORD_DTYPES + _HALF_DTYPES:
                 raise TypeError(f"unsupported checkpoint dtype {leaf.dtype}")

@@ -37,6 +37,7 @@ class ModelConfig:
     use_rope: bool = True
     # run-time knobs, as in the JAX package
     dispatch_groups: int = 1    # MoE dispatch groups (each with its capacity)
+    remat: bool = True          # activation checkpointing per layer (training)
     cache_f32: bool = False     # storage dtype of the plain decode KV cache
 
     @property

@@ -1,5 +1,5 @@
-"""Carry the JAX package's weights, chain, fleet and cold-tier state into
-the port.
+"""Carry the JAX package's weights, training state, chain, fleet and
+cold-tier state into the port.
 
 Every function takes plain numpy arrays (``np.asarray`` of each JAX leaf),
 so the port never imports JAX: tests convert on their side and hand the
@@ -26,8 +26,11 @@ def params_from_jax(tree, device="cuda", dtype=None):
     ``w_gate`` in an ungated MLP) or, in a MoE layer, ``ff.{router,
     e_gate,e_up,e_down}`` (the experts (L, E, ...)) with
     ``ff.shared.{w_gate,w_up,w_down}`` and ``ff.shared_gate`` where the
-    config has shared experts — as the port's params on ``device`` (leaves
-    keep their dtype unless ``dtype`` is given)."""
+    config has shared experts — as the port's params on ``device``: every
+    leaf goes through float32 (which holds every bf16 value exactly) and is
+    stored in ``dtype``, float32 by default. Integer leaves would be
+    rounded above 2^24 on that way: a training state, whose AdamW step is
+    ``int32``, goes through ``train_state_from_jax``."""
     dev = as_device(device)
 
     def conv(x):
@@ -37,6 +40,21 @@ def params_from_jax(tree, device="cuda", dtype=None):
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     return conv(tree)
+
+
+def train_state_from_jax(params, opt_state, device="cuda"):
+    """The JAX trainer's ``(params, opt_state)`` as numpy — the params
+    pytree of ``params_from_jax`` and AdamW's ``dict(m=..., v=...,
+    step=...)`` — as the port's ``(params, opt_state)`` on ``device``:
+    params, ``m`` and ``v`` float32, ``step`` an ``int32`` scalar taken
+    as an integer, never through float32. With the same state both
+    trainers' checkpoints hold the same words."""
+    dev = as_device(device)
+    state = dict(m=params_from_jax(opt_state["m"], dev),
+                 v=params_from_jax(opt_state["v"], dev),
+                 step=torch.tensor(int(np.asarray(opt_state["step"])),
+                                   dtype=torch.int32, device=dev))
+    return params_from_jax(params, dev), state
 
 
 #: ChainFleet tensor fields, in declaration order.

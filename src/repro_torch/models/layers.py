@@ -267,3 +267,34 @@ def mlp_apply(p, x, activation: str):
     else:
         up = act(up)
     return up @ p["w_down"].to(cd)
+
+
+# ---------------------------------------------------------------------------
+# LM loss (chunked over the sequence so (B, S, V) never fully materializes)
+# ---------------------------------------------------------------------------
+
+def lm_loss(hidden, w_out, labels, *, s_chunk: int = 512, mask=None):
+    """Cross-entropy of hidden @ w_out against labels, chunked over S.
+
+    hidden: (B, S, d) compute-dtype; w_out: (d, V); labels: (B, S) int.
+    Returns the mean nll over unmasked positions (f32 scalar). Each chunk's
+    logits are f32 (the product in the compute dtype, then cast) and its
+    nll is logsumexp minus the gold logit. The JAX package pads S up to a
+    whole number of chunks and masks the pad; here the last chunk is
+    short instead, which sums the same terms."""
+    b, s, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.bool, device=hidden.device)
+    w = w_out.to(hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, s_chunk):
+        h = hidden[:, lo:lo + s_chunk]
+        lab = labels[:, lo:lo + s_chunk].long()
+        m = mask[:, lo:lo + s_chunk]
+        logits = (h @ w).float()
+        gold = logits.gather(-1, lab[..., None])[..., 0]
+        nll = torch.where(m, torch.logsumexp(logits, dim=-1) - gold, 0.0)
+        total = total + nll.sum()
+        count = count + m.sum()
+    return total / count.clamp(min=1.0)

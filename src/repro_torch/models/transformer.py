@@ -10,8 +10,11 @@ Parameters keep the JAX package's layout: a dict with ``embed``, ``ln_f``,
 (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo,bq,bk,bv,q_norm,k_norm}``, and
 ``ff.{w_up,w_gate,w_down}`` or the MoE's ``ff.{router,e_gate,e_up,e_down,
 shared.{w_gate,w_up,w_down},shared_gate}``). The JAX scan over layers
-becomes a Python loop over ``layer(params["layers"], i)`` views. The
-plain decode path (``init_cache``, ``decode_step``) keeps a dense
+becomes a Python loop over ``layer(params["layers"], i)`` views;
+training (``loss_fn``) loops over the leaves unbound a layer at a time,
+each layer under ``torch.utils.checkpoint`` where ``cfg.remat`` (the
+JAX package's ``jax.checkpoint`` of the scan body). The plain decode
+path (``init_cache``, ``decode_step``) keeps a dense
 (L, B, S, Hkv, D) cache per request; serving reads a paged pool instead
 (``serve.paged_decode``).
 """
@@ -19,6 +22,7 @@ plain decode path (``init_cache``, ``decode_step``) keeps a dense
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
@@ -135,6 +139,48 @@ def block_fwd(cfg: ModelConfig, p, x, positions):
     h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     ff_out, aux = ff(cfg, p["ff"], h2)
     return x + ff_out, k, v, aux
+
+
+def _block_train(cfg: ModelConfig, p, x, positions):
+    x, _, _, aux = block_fwd(cfg, p, x, positions)
+    return x, aux
+
+
+def _unbind(stacked: dict, n: int) -> list:
+    """The L-stacked leaves as ``n`` per-layer dicts of ``unbind`` views:
+    the backward stacks each leaf's gradient once (a ``layer(...)`` view
+    per layer would add a zero-padded full-size gradient a layer)."""
+    cols = {k: _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def train_stack(cfg: ModelConfig, layers: dict, x, positions):
+    """The training forward of every layer: (x, the MoE aux losses summed,
+    0.0 for a dense model). With ``cfg.remat`` each layer runs under a
+    non-reentrant ``checkpoint``, so the backward keeps each layer's input
+    and recomputes the rest, as the JAX package's remat scan does."""
+    aux = 0.0
+    for p in _unbind(layers, cfg.n_layers):
+        if cfg.remat:
+            x, a = checkpoint(_block_train, cfg, p, x, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _block_train(cfg, p, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, labels):
+    """Teacher-forced LM loss. tokens/labels: (B, S) int. The attention is
+    ``L.attention_ref``, as in the JAX package's training path."""
+    x = embed_tokens(params, tokens)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)[None]
+    x, aux = train_stack(cfg, params["layers"], x, positions)
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    nll = L.lm_loss(x, output_matrix(cfg, params).to(x.dtype), labels)
+    return nll + 0.01 * aux
 
 
 def block_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int):

@@ -813,3 +813,80 @@ def test_moe_apply_on_card_equals_cpu(cuda, arch, dtype):
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype] * scale)
     torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+def _grad_rel(got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2-moe-a2.7b"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """One training step's loss and every gradient leaf on the card against
+    the CPU on the same weights (bf16 compute on both; within bf16's 2e-2
+    relative L2), the pipeline's tokens bitwise equal, and after one
+    ``make_train_step`` step AdamW's ``m`` within the same bound."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    model = get_model(smoke_config(arch))
+    cpu_params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    card_params = tree_map(lambda x: x.to(cuda), cpu_params)
+    dcfg = DataConfig(vocab_size=model.cfg.vocab_size, seq_len=32, global_batch=4)
+    cpu_batch, card_batch = batch_at(dcfg, 3, device="cpu"), batch_at(dcfg, 3, device=cuda)
+    for k in ("tokens", "labels"):
+        assert torch.equal(card_batch[k].cpu(), cpu_batch[k])
+
+    def value_and_grad(params, batch):
+        xs = [p.detach().requires_grad_(True) for p in leaves(params)]
+        loss = model.loss(unflatten(params, xs), batch)
+        return loss, torch.autograd.grad(loss, xs, materialize_grads=True,
+                                         allow_unused=True)
+
+    want_loss, want = value_and_grad(cpu_params, cpu_batch)
+    got_loss, got = value_and_grad(card_params, card_batch)
+    assert _grad_rel(got_loss, want_loss) < 2e-2
+    for a, b in zip(want, got):
+        assert b.is_cuda and _grad_rel(b, a) < 2e-2
+    step = make_train_step(model, adamw.AdamWConfig(lr=1e-3))
+    _, cpu_opt, _ = step(cpu_params, adamw.init(cpu_params), cpu_batch)
+    _, card_opt, _ = step(card_params, adamw.init(card_params), card_batch)
+    for a, b in zip(leaves(cpu_opt["m"]), leaves(card_opt["m"])):
+        assert _grad_rel(b, a) < 2e-2
+
+
+def test_trainer_crash_restart_on_card(cuda):
+    """The smoke trainer on the card: crash after step 5, the kernel
+    restores (K2 + K8, K1 + K8) equal the ``direct`` restore word for word
+    and the last saved image, the resume lands at step 3, and the final
+    loss equals the uninterrupted run's within the JAX test's 1e-5."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import store
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    model = get_model(smoke_config("qwen2.5-3b"))
+    dcfg = DataConfig(vocab_size=model.cfg.vocab_size, seq_len=16, global_batch=2)
+    tcfg = TrainerConfig(total_steps=9, ckpt_every=3, page_size=256)
+    ref = Trainer(model, AdamWConfig(lr=1e-3), dcfg, tcfg, seed=0, device=cuda)
+    ref.run()
+    t = Trainer(model, AdamWConfig(lr=1e-3), dcfg, tcfg, seed=0, device=cuda)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        t.run(crash_after=5)
+    direct = store.materialize(t.ckpt.chain, method="direct")
+    assert torch.equal(direct, t.ckpt._shadow)
+    _build.reset_launches()
+    for method in ("pallas_vanilla", "pallas_direct"):
+        assert torch.equal(store.materialize(t.ckpt.chain, method=method), direct)
+    assert _build.LAUNCHES["resolve_direct_fleet"] > 0
+    assert _build.LAUNCHES["resolve_vanilla_fleet"] > 0
+    assert _build.LAUNCHES["gather"] > 0
+    assert t.resume(method="pallas_direct") == 3
+    t.run()
+    np.testing.assert_allclose(t.losses[-1], ref.losses[-1], rtol=1e-5)
