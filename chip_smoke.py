@@ -213,8 +213,31 @@ Phases, each printing its own lines:
    ``train_shape`` on its row). The resumed weights serve a forked pair
    on both decode paths, in bf16 and in f32 against the plain greedy
    ``prefill``/``decode_step``.
+13. families — the other model families: RWKV-6 (ssm), Zamba2 (hybrid:
+   Mamba2 and a shared attention block) and Whisper (encoder-decoder); its
+   lines carry ``"phase": "families"`` and the card's name and power
+   limit. (a) The three smoke configs on the card against the CPU (bf16
+   on both, the same weights): prefill logits, a decode step into a cache
+   with room, the loss and every gradient within 2e-2 relative L2;
+   ``batch_at``'s frames bitwise. (b) RWKV6-3B, Zamba2-2.7B and
+   Whisper-base (1,500 frames) whole, bf16 weights drawn on the card from
+   seed 0: prefill 8 prompts of 512 tokens, 16 greedy decode steps into a
+   cache with room, prefill ms and decode ms a step by CUDA events, wall
+   ms, peak GB; prefill(S) and one decode step against prefill(S + 1),
+   and RWKV-6's chunked prefill against its scan, in bf16 within 1e-1
+   relative L2 (bf16's roundings compound over the random-weight layers)
+   and in f32 compute on the same weights within 1e-3. (c) RWKV6-3B trained whole (chunked
+   form, f32 state, bf16 compute, remat, 1 x 4,096 tokens): 3 steps by
+   CUDA events after a warm-up, tokens/s, peak GB, its bound from the
+   shapes (``rwkv_train_flops``); one Zamba2-2.7B step at 1 x 512. (d)
+   Whisper-base whole on the ``Trainer``'s chain, 4 x 448 tokens with
+   frames, 12 steps saving every 2, crashed after 7 and resumed at 6
+   through the three methods, word-exact, every resumed loss bitwise
+   equal to the whole run's; each pool-GC merge (K9) equals the plain
+   merge (``whisper_train_shape`` on K9's row). 13d's K1/K2/K8/K9
+   launches go on the kernels line.
 
-Phases 10, 11 and 12 start with ``gc.collect()``, and before it a report
+Phases 10 to 13 start with ``gc.collect()``, and before it a report
 of what it frees (``cycles``): the CUDA tensors that only reference
 cycles hold, largest first, with the objects that refer to them;
 ``held_GB_before_collect`` must then stay within 1 GB of
@@ -222,7 +245,8 @@ cycles hold, largest first, with the objects that refer to them;
 
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet, each part of phase 9, each checkpoint chain
-of phase 10, each engine of phase 11, phase 12b's trainer path) and read
+of phase 10, each engine of phase 11, phase 12b's and 13d's trainer
+paths) and read
 just after it,
 before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
@@ -357,7 +381,24 @@ TRAIN_SERVE_STEPS = 4            # tokens the served pair decodes after the firs
 TRAIN_SMOKE = ("qwen2.5-3b", "qwen2-moe-a2.7b")
 TRAIN_REL_TOL = 2e-2             # bf16 on the card against bf16 on the CPU
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
-DEV = "cuda"                     # phases 6-12 run here
+# phase 13: the other model families. 13b serves each at full width and
+# depth; 13c trains RWKV6-3B whole on one sequence of train_4k's 4,096
+# tokens (its global batch of 256 cut to 1 so that the f32 state, 49.2 GB,
+# fits one card, as 12a) and takes one Zamba2-2.7B step at 512 tokens (its
+# per-token scan launches a few kernels a token and layer); 13d runs
+# Whisper-base whole on the trainer's chain at 4 x 448 tokens (its decoder
+# context) with 1,500 frames.
+FAMILY_ARCHS = ("rwkv6-3b", "zamba2-2.7b", "whisper-base")
+FAMILY_PROMPTS, FAMILY_PROMPT, FAMILY_DECODE = 8, 512, 16
+FAMILY_TRAIN = (("rwkv6-3b", 4_096, 3), ("zamba2-2.7b", 512, 1))
+FAMILY_CHAIN_ARCH, FAMILY_CHAIN_BATCH, FAMILY_CHAIN_SEQ = "whisper-base", 4, 448
+FAMILY_REL_TOL = 2e-2            # bf16 on the card against bf16 on the CPU
+# decode against prefill(S + 1) and RWKV's chunked prefill against its
+# scan: the same function in another op order. In bf16 the roundings of
+# 32-54 random-weight layers compound (0.6-4.4e-2 measured on an H100);
+# f32 compute on the same weights holds the algorithm
+FAMILY_BF16_TOL, FAMILY_F32_TOL = 1e-1, 1e-3
+DEV = "cuda"                     # phases 6-13 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -3393,6 +3434,24 @@ def _train(obj, mods):
     emit({**obj, "phase": "train", "card": mods["smi"]})
 
 
+def _rel(torch, got, want) -> float:
+    """Relative L2 of ``got`` against ``want``, on the host in f64."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _events_ms(torch, fn):
+    """``fn()`` timed by CUDA events: (its result, ms)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 TRAIN_ATTENTION, TRAIN_ADAMW = "train.attention", "train.adamw"
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 
@@ -3530,14 +3589,8 @@ def train_full(torch, mods):
     ms = []
     for i in range(1, 1 + TRAIN_TIMED):
         batch = batch_at(i)                     # drawn on the host, outside
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        met = one(batch)
-        b.record()
-        b.synchronize()
-        ms.append(a.elapsed_time(b))
+        met, t = _events_ms(torch, lambda: one(batch))
+        ms.append(t)
         losses.append(float(met["loss"]))
     require(all(np.isfinite(losses)), f"train: losses {losses}")
     require(int(state[1]["step"]) == 1 + TRAIN_TIMED, "train: optimizer step")
@@ -3751,28 +3804,20 @@ def _serve_trained(torch, mods, cfg, params):
     return out
 
 
-def train_chain(torch, mods, flush):
-    """12b: the ``Trainer`` at Qwen2.5-3B's full width, ``TRAIN_CHAIN_LAYERS``
-    layers, saving every ``TRAIN_CHAIN_EVERY`` steps into its chain. An
-    uninterrupted run, then a run crashed after step ``TRAIN_CRASH``:
-    resumed through ``direct``, ``pallas_vanilla`` and last
-    ``pallas_direct``, each time the state equal to the last saved page
-    image word for word; finished, its final loss within 1e-5 of the
-    uninterrupted run's. After each run's last save (past its pool GC),
-    every restore method reads the saved image back, and each merge the
-    GC made through K9 equals the plain merge. The resumed weights then
-    serve a forked pair on both decode paths. Launches are counted from
-    the first run to the serving (restores timed or checked for the line
-    uncounted). Returns the launches and K9's row at this shape."""
+def crash_and_resume(torch, mods, flush, model, dcfg, tcfg, opt_cfg, what,
+                     exact=False):
+    """The ``Trainer`` on its chain, as ``tests/test_checkpoint.py``'s
+    crash/restart: an uninterrupted run, then a run crashed after step
+    ``TRAIN_CRASH``, resumed through ``direct``, ``pallas_vanilla`` and
+    last ``pallas_direct`` (each time the state equal to the last saved
+    page image word for word) and finished: its final loss within 1e-5 of
+    the uninterrupted run's, or with ``exact`` every loss after the resume
+    equal to the uninterrupted run's bit for bit. After each run's last
+    save (past its pool GC) every restore method reads the saved image
+    back. Launches count from the first run on (restores timed for the
+    line uncounted). Returns the runs' numbers, the merges the GC made
+    (K9's word entry, recorded) and the resumed weights."""
     _build, leaves = mods["_build"], mods["tree"].leaves
-    full = mods["get_config"](TRAIN_ARCH)
-    cfg = dataclasses.replace(full, n_layers=TRAIN_CHAIN_LAYERS)
-    model = mods["get_model"](cfg)
-    dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=TRAIN_CHAIN_SEQ,
-                              global_batch=TRAIN_CHAIN_BATCH)
-    tcfg = mods["TrainerConfig"](total_steps=TRAIN_CHAIN_STEPS,
-                                 ckpt_every=TRAIN_CHAIN_EVERY, page_size=TRAIN_PAGE)
-    opt_cfg = mods["adamw"].AdamWConfig(lr=1e-3, total_steps=TRAIN_CHAIN_STEPS)
     Trainer, merge_ops = mods["Trainer"], mods["chain"].merge_ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3782,15 +3827,14 @@ def train_chain(torch, mods, flush):
     ref = Trainer(model, opt_cfg, dcfg, tcfg, seed=0, device=DEV)
     n_params = sum(x.numel() for x in leaves(ref.params))
     spec = ref.ckpt.spec
-    image_bytes = spec.n_pages * spec.page_size * 4
     with timed_saves(torch, ref.ckpt) as ref_saves, \
             recorded_merges(merge_ops) as merges:
         ref_report = ref.run()
     ref_losses = list(ref.losses)
     ref_s = time.perf_counter() - t0
     merge_after_run = _build.LAUNCHES["merge"]
-    require(merge_after_run > 0, "train: the uninterrupted run's pool GC never ran")
-    _require_saved_image(torch, mods, ref.ckpt, "uninterrupted run")
+    require(merge_after_run > 0, f"{what}: the uninterrupted run's pool GC never ran")
+    _require_saved_image(torch, mods, ref.ckpt, f"{what}: uninterrupted run")
     del ref
     torch.cuda.empty_cache()
 
@@ -3801,8 +3845,8 @@ def train_chain(torch, mods, flush):
             crashed = False
         except RuntimeError as e:
             crashed = "simulated crash" in str(e)
-    require(crashed and t.step == TRAIN_CRASH, "train: the run did not crash")
-    last_saved = TRAIN_CRASH // TRAIN_CHAIN_EVERY * TRAIN_CHAIN_EVERY
+    require(crashed and t.step == TRAIN_CRASH, f"{what}: the run did not crash")
+    last_saved = TRAIN_CRASH // tcfg.ckpt_every * tcfg.ckpt_every
     restores = {}
     for method in ("direct", "pallas_vanilla", "pallas_direct"):
         torch.cuda.synchronize()
@@ -3810,66 +3854,110 @@ def train_chain(torch, mods, flush):
         at = t.resume(method=method)
         torch.cuda.synchronize()
         resume_ms = 1e3 * (time.perf_counter() - t1)
-        require(at == last_saved, f"train: resume({method}) at {at}, not {last_saved}")
+        require(at == last_saved, f"{what}: resume({method}) at {at}, not {last_saved}")
         require(torch.equal(t.ckpt._flatten(t._state()), t.ckpt._shadow),
-                f"train: resume({method}) is not the saved image word for word")
+                f"{what}: resume({method}) is not the saved image word for word")
         with uncounted(_build):
             ms = timed_ms(torch, lambda: t.ckpt.restore(method=method),
                           TRAIN_RESTORE_TIMED, flush)
         restores[method] = dict(resume_ms=resume_ms, restore_ms=ms,
                                 word_exact=True)
-    merges_before = len(merges)
     with timed_saves(torch, t.ckpt) as saves_after, \
             recorded_merges(merge_ops) as resumed_merges:
         report = t.run()
     final, want = t.losses[-1], ref_losses[-1]
-    require(report["steps"] == TRAIN_CHAIN_STEPS, "train: resumed run's steps")
-    require(abs(final - want) <= 1e-5 * abs(want),
-            f"train: resumed final loss {final} against {want}")
-    require(resumed_merges, "train: the resumed run's pool GC never ran")
-    _require_saved_image(torch, mods, t.ckpt, "resumed run")
     resumed = t.losses[TRAIN_CRASH:]
-    params, chain_length = t.params, int(t.ckpt.chain.length)
-    peak = torch.cuda.max_memory_allocated()
+    require(report["steps"] == tcfg.total_steps, f"{what}: resumed run's steps")
+    if exact:
+        require(resumed == ref_losses[last_saved:],
+                f"{what}: resumed losses {resumed} against {ref_losses[last_saved:]}")
+    require(abs(final - want) <= 1e-5 * abs(want),
+            f"{what}: resumed final loss {final} against {want}")
+    require(resumed_merges, f"{what}: the resumed run's pool GC never ran")
+    _require_saved_image(torch, mods, t.ckpt, f"{what}: resumed run")
+    out = dict(params=t.params, chain_length=int(t.ckpt.chain.length),
+               merges=merges, resumed_merges=resumed_merges, n_params=n_params,
+               spec=spec, ref_s=ref_s, ref_losses=ref_losses, resumed=resumed,
+               final=final, want=want, last_saved=last_saved,
+               ref_report=ref_report, report=report, restores=restores,
+               saves=dict(uninterrupted=ref_saves, crashed=saves,
+                          resumed=saves_after),
+               merge_after_run=merge_after_run,
+               peak=torch.cuda.max_memory_allocated())
     del t
     torch.cuda.empty_cache()
+    return out
 
-    served = _serve_trained(torch, mods, cfg, params)
-    launches = dict(_build.LAUNCHES)                  # read just after the path
-    del params
+
+def chain_line(run, merge_row, launches):
+    """The numbers of a ``crash_and_resume`` run for its phase's line."""
+    spec = run["spec"]
+    image_bytes = spec.n_pages * spec.page_size * 4
+    all_saves = [x for v in run["saves"].values() for x in v]
+    return dict(
+        params=run["n_params"], steps=run["report"]["steps"],
+        crash_after=TRAIN_CRASH, n_pages=spec.n_pages,
+        page_bytes=spec.page_size * 4, pool_rows=spec.pool_capacity,
+        image_GB=image_bytes / 1e9, uninterrupted_seconds=run["ref_s"],
+        ref_losses=run["ref_losses"], resumed_losses=run["resumed"],
+        final_loss=run["final"], ref_final_loss=run["want"],
+        final_loss_rel_diff=abs(run["final"] - run["want"]) / abs(run["want"]),
+        resumed_equal_ref=[x == y for x, y in
+                           zip(run["resumed"], run["ref_losses"][run["last_saved"]:])],
+        resumed_at=run["last_saved"], chain_length=run["chain_length"],
+        ref_report=run["ref_report"], report=run["report"], saves=run["saves"],
+        first_save_ms=all_saves[0]["ms"],
+        save_ms_mean=float(np.mean([x["ms"] for x in all_saves[1:]])),
+        merge_launches_first_run=run["merge_after_run"],
+        merges=dict(uninterrupted=len(run["merges"]),
+                    resumed=len(run["resumed_merges"])),
+        saved_image_after_gc_word_exact=True, restores=run["restores"],
+        restore_bound_ms=1e3 * 2 * image_bytes / HBM_BYTES_PER_S,
+        launches=launches, merge_shape=merge_row, peak_GB=run["peak"] / 1e9)
+
+
+CHAIN_KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather", "merge")
+
+
+def train_chain(torch, mods, flush):
+    """12b: the ``Trainer`` at Qwen2.5-3B's full width, ``TRAIN_CHAIN_LAYERS``
+    layers, saving every ``TRAIN_CHAIN_EVERY`` steps into its chain, crashed
+    and resumed (``crash_and_resume``); each merge the pool GC made
+    through K9 equals the plain merge. The resumed weights then serve a
+    forked pair on both decode paths. Launches are counted from the first
+    run to the serving. Returns the launches and K9's row at this
+    shape."""
+    full = mods["get_config"](TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_CHAIN_LAYERS)
+    dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=TRAIN_CHAIN_SEQ,
+                              global_batch=TRAIN_CHAIN_BATCH)
+    tcfg = mods["TrainerConfig"](total_steps=TRAIN_CHAIN_STEPS,
+                                 ckpt_every=TRAIN_CHAIN_EVERY, page_size=TRAIN_PAGE)
+    opt_cfg = mods["adamw"].AdamWConfig(lr=1e-3, total_steps=TRAIN_CHAIN_STEPS)
+    run = crash_and_resume(torch, mods, flush, mods["get_model"](cfg), dcfg, tcfg,
+                           opt_cfg, "train")
+    served = _serve_trained(torch, mods, cfg, run.pop("params"))
+    launches = dict(mods["_build"].LAUNCHES)          # read just after the path
     torch.cuda.empty_cache()
-    for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather", "merge",
-              "paged_attention", "fused_chain_attention"):
+    for k in CHAIN_KERNELS + ("paged_attention", "fused_chain_attention"):
         require(launches[k] > 0, f"train: kernel {k} never launched")
-    merge_row = _train_merge(torch, mods, merges + resumed_merges, flush)
-    del merges, resumed_merges
-    all_saves = ref_saves + saves + saves_after
+    merge_row = _train_merge(torch, mods, run["merges"] + run["resumed_merges"], flush)
+    line = chain_line(run, merge_row, launches)
+    line["merge_train_shape"] = line.pop("merge_shape")
     _train(dict(part="chain", model=cfg.name, n_layers=cfg.n_layers,
-                of_layers=full.n_layers, d_model=cfg.d_model, params=n_params,
-                batch=[TRAIN_CHAIN_BATCH, TRAIN_CHAIN_SEQ], steps=TRAIN_CHAIN_STEPS,
-                ckpt_every=TRAIN_CHAIN_EVERY, crash_after=TRAIN_CRASH,
-                n_pages=spec.n_pages, page_bytes=spec.page_size * 4,
-                pool_rows=spec.pool_capacity, image_GB=image_bytes / 1e9,
-                uninterrupted_seconds=ref_s, ref_losses=ref_losses,
-                resumed_losses=resumed, final_loss=final, ref_final_loss=want,
-                final_loss_rel_diff=abs(final - want) / abs(want),
-                resumed_equal_ref=[x == y for x, y in
-                                   zip(resumed, ref_losses[last_saved:])],
-                resumed_at=last_saved, chain_length=chain_length,
-                ref_report=ref_report, report=report,
-                saves=dict(uninterrupted=ref_saves, crashed=saves, resumed=saves_after),
-                first_save_ms=all_saves[0]["ms"],
-                save_ms_mean=float(np.mean([s["ms"] for s in all_saves[1:]])),
-                merge_launches_first_run=merge_after_run,
-                merges=dict(uninterrupted=merges_before,
-                            resumed=merge_row["merges_checked"] - merges_before),
-                saved_image_after_gc_word_exact=True,
-                restores=restores,
-                restore_bound_ms=1e3 * 2 * image_bytes / HBM_BYTES_PER_S,
-                served_tokens=served, launches=launches,
-                merge_train_shape=merge_row,
-                peak_GB=peak / 1e9), mods)
+                of_layers=full.n_layers, d_model=cfg.d_model,
+                batch=[TRAIN_CHAIN_BATCH, TRAIN_CHAIN_SEQ],
+                ckpt_every=TRAIN_CHAIN_EVERY, served_tokens=served, **line), mods)
     return launches, merge_row
+
+
+def _value_and_grad(torch, mods, model, params, batch):
+    """``model.loss`` and its gradient by every leaf of ``params``."""
+    tree = mods["tree"]
+    xs = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    loss = model.loss(tree.unflatten(params, xs), batch)
+    return loss.detach(), torch.autograd.grad(loss, xs, materialize_grads=True,
+                                              allow_unused=True)
 
 
 def train_reference(torch, mods):
@@ -3889,20 +3977,10 @@ def train_reference(torch, mods):
         require(all(torch.equal(card_b[k].cpu(), cpu_b[k]) for k in cpu_b),
                 f"train: {arch} batch_at tokens differ card vs CPU")
 
-        def value_and_grad(params, batch):
-            xs = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
-            loss = model.loss(tree.unflatten(params, xs), batch)
-            return loss.detach(), torch.autograd.grad(
-                loss, xs, materialize_grads=True, allow_unused=True)
-
-        def rel(got, want):
-            got, want = got.detach().cpu().double(), want.detach().double()
-            return float((got - want).norm() / want.norm().clamp(min=1e-30))
-
-        want_loss, want = value_and_grad(cpu_params, cpu_b)
-        got_loss, got = value_and_grad(card_params, card_b)
-        grad_rel = [rel(b, a) for a, b in zip(want, got)]
-        loss_rel = rel(got_loss, want_loss)
+        want_loss, want = _value_and_grad(torch, mods, model, cpu_params, cpu_b)
+        got_loss, got = _value_and_grad(torch, mods, model, card_params, card_b)
+        grad_rel = [_rel(torch, b, a) for a, b in zip(want, got)]
+        loss_rel = _rel(torch, got_loss, want_loss)
         require(loss_rel < TRAIN_REL_TOL and max(grad_rel) < TRAIN_REL_TOL,
                 f"train: {arch} card vs CPU loss {loss_rel}, grads {max(grad_rel)}")
         _train(dict(part="reference", model=arch, tokens_equal=True,
@@ -3922,6 +4000,302 @@ def train_phase(torch, mods):
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
     launches, merge_row = train_chain(torch, mods, flush)
     _train({"part": "end", "seconds": time.perf_counter() - t0}, mods)
+    return launches, merge_row
+
+
+# -- phase 13: the other model families ---------------------------------------
+
+
+def _fam(obj, mods):
+    """A phase-13 line: the card's name and power limit beside its numbers."""
+    emit({**obj, "phase": "families", "card": mods["smi"]})
+
+
+def _splice(mods, model, pre, room, device):
+    """A prefill cache spliced into ``model.init_cache(B, room)``: leaves
+    of the same shape taken as they are, the K/V written into the first
+    positions, so a decode step has room to write at ``pos``."""
+    batch = next(v for v in pre.values() if hasattr(v, "shape")).shape[1]
+    cache = model.init_cache(batch, room, device=device)
+    for k, v in pre.items():
+        if k == "pos" or tuple(v.shape) == tuple(cache[k].shape):
+            cache[k] = v
+        else:
+            cache[k][tuple(slice(0, n) for n in v.shape)] = v
+    return cache
+
+
+def family_reference(torch, mods):
+    """13a: the smoke configs of ``FAMILY_ARCHS`` on the card against the
+    CPU on the same weights, bf16 compute on both: prefill logits, a
+    decode step into a cache with room (the same token on both), the loss
+    and every gradient leaf within ``FAMILY_REL_TOL`` relative L2; for the
+    encoder-decoder, ``batch_at``'s frames bitwise card against CPU."""
+    tree = mods["tree"]
+    for arch in FAMILY_ARCHS:
+        cfg = mods["smoke_config"](arch)
+        model = mods["get_model"](cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(1), device="cpu")
+        card_params = tree.tree_map(lambda x: x.to(DEV), cpu_params)
+        frames = cfg.enc_frames if cfg.family == "encdec" else 0
+        dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=16,
+                                  global_batch=2)
+        cpu_b, card_b = (mods["batch_at"](dcfg, 3, with_frames=frames,
+                                          d_model=cfg.d_model, device=dev)
+                         for dev in ("cpu", DEV))
+        require(all(torch.equal(card_b[k].cpu(), cpu_b[k]) for k in cpu_b),
+                f"families: {arch} batch_at differs card vs CPU")
+        out = {}
+        with torch.no_grad():
+            for name, params, batch, dev in (("cpu", cpu_params, cpu_b, "cpu"),
+                                             ("card", card_params, card_b, DEV)):
+                logits, pre = model.prefill(params, batch)
+                cache = _splice(mods, model, pre, 24, dev)
+                nt = torch.full((2, 1), 7, dtype=torch.int32, device=dev)
+                logits2, _ = model.decode_step(params, cache, nt)
+                out[name] = (logits, logits2)
+
+        want_loss, want = _value_and_grad(torch, mods, model, cpu_params, cpu_b)
+        got_loss, got = _value_and_grad(torch, mods, model, card_params, card_b)
+        rel = dict(prefill_logits=_rel(torch, out["card"][0], out["cpu"][0]),
+                   decode_logits=_rel(torch, out["card"][1], out["cpu"][1]),
+                   loss=_rel(torch, got_loss, want_loss),
+                   grad_max=max(_rel(torch, b, a) for a, b in zip(want, got)))
+        require(max(rel.values()) < FAMILY_REL_TOL,
+                f"families: {arch} card vs CPU {rel}")
+        _fam(dict(part="reference", model=arch, family=cfg.family,
+                  batch_at_equal=True, frames=frames, rel_l2=rel,
+                  grad_leaves=len(got), tolerance=FAMILY_REL_TOL), mods)
+
+
+def _agreement(torch, got, want, tol, what):
+    """Two logits of one input: relative L2 (held below ``tol``), the
+    largest difference and the share of rows with the same greedy token."""
+    out = dict(rel_l2=_rel(torch, got, want),
+               max_abs=float((got.float() - want.float()).abs().max()),
+               argmax_equal=float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+               tolerance=tol)
+    require(out["rel_l2"] < tol, f"{what}: {out}")
+    return out
+
+
+def consistency(torch, mods, cfg, model, params, batch, tol):
+    """In the compute dtype of the moment: the logits of prefill(S) and one
+    decode step (into a cache with room) against prefill(S + 1), and for
+    RWKV-6 the chunked prefill against the scan's."""
+    tokens = batch["tokens"]
+    logits, pre = model.prefill(params, batch)
+    cache = _splice(mods, model, pre, tokens.shape[1] + 1, DEV)
+    del pre
+    first = logits.argmax(-1)[:, None]
+    step, _ = model.decode_step(params, cache, first)
+    del cache
+    longer, _ = model.prefill(params, dict(batch, tokens=torch.cat([tokens, first], 1)))
+    dtype = str(mods["layers"].COMPUTE_DTYPE)
+    out = dict(decode_vs_prefill=_agreement(torch, step, longer, tol,
+                                            f"{cfg.name}: decode vs prefill, {dtype}"))
+    if cfg.family == "ssm":
+        chunked = mods["get_model"](dataclasses.replace(cfg, rwkv_chunked=True))
+        lc, _ = chunked.prefill(params, batch)
+        out["chunked_vs_scan"] = _agreement(torch, lc, logits, tol,
+                                            f"{cfg.name}: chunked vs scan, {dtype}")
+    return out
+
+
+def family_serve(torch, mods, arch):
+    """13b: ``arch`` at full width and depth, bf16 weights drawn on the card
+    from seed 0: prefill ``FAMILY_PROMPTS`` prompts of ``FAMILY_PROMPT``
+    tokens (a warm-up, then one timed; RWKV-6's chunked form timed too),
+    ``FAMILY_DECODE`` greedy decode steps into a cache with room, each
+    timed; then ``consistency`` in bf16 and in f32 compute (the same bf16
+    weights)."""
+    L, tree = mods["layers"], mods["tree"]
+    cfg = mods["get_config"](arch)
+    model = mods["get_model"](cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV,
+                        dtype=L.COMPUTE_DTYPE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    rng = np.random.default_rng(13)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (FAMILY_PROMPTS, FAMILY_PROMPT)), device=DEV)
+    batch = dict(tokens=tokens)
+    if cfg.family == "encdec":
+        g = torch.Generator(device=DEV).manual_seed(13)
+        batch["frames"] = torch.randn((FAMILY_PROMPTS, cfg.enc_frames, cfg.d_model),
+                                      generator=g, device=DEV)
+    line = dict(part="serve", model=arch, family=cfg.family, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, params=n_params,
+                weights_GB=sum(x.numel() * x.element_size()
+                               for x in tree.leaves(params)) / 1e9,
+                init_seconds=init_s, prompts=[FAMILY_PROMPTS, FAMILY_PROMPT])
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.prefill(params, batch)                         # warm-up
+        (logits, pre), line["prefill_ms"] = _events_ms(
+            torch, lambda: model.prefill(params, batch))
+        require(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+        cache = _splice(mods, model, pre, FAMILY_PROMPT + FAMILY_DECODE, DEV)
+        del pre
+        nxt, out, step_ms = logits.argmax(-1)[:, None], [], []
+        for _ in range(FAMILY_DECODE):
+            (lg, cache), ms = _events_ms(torch, lambda: model.decode_step(
+                params, cache, nxt))
+            step_ms.append(ms)
+            nxt = lg.argmax(-1)[:, None]
+            out.append(nxt[:, 0].tolist())
+        torch.cuda.synchronize()
+        line["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        require(bool(torch.isfinite(lg).all()) and cache["pos"] ==
+                FAMILY_PROMPT + FAMILY_DECODE, f"{arch}: decode")
+        line.update(decode_ms_per_step=float(np.mean(step_ms)),
+                    decode_ms_min=min(step_ms), decode_ms_max=max(step_ms),
+                    decode_tokens_per_s=FAMILY_PROMPTS * 1e3 / float(np.mean(step_ms)),
+                    greedy_tokens_row0=[o[0] for o in out])
+        del cache, logits, lg
+        if cfg.family == "ssm":
+            chunked = mods["get_model"](dataclasses.replace(cfg, rwkv_chunked=True))
+            chunked.prefill(params, batch)                   # warm-up
+            _, line["chunked_prefill_ms"] = _events_ms(
+                torch, lambda: chunked.prefill(params, batch))
+        line["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        line["bf16"] = consistency(torch, mods, cfg, model, params, batch,
+                                   FAMILY_BF16_TOL)
+        compute = L.COMPUTE_DTYPE
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            line["f32"] = consistency(torch, mods, cfg, model, params, batch,
+                                      FAMILY_F32_TOL)
+        finally:
+            L.COMPUTE_DTYPE = compute
+    del params
+    torch.cuda.empty_cache()
+    _fam(line, mods)
+    return line
+
+
+def rwkv_train_flops(cfg, seq) -> dict:
+    """One RWKV-6 training step's operations, from the shapes: 6·N·T for
+    the N matrix parameters (every layer's and ``w_out``), the remat
+    recompute's 2·N_layers·T, and the chunked recurrence in f32 (per chunk
+    of T_c tokens and head of D: the T_c x T_c scores and their product
+    with V, the inter-chunk read and the state update, 8·T_c·D·(T_c + D)
+    forward; forward, recompute and a backward of twice the forward)."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    layer_w = n * (6 * d * d + 2 * d * f + 2 * d * 64)
+    n_matrix = layer_w + d * cfg.vocab_size
+    tc, hd = cfg.scan_chunk, cfg.ssm_head_dim
+    rec = n * (seq // tc) * cfg.n_heads * 8 * tc * hd * (tc + hd)
+    model = 6 * n_matrix * seq
+    remat = 2 * layer_w * seq if cfg.remat else 0
+    f32 = rec * (5 if cfg.remat else 3)
+    return dict(matrix_params=n_matrix, model=model, total=model + remat + f32,
+                bf16=model + remat, f32=f32)
+
+
+def family_train(torch, mods, arch, seq, timed):
+    """13c: ``arch`` trained whole at full width, f32 params and AdamW state,
+    bf16 compute, remat (RWKV-6 in the chunked form): ``timed`` steps of
+    ``make_train_step`` on ``batch_at``'s sequence of ``seq`` tokens, each
+    timed by CUDA events (with a warm-up step before them when ``timed`` >
+    1), tokens/s and peak GB."""
+    adamw, tree = mods["adamw"], mods["tree"]
+    cfg = mods["get_config"](arch)
+    if cfg.family == "ssm":
+        cfg = dataclasses.replace(cfg, rwkv_chunked=True)
+    model = mods["get_model"](cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    opt = adamw.init(params)
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=seq, global_batch=1)
+    step = mods["make_train_step"](model, adamw.AdamWConfig())
+    state = [params, opt]
+    del params, opt
+
+    def one(batch):
+        state[0], state[1], met = step(state[0], state[1], batch)
+        return met
+
+    losses, ms = [], []
+    for i in range(timed + (timed > 1)):
+        batch = mods["batch_at"](dcfg, i, device=DEV)
+        met, t = _events_ms(torch, lambda: one(batch))
+        losses.append(float(met["loss"]))
+        if timed == 1 or i > 0:
+            ms.append(t)
+    require(all(np.isfinite(losses)), f"{arch}: train losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    step_ms = float(np.mean(ms))
+    line = dict(part="train", model=arch, family=cfg.family, n_layers=cfg.n_layers,
+                params=n_params, param_dtype="float32",
+                compute_dtype=str(mods["layers"].COMPUTE_DTYPE), remat=cfg.remat,
+                rwkv_chunked=cfg.rwkv_chunked, seq_len=seq, global_batch=1,
+                state_GB=16 * n_params / 1e9, losses=losses, ms_per_step=step_ms,
+                ms_all=ms, tokens_per_s=seq * 1e3 / step_ms, peak_GB=peak / 1e9)
+    if cfg.family == "ssm":
+        fl = rwkv_train_flops(cfg, seq)
+        ops_ms = 1e3 * (fl["bf16"] / BF16_FLOPS + fl["f32"] / F32_FLOPS)
+        bytes_ms = 1e3 * 28 * n_params / HBM_BYTES_PER_S   # AdamW: p, m, v, g
+        line.update(flops=fl, bound_ms=max(ops_ms, bytes_ms),
+                    bound_by="operations" if ops_ms > bytes_ms else "bytes",
+                    model_flops_share_of_bf16_peak=fl["model"] / (step_ms / 1e3)
+                    / BF16_FLOPS)
+    _fam(line, mods)
+    return line
+
+
+def whisper_chain(torch, mods, flush):
+    """13d: Whisper-base whole on the ``Trainer``'s chain (no cut):
+    ``FAMILY_CHAIN_BATCH`` x ``FAMILY_CHAIN_SEQ`` tokens with
+    ``batch_at``'s frames, crashed and resumed through the three methods
+    with every resumed loss bitwise equal to the whole run's
+    (``crash_and_resume(exact=True)``), every pool-GC merge equal to the
+    plain merge. Returns the path's launches and K9's row at this shape."""
+    cfg = mods["get_config"](FAMILY_CHAIN_ARCH)
+    dcfg = mods["DataConfig"](vocab_size=cfg.vocab_size, seq_len=FAMILY_CHAIN_SEQ,
+                              global_batch=FAMILY_CHAIN_BATCH)
+    tcfg = mods["TrainerConfig"](total_steps=TRAIN_CHAIN_STEPS,
+                                 ckpt_every=TRAIN_CHAIN_EVERY, page_size=TRAIN_PAGE)
+    opt_cfg = mods["adamw"].AdamWConfig(lr=1e-3, total_steps=TRAIN_CHAIN_STEPS)
+    run = crash_and_resume(torch, mods, flush, mods["get_model"](cfg), dcfg, tcfg,
+                           opt_cfg, "families", exact=True)
+    launches = dict(mods["_build"].LAUNCHES)          # read just after the path
+    del run["params"]
+    torch.cuda.empty_cache()
+    for k in CHAIN_KERNELS:
+        require(launches[k] > 0, f"families: kernel {k} never launched")
+    merge_row = _train_merge(torch, mods, run["merges"] + run["resumed_merges"], flush)
+    _fam(dict(part="chain", model=cfg.name, n_layers=cfg.n_layers,
+              n_enc_layers=cfg.n_enc_layers, enc_frames=cfg.enc_frames,
+              batch=[FAMILY_CHAIN_BATCH, FAMILY_CHAIN_SEQ],
+              ckpt_every=TRAIN_CHAIN_EVERY, resumed_losses_bitwise=True,
+              **chain_line(run, merge_row, launches)), mods)
+    return launches, merge_row
+
+
+def other_families_phase(torch, mods):
+    """13: (a) the smoke configs card against CPU, (b) RWKV6-3B,
+    Zamba2-2.7B and Whisper-base served at full width, (c) RWKV6-3B and
+    Zamba2-2.7B trained, (d) Whisper-base on the trainer's chain. Returns
+    13d's launches and K9's row at its shape."""
+    collect_cycles(torch, lambda obj: _fam({"part": "start", **obj}, mods))
+    t0 = time.perf_counter()
+    family_reference(torch, mods)
+    for arch in FAMILY_ARCHS:
+        family_serve(torch, mods, arch)
+    for arch, seq, timed in FAMILY_TRAIN:
+        family_train(torch, mods, arch, seq, timed)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+    launches, merge_row = whisper_chain(torch, mods, flush)
+    _fam({"part": "end", "seconds": time.perf_counter() - t0}, mods)
     return launches, merge_row
 
 
@@ -4090,10 +4464,13 @@ def main() -> int:
     # 12. training on the snapshot-checkpoint chain
     train_launches, train_merge_row = train_phase(torch, mods)
 
+    # 13. the other model families: RWKV-6, Zamba2, Whisper
+    family13_launches, family13_merge_row = other_families_phase(torch, mods)
+
     # launches on the main paths: the engines' runs, both store depths,
     # both fleets, the maintenance runs, the golden and migration runs,
-    # phase 11's engines and phase 12's trainer path (each counted from
-    # zero just before its run)
+    # phase 11's engines and phase 12's and 13's trainer paths (each
+    # counted from zero just before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
                    + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
                                               disk_launches, maint_launches,
@@ -4101,7 +4478,8 @@ def main() -> int:
                                               golden_fleet_launches,
                                               admission_launches,
                                               seqmig_launches, paper_launches,
-                                              family_launches, train_launches))
+                                              family_launches, train_launches,
+                                              family13_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
@@ -4116,8 +4494,9 @@ def main() -> int:
     for row in rows:                      # the checkpoint chain's shapes
         if row["name"] in ckpt_shapes:
             row["ckpt_shape"] = ckpt_shapes[row["name"]]
-        if row["name"] == "merge":        # phase 12b's pool GC
+        if row["name"] == "merge":        # phase 12b's and 13d's pool GC
             row["train_shape"] = train_merge_row
+            row["whisper_train_shape"] = family13_merge_row
     floor, floor_clean = floor_ms(torch, torch.empty(64 * 2**20, dtype=torch.uint8,
                                                      device="cuda"))
     for row in rows:

@@ -34,10 +34,21 @@ class ModelConfig:
     top_k: int = 0
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
-    use_rope: bool = True
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    attn_every: int = 0         # hybrid: shared attention block every k layers
+    # encoder-decoder
+    n_enc_layers: int = 0
+    enc_frames: int = 0         # stub audio frontend's sequence length
+    use_rope: bool = True       # False: sinusoidal positions (whisper) or none
     # run-time knobs, as in the JAX package
     dispatch_groups: int = 1    # MoE dispatch groups (each with its capacity)
     remat: bool = True          # activation checkpointing per layer (training)
+    scan_chunk: int = 64        # recurrence time chunk (SSM and hybrid)
+    rwkv_chunked: bool = False  # chunkwise-parallel (matmul) RWKV recurrence
     cache_f32: bool = False     # storage dtype of the plain decode KV cache
 
     @property
@@ -49,13 +60,22 @@ class ModelConfig:
         return self.n_experts > 0
 
     def param_count(self) -> int:
-        """Approximate parameter count of a decoder (matrices and the
-        router; no norms, biases or shared-expert gate), as
-        ``repro.configs.base.ModelConfig.param_count`` for the dense and
-        MoE families."""
+        """Approximate parameter count (the matrices and the router; no
+        norms, biases or shared-expert gate; RWKV's LoRA, decay and mixing
+        vectors and Mamba2's conv left out too), the same formula as
+        ``repro.configs.base.ModelConfig.param_count`` for every family."""
         d, hd = self.d_model, self.hd
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        if self.is_moe:
+        if self.family == "ssm":                       # rwkv6 time + channel mix
+            blocks = self.n_layers * (5 * d * d + 3 * d * self.d_ff)
+        elif self.family == "hybrid":                  # mamba2 blocks + shared attn
+            d_in = self.ssm_expand * d
+            mamba = (d * (2 * d_in + 2 * self.ssm_state + d_in // self.ssm_head_dim)
+                     + d_in * d)
+            # ONE shared attention + MLP block (zamba2's parameter trick)
+            blocks = (self.n_layers * mamba + attn
+                      + (3 if self.gated_mlp else 2) * d * self.d_ff)
+        elif self.is_moe:
             mlp = (3 if self.gated_mlp else 2) * d * self.moe_d_ff
             routed = self.n_experts * mlp
             shared = self.n_shared_experts * mlp
@@ -64,6 +84,8 @@ class ModelConfig:
         else:
             mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
             blocks = self.n_layers * (attn + mlp)
+            if self.family == "encdec":                # + encoder, cross-attention
+                blocks += self.n_enc_layers * (attn + mlp) + self.n_layers * attn
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return blocks + embed
 

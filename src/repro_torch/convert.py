@@ -19,18 +19,33 @@ from repro_torch.device import as_device
 
 
 def params_from_jax(tree, device="cuda", dtype=None):
-    """The JAX params pytree as numpy — ``embed``, ``ln_f``, ``w_out`` and
-    ``layers`` stacked on a leading L axis with ``ln1``, ``ln2``,
-    ``attn.{wq,wk,wv,wo}`` (and ``bq,bk,bv`` with a QKV bias, ``q_norm,
-    k_norm`` with qk-norm), and ``ff.{w_up,w_gate,w_down}`` (no
-    ``w_gate`` in an ungated MLP) or, in a MoE layer, ``ff.{router,
-    e_gate,e_up,e_down}`` (the experts (L, E, ...)) with
-    ``ff.shared.{w_gate,w_up,w_down}`` and ``ff.shared_gate`` where the
-    config has shared experts — as the port's params on ``device``: every
-    leaf goes through float32 (which holds every bf16 value exactly) and is
-    stored in ``dtype``, float32 by default. Integer leaves would be
-    rounded above 2^24 on that way: a training state, whose AdamW step is
-    ``int32``, goes through ``train_state_from_jax``."""
+    """The JAX params pytree as numpy, any family's, as the port's params
+    on ``device``: every leaf goes through float32 (which holds every bf16
+    value exactly) and is stored in ``dtype``, float32 by default. The
+    trees (layer leaves stacked on a leading L axis):
+
+    - dense and MoE: ``embed``, ``ln_f``, ``w_out`` and ``layers`` with
+      ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}`` (and ``bq,bk,bv`` with a
+      QKV bias, ``q_norm,k_norm`` with qk-norm), and ``ff.{w_up,w_gate,
+      w_down}`` (no ``w_gate`` in an ungated MLP) or, in a MoE layer,
+      ``ff.{router,e_gate,e_up,e_down}`` (the experts (L, E, ...)) with
+      ``ff.shared.{w_gate,w_up,w_down}`` and ``ff.shared_gate`` where the
+      config has shared experts;
+    - RWKV-6 (24 leaves): ``embed``, ``ln_f_g``, ``ln_f_b``, ``w_out`` and
+      ``layers.{ln1_g,ln1_b,ln2_g,ln2_b,mu,w_r,w_k,w_v,w_g,wo,w0,
+      w_lora_a,w_lora_b,u,lnx_g,lnx_b,mu_ff,wk_ff,wv_ff,wr_ff}``;
+    - Zamba2: ``embed``, ``ln_f``, ``w_out``, the Mamba2 ``layers.{ln,
+      in_proj,conv_w,conv_b,a_log,d_skip,dt_bias,norm,out_proj}`` and the
+      one ``shared.{ln1,ln2,attn.{wq,wk,wv,wo},ff.{w_up,w_gate,w_down}}``
+      (not stacked);
+    - Whisper: ``embed`` (tied), ``ln_f``, ``ln_fb``, ``enc_ln``,
+      ``enc_lnb``, ``enc_layers.{ln1,ln1b,ln2,ln2b,attn.*,ff.{w_up,
+      w_down}}`` and ``dec_layers`` with those and ``lnx``, ``lnxb``,
+      ``xattn.{wq,wk,wv,wo}``.
+
+    Integer leaves would be rounded above 2^24 on the way: a training
+    state, whose AdamW step is ``int32``, goes through
+    ``train_state_from_jax``."""
     dev = as_device(device)
 
     def conv(x):
@@ -44,8 +59,9 @@ def params_from_jax(tree, device="cuda", dtype=None):
 
 def train_state_from_jax(params, opt_state, device="cuda"):
     """The JAX trainer's ``(params, opt_state)`` as numpy — the params
-    pytree of ``params_from_jax`` and AdamW's ``dict(m=..., v=...,
-    step=...)`` — as the port's ``(params, opt_state)`` on ``device``:
+    pytree of ``params_from_jax`` (any family's) and AdamW's ``dict(m=...,
+    v=..., step=...)``, ``m`` and ``v`` trees of the params' shape — as the
+    port's ``(params, opt_state)`` on ``device``:
     params, ``m`` and ``v`` float32, ``step`` an ``int32`` scalar taken
     as an integer, never through float32. With the same state both
     trainers' checkpoints hold the same words."""

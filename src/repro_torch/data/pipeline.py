@@ -7,8 +7,8 @@ re-slicing trivial: the pipeline "state" is just the step counter, carried
 inside the checkpointed training state. Per-host sharding slices the
 global batch by process index.
 
-The tokens are the JAX package's bit for bit: they are drawn with the
-port's own copy of JAX's Threefry-2x32 (``data._threefry``) in numpy on
+The tokens (and the encoder-decoder family's frames) are the JAX
+package's bit for bit: they are drawn with the port's own copy of JAX's Threefry-2x32 (``data._threefry``) in numpy on
 the host, where the batches are small, and moved to the device at the
 end.
 """
@@ -70,15 +70,15 @@ def batch_at(cfg: DataConfig, step: int, *, with_frames: int = 0,
     ``t_{i+1} = (a·t_i + c) mod V`` with probability 0.9, uniform noise
     otherwise — *learnable* structure, so example training curves actually
     descend below the uniform-entropy floor. ``pattern="uniform"`` gives
-    pure iid tokens (benchmarks). ``with_frames`` (the encoder-decoder
-    family's stub frames) raises: that family is not ported."""
-    if with_frames:
-        raise NotImplementedError(
-            "with_frames feeds the encoder-decoder family, whose model code "
-            "(models/encdec.py) is not ported yet")
+    pure iid tokens (benchmarks). ``with_frames`` > 0 adds ``frames``, the
+    encoder-decoder family's stub frame embeddings: (local_batch,
+    with_frames, d_model) f32 standard normal, the process's slice of the
+    global batch's draw, as the JAX package's."""
+    if with_frames and d_model <= 0:
+        raise ValueError(f"with_frames={with_frames} needs d_model > 0")
     dev = as_device(device)
     key = tf.fold_in(tf.prng_key(cfg.seed), step)
-    kt, _ = tf.split(key)
+    kt, kf = tf.split(key)
     shape = (cfg.global_batch, cfg.seq_len)
     if cfg.pattern == "uniform":
         tokens = tf.randint(kt, shape, 0, cfg.vocab_size)
@@ -92,5 +92,9 @@ def batch_at(cfg: DataConfig, step: int, *, with_frames: int = 0,
         raise ValueError(f"unknown pattern {cfg.pattern!r}")
     lo = cfg.process_index * cfg.local_batch
     tokens = tokens[lo:lo + cfg.local_batch]
-    return dict(tokens=torch.from_numpy(tokens).to(dev),
-                labels=torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
+    batch = dict(tokens=torch.from_numpy(tokens).to(dev),
+                 labels=torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
+    if with_frames:
+        frames = tf.normal(kf, (cfg.global_batch, with_frames, d_model))
+        batch["frames"] = torch.from_numpy(frames[lo:lo + cfg.local_batch]).to(dev)
+    return batch

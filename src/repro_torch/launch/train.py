@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import get_model
 from repro_torch.optim.adamw import AdamWConfig
@@ -26,7 +26,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=list_archs())
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)

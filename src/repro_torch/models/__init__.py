@@ -1,3 +1,4 @@
-"""Model code: the decoder-only transformers (dense and MoE)."""
+"""Model code: every family of the JAX package (dense, moe, ssm, hybrid,
+encdec) behind one interface."""
 
 from repro_torch.models.api import LM, get_model  # noqa: F401

@@ -1,9 +1,18 @@
-"""Uniform LM interface (PyTorch port of ``repro.models.api``).
+"""Uniform LM interface over every architecture family (PyTorch port of
+``repro.models.api``).
 
-The port serves and trains the decoder-only transformers, the ``dense``
-and ``moe`` families, through ``init``, ``loss``, ``prefill``,
-``init_cache`` and ``decode_step``; ``get_model`` raises for the SSM,
-hybrid and encoder-decoder families, whose model code is not ported yet.
+Every family exposes the same five entry points, so train and serve code
+is architecture-agnostic:
+
+* ``init(generator) -> params``
+* ``loss(params, batch) -> scalar``          (batch: tokens/labels[/frames])
+* ``init_cache(batch, max_seq) -> cache``
+* ``prefill(params, batch) -> (logits, cache)``
+* ``decode_step(params, cache, tokens) -> (logits, cache)``
+
+The families: ``dense`` and ``moe`` (``transformer``), ``ssm`` (RWKV-6),
+``hybrid`` (Zamba2: Mamba2 and a shared attention block) and ``encdec``
+(Whisper, whose batches carry ``frames``).
 """
 
 from __future__ import annotations
@@ -17,8 +26,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import _threefry as tf
 from repro_torch.device import as_device
+from repro_torch.models import encdec, hybrid, rwkv6, transformer
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,41 +36,58 @@ class LM:
 
     def init(self, generator: torch.Generator, device="cuda",
              dtype=L.PARAM_DTYPE):
-        return transformer.init_params(self.cfg, generator, device, dtype)
+        return _mod(self.cfg).init_params(self.cfg, generator, device, dtype)
 
     def loss(self, params, batch):
-        return transformer.loss_fn(self.cfg, params, batch["tokens"],
-                                   batch["labels"])
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec.loss_fn(cfg, params, batch["tokens"], batch["labels"],
+                                  batch["frames"])
+        return _mod(cfg).loss_fn(cfg, params, batch["tokens"], batch["labels"])
 
     def init_cache(self, batch: int, max_seq: int, device="cuda"):
-        return transformer.init_cache(self.cfg, batch, max_seq, device)
+        return _mod(self.cfg).init_cache(self.cfg, batch, max_seq, device)
 
     def prefill(self, params, batch):
-        return transformer.prefill(self.cfg, params, batch["tokens"])
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec.prefill(cfg, params, batch["tokens"], batch["frames"])
+        return _mod(cfg).prefill(cfg, params, batch["tokens"])
 
     def decode_step(self, params, cache, tokens):
-        return transformer.decode_step(self.cfg, params, cache, tokens)
+        return _mod(self.cfg).decode_step(self.cfg, params, cache, tokens)
+
+
+def _mod(cfg: ModelConfig):
+    return {
+        "dense": transformer,
+        "moe": transformer,
+        "encdec": encdec,
+        "ssm": rwkv6,
+        "hybrid": hybrid,
+    }[cfg.family]
 
 
 def get_model(cfg: ModelConfig) -> LM:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; the port serves "
-            "the decoder-only transformers (dense and moe)")
     return LM(cfg)
 
 
 def make_batch(cfg: ModelConfig, seed: int, batch: int, seq: int,
                device="cuda") -> dict[str, Any]:
-    """A concrete random batch (smoke tests, examples): ``tokens`` (batch,
-    seq) int32 uniform over the vocabulary and ``labels`` (tokens rolled
-    left by one), the tokens of the JAX package's ``make_batch`` under
-    ``PRNGKey(seed)``."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family (frames) is not ported yet")
-    kt, _ = tf.split(tf.prng_key(seed))
+    """A concrete random batch (smoke tests, examples), the JAX package's
+    ``make_batch`` under ``PRNGKey(seed)`` bit for bit: ``tokens`` (batch,
+    seq) int32 uniform over the vocabulary, ``labels`` (tokens rolled left
+    by one) and, for the encoder-decoder family, ``frames`` (batch,
+    enc_frames, d_model) f32 standard normal."""
+    if cfg.family == "encdec" and cfg.enc_frames <= 0:
+        raise ValueError(f"{cfg.name}: an encoder-decoder config needs "
+                         "enc_frames > 0")
+    kt, kf = tf.split(tf.prng_key(seed))
     tokens = tf.randint(kt, (batch, seq), 0, cfg.vocab_size)
     dev = as_device(device)
-    return dict(tokens=torch.from_numpy(tokens).to(dev),
-                labels=torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
+    out = dict(tokens=torch.from_numpy(tokens).to(dev),
+               labels=torch.from_numpy(np.roll(tokens, -1, axis=1)).to(dev))
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(
+            tf.normal(kf, (batch, cfg.enc_frames, cfg.d_model))).to(dev)
+    return out

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import as_device
 
@@ -28,7 +29,7 @@ PARAM_DTYPE = torch.float32
 # card (``device.as_device``); callers that want the CPU say so.
 # ---------------------------------------------------------------------------
 
-def _normal(generator: torch.Generator, shape, scale: float, dtype, device):
+def normal_init(generator: torch.Generator, shape, scale: float, dtype, device):
     x = torch.randn(shape, generator=generator, device=generator.device)
     return x.mul_(scale).to(device=as_device(device), dtype=dtype)
 
@@ -36,11 +37,67 @@ def _normal(generator: torch.Generator, shape, scale: float, dtype, device):
 def dense_init(generator, d_in, d_out, *, scale=None, dtype=PARAM_DTYPE,
                device="cuda"):
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    return _normal(generator, (d_in, d_out), scale, dtype, device)
+    return normal_init(generator, (d_in, d_out), scale, dtype, device)
 
 
 def embed_init(generator, vocab, d_model, *, dtype=PARAM_DTYPE, device="cuda"):
-    return _normal(generator, (vocab, d_model), 0.02, dtype, device)
+    return normal_init(generator, (vocab, d_model), 0.02, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# layer stacks: every family keeps its layers' leaves stacked along a
+# leading L axis, as the JAX package's scans over layers do
+# ---------------------------------------------------------------------------
+
+def layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the L-stacked leaves."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _empty_stack(p: dict, n: int) -> dict:
+    return {k: _empty_stack(v, n) if isinstance(v, dict)
+            else v.new_empty((n,) + tuple(v.shape)) for k, v in p.items()}
+
+
+def _put(stacked: dict, p: dict, i: int) -> None:
+    for k, v in p.items():
+        if isinstance(v, dict):
+            _put(stacked[k], v, i)
+        else:
+            stacked[k][i] = v
+
+
+def stacked(draw, n: int) -> dict:
+    """``n`` calls of ``draw()`` stacked along a leading axis. Each leaf is
+    allocated once at (n, ...) and filled as its layer is drawn, so no
+    stacked leaf exists twice (a list of layers and its ``torch.stack``):
+    the init's peak is the model plus one layer's or one leaf's draws."""
+    out = None
+    for i in range(n):
+        p = draw()
+        if out is None:
+            out = _empty_stack(p, n)
+        _put(out, p, i)
+    return out
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` while autograd records, under a
+    non-reentrant ``checkpoint`` (the JAX package's ``jax.checkpoint``):
+    the backward keeps the inputs and recomputes the rest."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def unbind_layers(stacked: dict, n: int) -> list:
+    """The L-stacked leaves as ``n`` per-layer dicts of ``unbind`` views:
+    the backward stacks each leaf's gradient once (a ``layer(...)`` view
+    per layer would add a zero-padded full-size gradient a layer)."""
+    cols = {k: unbind_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in stacked.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -52,6 +109,16 @@ def rmsnorm(x, gamma, eps=1e-5):
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * gamma.float()).to(x.dtype)
+
+
+def layernorm(x, gamma, beta, eps=1e-5):
+    """LayerNorm in f32 with the biased variance, the mean of the squared
+    deviations (``jnp.var``'s two passes, not a one-pass update)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +144,21 @@ def apply_rope(x, positions, theta: float = 1e4):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n_pos: int, d_model: int, device="cuda", offset=0):
+    """The sinusoidal table's rows ``offset .. offset + n_pos - 1``, (n_pos,
+    d_model) f32: sin at even columns, cos at odd, of pos / 10000^(2i/d).
+    Each element is one formula of its own position, so a slice of a
+    longer table and the rows computed alone are the same numbers."""
+    dev = as_device(device)
+    pos = torch.arange(offset, offset + n_pos, dtype=torch.float32, device=dev)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=dev)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d_model)
+    pe = torch.zeros((n_pos, d_model), dtype=torch.float32, device=dev)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
 # ---------------------------------------------------------------------------
 # activations
 # ---------------------------------------------------------------------------
@@ -98,7 +180,7 @@ _TANH_DEN = tuple(map(_f32, (
     4.89352518554385e-03)))
 
 
-def _tanh(x):
+def tanh(x):
     """tanh as XLA computes it on the CPU: in f32, rounded to ``x``'s dtype.
     Each fused multiply-add is one f64 multiply-add rounded to f32 (the
     product of two f32 is exact in f64)."""
@@ -122,15 +204,31 @@ def _gelu(x):
     form of ``F.gelu`` is another function)."""
     c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32).to(x.dtype)
     k = torch.tensor(0.044715, dtype=x.dtype)
-    return x * (0.5 * (1.0 + _tanh(c * (x + k * (x * x * x)))))
+    return x * (0.5 * (1.0 + tanh(c * (x + k * (x * x * x)))))
+
+
+def sigmoid(x):
+    """jax.nn.sigmoid: XLA expands ``logistic`` into 1 / (1 + exp(-x)),
+    rounding to the compute dtype after each op; the same ops here give
+    the same bf16 bits (``torch.sigmoid`` rounds once)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """jax.nn.silu, x * logistic(x), op by op as ``sigmoid``."""
+    return x * sigmoid(x)
+
+
+def softplus(x):
+    """jax.nn.softplus, ``logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)).
+    ``F.softplus`` returns x itself above its threshold of 20, another
+    function in the last bits."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def activation_fn(name: str):
     if name == "silu":
-        # jax.nn.silu is x * logistic(x), and XLA expands logistic into
-        # 1 / (1 + exp(-x)), rounding to the compute dtype after each op;
-        # the same ops here give the same bf16 bits (F.silu rounds once)
-        return lambda x: x * (1 / (1 + torch.exp(-x)))
+        return silu
     if name == "gelu":
         return _gelu
     if name == "relu2":  # nemotron-4 squared ReLU

@@ -50,9 +50,9 @@ def moe_init(cfg: ModelConfig, generator: torch.Generator, *,
     kw = dict(dtype=dtype, device=as_device(device))
     p = dict(
         router=L.dense_init(generator, d, e, scale=0.02, **kw),
-        e_gate=L._normal(generator, (e, d, f), 1.0 / math.sqrt(d), **kw),
-        e_up=L._normal(generator, (e, d, f), 1.0 / math.sqrt(d), **kw),
-        e_down=L._normal(generator, (e, f, d),
+        e_gate=L.normal_init(generator, (e, d, f), 1.0 / math.sqrt(d), **kw),
+        e_up=L.normal_init(generator, (e, d, f), 1.0 / math.sqrt(d), **kw),
+        e_down=L.normal_init(generator, (e, f, d),
                          1.0 / math.sqrt(2.0 * cfg.n_layers * f), **kw),
     )
     if cfg.n_shared_experts:

@@ -10,7 +10,7 @@ Parameters keep the JAX package's layout: a dict with ``embed``, ``ln_f``,
 (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo,bq,bk,bv,q_norm,k_norm}``, and
 ``ff.{w_up,w_gate,w_down}`` or the MoE's ``ff.{router,e_gate,e_up,e_down,
 shared.{w_gate,w_up,w_down},shared_gate}``). The JAX scan over layers
-becomes a Python loop over ``layer(params["layers"], i)`` views;
+becomes a Python loop over ``L.layer(params["layers"], i)`` views;
 training (``loss_fn``) loops over the leaves unbound a layer at a time,
 each layer under ``torch.utils.checkpoint`` where ``cfg.remat`` (the
 JAX package's ``jax.checkpoint`` of the scan body). The plain decode
@@ -22,45 +22,11 @@ path (``init_cache``, ``decode_step``) keeps a dense
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
-
-
-def layer(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the L-stacked leaves."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
-
-
-def _empty_stack(p: dict, n: int) -> dict:
-    return {k: _empty_stack(v, n) if isinstance(v, dict)
-            else v.new_empty((n,) + tuple(v.shape)) for k, v in p.items()}
-
-
-def _put(stacked: dict, p: dict, i: int) -> None:
-    for k, v in p.items():
-        if isinstance(v, dict):
-            _put(stacked[k], v, i)
-        else:
-            stacked[k][i] = v
-
-
-def _stacked(draw, n: int) -> dict:
-    """``n`` calls of ``draw()`` stacked along a leading axis. Each leaf is
-    allocated once at (n, ...) and filled as its layer is drawn, so no
-    stacked leaf exists twice (a list of layers and its ``torch.stack``):
-    the init's peak is the model plus one layer's or one leaf's draws."""
-    out = None
-    for i in range(n):
-        p = draw()
-        if out is None:
-            out = _empty_stack(p, n)
-        _put(out, p, i)
-    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
@@ -70,10 +36,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     ``dtype``. The JAX package keeps f32 parameters and casts them to the
     compute dtype at every use; passing ``dtype=L.COMPUTE_DTYPE`` casts
     once here instead, which gives the same values at use."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; the port "
-            "serves the decoder-only transformers (dense and moe)")
     dev = as_device(device)
     kw = dict(dtype=dtype, device=dev)
 
@@ -97,7 +59,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     params = dict(
         embed=L.embed_init(generator, cfg.vocab_size, cfg.d_model, **kw),
         ln_f=torch.ones((cfg.d_model,), **kw),
-        layers=_stacked(layer_init, cfg.n_layers),
+        layers=L.stacked(layer_init, cfg.n_layers),
     )
     if not cfg.tie_embeddings:
         params["w_out"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
@@ -146,27 +108,14 @@ def _block_train(cfg: ModelConfig, p, x, positions):
     return x, aux
 
 
-def _unbind(stacked: dict, n: int) -> list:
-    """The L-stacked leaves as ``n`` per-layer dicts of ``unbind`` views:
-    the backward stacks each leaf's gradient once (a ``layer(...)`` view
-    per layer would add a zero-padded full-size gradient a layer)."""
-    cols = {k: _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
-            for k, v in stacked.items()}
-    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
-
-
 def train_stack(cfg: ModelConfig, layers: dict, x, positions):
     """The training forward of every layer: (x, the MoE aux losses summed,
     0.0 for a dense model). With ``cfg.remat`` each layer runs under a
     non-reentrant ``checkpoint``, so the backward keeps each layer's input
     and recomputes the rest, as the JAX package's remat scan does."""
     aux = 0.0
-    for p in _unbind(layers, cfg.n_layers):
-        if cfg.remat:
-            x, a = checkpoint(_block_train, cfg, p, x, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = _block_train(cfg, p, x, positions)
+    for p in L.unbind_layers(layers, cfg.n_layers):
+        x, a = L.remat_call(cfg.remat, _block_train, cfg, p, x, positions)
         aux = aux + a
     return x, aux
 
@@ -210,7 +159,7 @@ def prefill(cfg: ModelConfig, params, tokens):
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v, _ = block_fwd(cfg, layer(params["layers"], i), x, positions)
+        x, k, v, _ = block_fwd(cfg, L.layer(params["layers"], i), x, positions)
         ks.append(k)
         vs.append(v)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -236,7 +185,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     pos = int(cache["pos"])
     x = embed_tokens(params, tokens)
     for i in range(cfg.n_layers):
-        x = block_decode(cfg, layer(params["layers"], i), x, cache["k"][i],
+        x = block_decode(cfg, L.layer(params["layers"], i), x, cache["k"][i],
                          cache["v"][i], pos)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = (x[:, 0] @ output_matrix(cfg, params).to(x.dtype)).float()

@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import embed_tokens, ff, layer, output_matrix
+from repro_torch.models.transformer import embed_tokens, ff, output_matrix
 
 
 def _layers(cfg: ModelConfig, params, pool_k, pool_v, x, positions, write_at,
@@ -39,7 +39,7 @@ def _layers(cfg: ModelConfig, params, pool_k, pool_v, x, positions, write_at,
     r, n = x.shape[:2]
     blk, off = write_at
     for i in range(cfg.n_layers):
-        p = layer(params["layers"], i)
+        p = L.layer(params["layers"], i)
         pk, pv = pool_k[i], pool_v[i]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,

@@ -81,7 +81,11 @@ class Trainer:
                                       device=self.device))
 
     def _batch(self, step: int):
-        return data_lib.batch_at(self.data_cfg, step, device=self.device)
+        cfg = self.model.cfg
+        return data_lib.batch_at(
+            self.data_cfg, step,
+            with_frames=cfg.enc_frames if cfg.family == "encdec" else 0,
+            d_model=cfg.d_model, device=self.device)
 
     def run(self, *, crash_after: Optional[int] = None) -> dict:
         t_useful = 0.0

@@ -3,8 +3,10 @@ and ``models.api.make_batch`` against the JAX package.
 
 The port draws with its own numpy copy of JAX's Threefry-2x32, so every
 comparison here is bitwise: raw keys, ``fold_in``, ``split``, the 32-bit
-draws behind ``randint`` and ``uniform``, and the token batches of both
-patterns, whole and sliced per process.
+draws behind ``randint``, ``uniform`` and ``normal`` (XLA's ``log1p``
+and ``erf_inv`` spelled out in numpy float32, its fused multiply-adds in
+float64), the token batches of both patterns and the encoder-decoder
+family's frames, whole and sliced per process.
 """
 
 import dataclasses
@@ -90,9 +92,12 @@ def test_batch_at_full_vocabulary():
 
 
 def test_batch_at_refuses_frames_and_unknown_patterns():
+    """Frames need a width (the JAX package would draw (B, F, 0) frames);
+    unknown patterns and a batch that does not split over the processes
+    are refused too."""
     cfg = tpipe.DataConfig(vocab_size=256, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tpipe.batch_at(cfg, 0, with_frames=12, d_model=64, device="cpu")
+    with pytest.raises(ValueError, match="d_model"):
+        tpipe.batch_at(cfg, 0, with_frames=12, device="cpu")
     with pytest.raises(ValueError, match="pattern"):
         tpipe.batch_at(dataclasses.replace(cfg, pattern="zipf"), 0, device="cpu")
     with pytest.raises(ValueError, match="split"):
@@ -110,6 +115,49 @@ def test_make_batch_bitwise(arch, seed):
 
 
 def test_make_batch_refuses_encdec():
-    cfg = dataclasses.replace(t_smoke("qwen2.5-3b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    """An encoder-decoder config without frames is refused."""
+    cfg = dataclasses.replace(t_smoke("whisper-base"), enc_frames=0)
+    with pytest.raises(ValueError, match="enc_frames"):
         t_make_batch(cfg, 0, 2, 8, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(1,), (7, 5), (3, 97, 64), (4, 1500, 512)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_bitwise(seed, shape):
+    """``jax.random.normal`` in float32, up to Whisper-base's frames of a
+    4-row batch (3.1 million draws)."""
+    jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 5)
+    want = np.asarray(jax.random.normal(jkey, shape, jnp.float32))
+    got = tf.normal(np.asarray(jkey), shape)
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("step", [0, 9])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_batch_at_frames_bitwise(seed, step):
+    """``batch_at(with_frames=, d_model=)``: tokens and frames, whole and
+    both halves of a two-process slice (each the slice of the global
+    draw)."""
+    for n_proc, idx in ((1, 0), (2, 0), (2, 1)):
+        kw = dict(vocab_size=256, seq_len=16, global_batch=4, seed=seed,
+                  n_processes=n_proc, process_index=idx)
+        want = jpipe.batch_at(jpipe.DataConfig(**kw), step, with_frames=12,
+                              d_model=64)
+        got = tpipe.batch_at(tpipe.DataConfig(**kw), step, with_frames=12,
+                             d_model=64, device="cpu")
+        assert set(got) == set(want) == {"tokens", "labels", "frames"}
+        assert got["frames"].dtype == torch.float32
+        assert tuple(got["frames"].shape) == (4 // n_proc, 12, 64)
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_make_batch_frames_bitwise(seed):
+    """Whisper's smoke config: tokens, labels and frames of ``make_batch``."""
+    want = j_make_batch(j_smoke("whisper-base"), jax.random.PRNGKey(seed), 3, 20)
+    got = t_make_batch(t_smoke("whisper-base"), seed, 3, 20, device="cpu")
+    assert set(got) == set(want) == {"tokens", "labels", "frames"}
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))

@@ -37,7 +37,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import format as tfmt  # noqa: E402
 from repro_torch.models import get_model as t_get_model  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
-from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.models.api import make_batch as t_make_batch  # noqa: E402
 from repro_torch.serve import paged_decode as tpd  # noqa: E402
 from repro_torch.serve.engine import Engine as TEngine  # noqa: E402
 
@@ -46,6 +46,7 @@ ARCHS = ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "nemotron-4-15b",
          "chameleon-34b"]
 DECODER_ONLY = [a for a in jconfigs.list_archs()
                 if jconfigs.get_config(a).family in ("dense", "moe")]
+ALL_ARCHS = jconfigs.list_archs()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -85,14 +86,19 @@ def _close(got, want):
 
 
 def test_registry_holds_every_decoder_only_config():
-    assert tconfigs.list_archs() == sorted(DECODER_ONLY)
+    """The port's registry is JAX's, all ten configs: the seven
+    decoder-only ones and RWKV-6, Zamba2 and Whisper."""
+    assert tconfigs.list_archs() == ALL_ARCHS and len(ALL_ARCHS) == 10
     assert len(DECODER_ONLY) == 7
+    assert {tconfigs.get_config(a).family for a in ALL_ARCHS} == \
+        {"dense", "moe", "ssm", "hybrid", "encdec"}
 
 
-@pytest.mark.parametrize("arch", DECODER_ONLY)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_config_mirrors_jax(arch):
     """Every field the port's config has equals JAX's, on the full config
-    and its smoke config, with the derived counts."""
+    and its smoke config, with the derived counts (``param_count``'s ssm,
+    hybrid and encdec branches included)."""
     for jc, tc in ((jconfigs.get_config(arch), tconfigs.get_config(arch)),
                    (jconfigs.smoke_config(arch), tconfigs.smoke_config(arch))):
         for f in dataclasses.fields(tc):
@@ -103,12 +109,29 @@ def test_config_mirrors_jax(arch):
         assert tc.active_param_count() == jc.active_param_count()
 
 
-def test_other_families_still_raise():
-    cfg = dataclasses.replace(tconfigs.smoke_config("qwen2.5-3b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_get_model(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttr.init_params(cfg, torch.Generator(), device="cpu")
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_get_model_serves_every_config(arch):
+    """``get_model`` of every registered config's smoke config serves the
+    five entry points on the CPU: ``init``, ``loss``, ``prefill``,
+    ``init_cache`` and a ``decode_step`` into a cache with room (the
+    prefill's K/V spliced in, as the JAX package's tests do)."""
+    cfg = tconfigs.smoke_config(arch)
+    m = t_get_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = t_make_batch(cfg, 0, 2, 8, device="cpu")
+    with torch.no_grad():
+        assert bool(torch.isfinite(m.loss(params, batch)))
+        logits, pre = m.prefill(params, batch)
+        cache = m.init_cache(2, 16, device="cpu")
+        for k, v in pre.items():
+            if k == "pos" or v.shape == cache[k].shape:
+                cache[k] = v
+            else:
+                cache[k][tuple(slice(0, n) for n in v.shape)] = v
+        nt = logits.argmax(-1)[:, None]
+        logits2, cache = m.decode_step(params, cache, nt)
+    assert logits.shape == logits2.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits2).all()) and cache["pos"] == 9
 
 
 def exact_param_count(cfg) -> int:

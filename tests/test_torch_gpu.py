@@ -820,12 +820,14 @@ def _grad_rel(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp(min=1e-30))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2-moe-a2.7b", "rwkv6-3b",
+                                  "zamba2-2.7b", "whisper-base"])
 def test_train_step_on_card_equals_cpu(cuda, arch):
     """One training step's loss and every gradient leaf on the card against
     the CPU on the same weights (bf16 compute on both; within bf16's 2e-2
-    relative L2), the pipeline's tokens bitwise equal, and after one
-    ``make_train_step`` step AdamW's ``m`` within the same bound."""
+    relative L2), the pipeline's tokens (and Whisper's frames) bitwise
+    equal, and after one ``make_train_step`` step AdamW's ``m`` within the
+    same bound."""
     from repro_torch.configs import smoke_config
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.models import get_model
@@ -837,8 +839,10 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
     cpu_params = model.init(torch.Generator().manual_seed(1), device="cpu")
     card_params = tree_map(lambda x: x.to(cuda), cpu_params)
     dcfg = DataConfig(vocab_size=model.cfg.vocab_size, seq_len=32, global_batch=4)
-    cpu_batch, card_batch = batch_at(dcfg, 3, device="cpu"), batch_at(dcfg, 3, device=cuda)
-    for k in ("tokens", "labels"):
+    kw = dict(with_frames=model.cfg.enc_frames if model.cfg.family == "encdec" else 0,
+              d_model=model.cfg.d_model)
+    cpu_batch, card_batch = (batch_at(dcfg, 3, device=dev, **kw) for dev in ("cpu", cuda))
+    for k in cpu_batch:
         assert torch.equal(card_batch[k].cpu(), cpu_batch[k])
 
     def value_and_grad(params, batch):
@@ -859,7 +863,8 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
         assert _grad_rel(b, a) < 2e-2
 
 
-def test_trainer_crash_restart_on_card(cuda):
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "whisper-base", "rwkv6-3b"])
+def test_trainer_crash_restart_on_card(cuda, arch):
     """The smoke trainer on the card: crash after step 5, the kernel
     restores (K2 + K8, K1 + K8) equal the ``direct`` restore word for word
     and the last saved image, the resume lands at step 3, and the final
@@ -871,7 +876,7 @@ def test_trainer_crash_restart_on_card(cuda):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    model = get_model(smoke_config("qwen2.5-3b"))
+    model = get_model(smoke_config(arch))
     dcfg = DataConfig(vocab_size=model.cfg.vocab_size, seq_len=16, global_batch=2)
     tcfg = TrainerConfig(total_steps=9, ckpt_every=3, page_size=256)
     ref = Trainer(model, AdamWConfig(lr=1e-3), dcfg, tcfg, seed=0, device=cuda)

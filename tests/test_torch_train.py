@@ -525,6 +525,29 @@ def test_trainer_crash_restart_resumes_bitwise(crashed):
     assert t.losses[5:] == ref.losses[3:]
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "rwkv6-3b"])
+def test_trainer_crash_restart_other_families(arch):
+    """The crash/restart of ``tests/test_checkpoint.py`` on Whisper (its
+    batches carry ``batch_at``'s frames) and RWKV-6: 6 steps saving every
+    2, crashed after 3, resumed at 2 through the kernel method and
+    finished; every loss after the resume equals the uninterrupted run's
+    bit for bit."""
+    tm = t_get_model(t_smoke(arch))
+    _, td, _, ttc = _trainer_cfgs(tm.cfg, steps=6, every=2)
+    ref = TTrainer(tm, tadamw.AdamWConfig(lr=1e-3), td, ttc, seed=0, device="cpu")
+    batch = ref._batch(0)
+    assert ("frames" in batch) == (arch == "whisper-base")
+    ref.run()
+    t = TTrainer(tm, tadamw.AdamWConfig(lr=1e-3), td, ttc, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="simulated crash at step 3"):
+        t.run(crash_after=3)
+    assert t.resume(method="pallas_direct") == 2
+    assert torch.equal(t.ckpt._flatten(t._state()), t.ckpt._shadow)
+    t.run()
+    assert t.step == 6 and t.losses[3:] == ref.losses[2:]
+    assert all(np.isfinite(ref.losses))
+
+
 def test_full_lifecycle_train_crash_restore_serve():
     """``tests/test_system.py``'s lifecycle on the port: train, crash,
     restore, finish, then serve the trained weights with a forked pair."""
@@ -558,3 +581,7 @@ def test_launch_train_cpu(capsys):
     assert report["steps"] == 2 and report["ckpt_chain_length"] == 3
     with pytest.raises(NotImplementedError, match="distributed"):
         t_launch.main(["--production", "--device", "cpu"])
+    report = t_launch.main(["--arch", "whisper-base", "--device", "cpu",
+                            "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert "arch: whisper-base" in capsys.readouterr().out
+    assert report["steps"] == 1 and np.isfinite(report["final_loss"])
