@@ -236,8 +236,36 @@ Phases, each printing its own lines:
    equal to the whole run's; each pool-GC merge (K9) equals the plain
    merge (``whisper_train_shape`` on K9's row). 13d's K1/K2/K8/K9
    launches go on the kernels line.
+14. distributed — distribution and the launchers, last, on a one-rank
+   ``nccl`` group (``launch.mesh.make_host_mesh``) destroyed at its end;
+   its lines carry ``"phase": "distributed"`` and the card's name and
+   power limit. (f) starts first, in a subprocess. (a) The serve launcher
+   (``launch.serve.main``) at full width, Qwen2.5-3B, both formats and
+   both decode paths (fused at 128 blocks a sequence): its tokens equal an
+   ``Engine`` stepped directly on the same weights, and ``n_seqs``,
+   ``blocks_in_use`` and ``lookups`` equal the launcher's at the smoke
+   scale on the CPU; K1-K4 launch. (b) Qwen2.5-3B whole in bf16 placed by
+   ``param_shardings`` on the host mesh under ``use_rules``: a 4 x 512
+   prefill's logits and one decode step bitwise the plain run's, the
+   host ms of both paths; then every smoke config: prefill, a decode
+   step, the loss and every gradient bitwise, both runs under
+   deterministic algorithms.
+   (c) ``restore(shardings=)`` of a Qwen2.5-3B bf16 checkpoint chain at
+   phase 10's page size through direct, pallas_vanilla and pallas_direct
+   (K1, K2, K8): ``DTensor`` leaves with the requested placements, their
+   local tensors bitwise the saved state, each timed by CUDA events
+   beside the unsharded restore. (d) ``make_dp_train_step`` at Qwen2.5-3B's
+   width with 2 layers, f32 state, 3 steps of 4 x 64 under deterministic
+   algorithms: without compression bitwise ``make_train_step``; with int8
+   compression every residual within its leaf's scale; step ms and
+   ``wire_bytes`` on 2 and 16 ranks. (e) The training launcher
+   (``--scale smoke --steps 8 --ckpt-every 1``: its pool GC merges, K9)
+   on the host mesh, its state and batches ``DTensor``s, its last loss
+   bitwise a plain ``Trainer``'s; and ``--production``'s refusal. (f) ``python -m repro_torch.launch.dryrun
+   --arch qwen2.5-3b --shape train_4k`` (the 16x16 fake group), its
+   record's headline fields.
 
-Phases 10 to 13 start with ``gc.collect()``, and before it a report
+Phases 10 to 14 start with ``gc.collect()``, and before it a report
 of what it frees (``cycles``): the CUDA tensors that only reference
 cycles hold, largest first, with the objects that refer to them;
 ``held_GB_before_collect`` must then stay within 1 GB of
@@ -246,7 +274,7 @@ cycles hold, largest first, with the objects that refer to them;
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet, each part of phase 9, each checkpoint chain
 of phase 10, each engine of phase 11, phase 12b's and 13d's trainer
-paths) and read
+paths, phase 14's launcher runs and sharded restores) and read
 just after it,
 before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
@@ -398,7 +426,21 @@ FAMILY_REL_TOL = 2e-2            # bf16 on the card against bf16 on the CPU
 # 32-54 random-weight layers compound (0.6-4.4e-2 measured on an H100);
 # f32 compute on the same weights holds the algorithm
 FAMILY_BF16_TOL, FAMILY_F32_TOL = 1e-1, 1e-3
-DEV = "cuda"                     # phases 6-13 run here
+# phase 14: distribution and the launchers. (a) the serve launcher at full
+# width, both formats, both decode paths (fused: 128 blocks a sequence);
+# (b) Qwen2.5-3B whole in bf16 placed on the host mesh, a 4 x 512 prefill
+# and one decode step; (d) the DP step at 12b's cut (2 layers, 4 x 64);
+# (e) the training launcher with a save a step for 8 steps, so that its
+# pool GC merges (K9)
+DIST_ARCH = "qwen2.5-3b"
+DIST_SERVE = ((False, "auto", 64), (True, "auto", 64),
+              (False, "fused", 128), (True, "fused", 128))   # vanilla, path, blocks
+DIST_PREFILL = (4, 512)
+DIST_DP_LAYERS, DIST_DP_STEPS, DIST_DP_BATCH = 2, 3, (4, 64)
+DIST_WIRE_RANKS = (2, 16)      # the pod axis and the data axis
+DIST_TRAIN_ARGV = ["--scale", "smoke", "--steps", "8", "--ckpt-every", "1"]
+DIST_RESTORES = ("direct", "pallas_vanilla", "pallas_direct")
+DEV = "cuda"                     # phases 6-14 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -4299,6 +4341,418 @@ def other_families_phase(torch, mods):
     return launches, merge_row
 
 
+def _dist(obj, mods):
+    """A phase-14 line: the card's name and power limit beside its numbers."""
+    emit({**obj, "phase": "distributed", "card": mods["smi"]})
+
+
+def _host_timed(torch, fn):
+    """``fn()`` on the host clock, the card synchronized on both sides:
+    (its result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _full(x):
+    """A ``DTensor``'s whole value; a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def serve_launcher(torch, mods, d):
+    """14a: ``python -m repro_torch.launch.serve`` at full width through its
+    ``main``, every ``DIST_SERVE`` engine: the tokens equal an ``Engine``
+    stepped directly on the same weights (drawn once here from the same
+    seed), the counts equal the launcher's at the smoke scale on the CPU.
+    Launches count over the four launcher runs."""
+    _build, Engine = mods["_build"], mods["Engine"]
+    cfg = mods["get_config"](DIST_ARCH)
+    runs, launches = [], collections.Counter()
+    for vanilla, path, blocks in DIST_SERVE:
+        argv = ["--scale", "full", "--arch", DIST_ARCH,
+                "--decode-path", path, "--max-blocks-per-seq", str(blocks)]
+        argv += ["--vanilla"] if vanilla else []
+        _build.reset_launches()
+        st, ms = _host_timed(torch, lambda: d["serve"].main(argv))
+        launches.update(_build.LAUNCHES)          # read just after the run
+        cpu = d["serve"].main(argv[2:] + ["--device", "cpu"])   # smoke, CPU
+        for k in ("n_seqs", "blocks_in_use", "lookups"):
+            require(st[k] == cpu[k], f"serve launcher {k}: {st[k]} on the card, "
+                    f"{cpu[k]} at the smoke scale on the CPU")
+        runs.append(dict(argv=argv, ms=ms, tokens=st.pop("tokens"), stats=st))
+        del st
+        torch.cuda.empty_cache()
+    args = d["serve"].parse([])
+    with uncounted(_build):
+        params = mods["get_model"](cfg).init(
+            torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        for run, (vanilla, path, blocks) in zip(runs, DIST_SERVE):
+            eng = Engine(cfg, params, scalable=not vanilla, n_blocks=1024,
+                         block_size=8, max_blocks_per_seq=blocks,
+                         decode_path=path, device=DEV)
+            rng = np.random.default_rng(0)
+            roots = [eng.add_request(rng.integers(0, cfg.vocab_size,
+                                                  args.prompt_len))
+                     for _ in range(args.requests)]
+            for r in roots:
+                for _ in range(args.forks):
+                    eng.fork_request(r)
+            for _ in range(args.tokens):
+                eng.step()
+            want = {sid: list(t) for sid, t in eng.active.items()}
+            require(run["tokens"] == want,
+                    f"serve launcher {run['argv']}: tokens differ from the engine's")
+            run["engine_path"] = eng.decode_path
+            del eng
+    del params
+    torch.cuda.empty_cache()
+    for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
+              "fused_chain_attention"):
+        require(launches[k] > 0, f"serve launcher: kernel {k} never launched")
+    _dist(dict(part="serve_launcher", model=cfg.name,
+               runs=[dict(argv=r["argv"], host_ms=r["ms"], stats=r["stats"],
+                          decode_path=r["engine_path"], tokens_equal_engine=True,
+                          counts_equal_cpu_smoke=True) for r in runs],
+               launches=dict(launches)), mods)
+    return dict(launches)
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """Deterministic algorithms inside the block: a CUDA op that would sum
+    in another order each run (the embedding gradient's scatter-add) sums
+    in one, so a gradient can be held bitwise."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def sharded_equals_plain(torch, mods, d, mesh):
+    """14b: Qwen2.5-3B whole in bf16 placed by ``param_shardings`` on the
+    host mesh, under ``use_rules``: a 4 x 512 prefill's logits and one
+    decode step (into the prefill's cache spliced into one with room)
+    bitwise the plain run's; the host ms of both. Then every smoke config
+    the same way with the loss and gradients too, both runs under
+    deterministic algorithms, every gradient leaf held bitwise."""
+    sh, tree = d["sh"], mods["tree"]
+    rules = sh.make_rules(mesh)
+    cfg = mods["get_config"](DIST_ARCH)
+    model = mods["get_model"](cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV,
+                        dtype=mods["layers"].COMPUTE_DTYPE)
+    dparams = sh.distribute(params, sh.param_shardings(params, rules))
+    b, sq = DIST_PREFILL
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, sq)), dtype=torch.int32, device=DEV)
+    tok_sh = sh.NamedSharding(mesh, sh.batch_spec({"t": tokens}, rules)["t"])
+    out = {}
+    with torch.no_grad():
+        (logits, cache), plain_ms = _host_timed(
+            torch, lambda: model.prefill(params, dict(tokens=tokens)))
+        with sh.use_rules(rules):
+            dtok = sh.place(tokens, tok_sh)
+            (dlogits, _), dt_ms = _host_timed(
+                torch, lambda: model.prefill(dparams, dict(tokens=dtok)))
+        require(torch.equal(_full(dlogits), logits),
+                "sharded prefill logits differ from the plain run's")
+        nxt = logits.argmax(-1)[:, None].to(torch.int32)
+        room = _splice(mods, model, cache, sq + 1, DEV)
+        dcache = sh.distribute(_splice(mods, model, cache, sq + 1, DEV),
+                               sh.shardings_of(sh.cache_specs(room, rules), mesh))
+        (step, _), plain_step_ms = _host_timed(
+            torch, lambda: model.decode_step(params, room, nxt))
+        with sh.use_rules(rules):
+            dnxt = sh.place(nxt, tok_sh)
+            (dstep, _), dt_step_ms = _host_timed(
+                torch, lambda: model.decode_step(dparams, dcache, dnxt))
+        require(torch.equal(_full(dstep), step),
+                "sharded decode step differs from the plain run's")
+    out[f"{cfg.name} whole"] = dict(prefill=[b, sq], prefill_host_ms=plain_ms,
+                         prefill_dtensor_host_ms=dt_ms,
+                         decode_host_ms=plain_step_ms,
+                         decode_dtensor_host_ms=dt_step_ms, bitwise=True)
+    del params, dparams, cache, room, dcache, logits, dlogits
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import list_archs
+    from repro_torch.train.train_step import value_and_grad
+
+    for arch in list_archs():
+        scfg = mods["smoke_config"](arch)
+        m = mods["get_model"](scfg)
+        p = m.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        batch = d["make_batch"](scfg, 0, 2, 8, device=DEV)
+        dp = sh.distribute(p, sh.param_shardings(p, rules))
+        db = sh.distribute(batch, sh.shardings_of(sh.batch_spec(batch, rules), mesh))
+        tok = batch["tokens"][:, :1]
+        with _deterministic(torch):
+            with torch.no_grad():
+                lg, _ = m.prefill(p, batch)
+                st, _ = m.decode_step(p, m.init_cache(2, 12, device=DEV), tok)
+            loss, grads = value_and_grad(m.loss, p, batch)
+            plain = [loss] + tree.leaves(grads)
+            t0 = time.perf_counter()
+            with sh.use_rules(rules):
+                with torch.no_grad():
+                    dlg, _ = m.prefill(dp, db)
+                    dst, _ = m.decode_step(dp, sh.distribute(
+                        m.init_cache(2, 12, device=DEV), sh.shardings_of(
+                            sh.cache_specs(m.init_cache(2, 12, device="meta"),
+                                           rules), mesh)), sh.place(tok, tok_sh))
+                dl, dg = value_and_grad(m.loss, dp, db)
+            host_ms = 1e3 * (time.perf_counter() - t0)
+        require(torch.equal(_full(dlg), lg), f"{arch}: sharded prefill differs")
+        require(torch.equal(_full(dst), st), f"{arch}: sharded decode differs")
+        got = [_full(dl)] + [_full(g) for g in tree.leaves(dg)]
+        require(len(got) == len(plain)
+                and all(torch.equal(a, w) for a, w in zip(got, plain)),
+                f"{arch}: the sharded loss or a gradient differs from the plain run's")
+        out[arch] = dict(bitwise_prefill=True, bitwise_decode=True,
+                         bitwise_loss_and_grads=True, leaves=len(got),
+                         dtensor_host_ms=host_ms)
+        del p, dp, batch, db
+    torch.cuda.empty_cache()
+    _dist(dict(part="sharded_equals_plain", mesh=d["mesh_shape"](mesh),
+               results=out), mods)
+
+
+def restore_sharded(torch, mods, d, mesh, flush):
+    """14c: a Qwen2.5-3B bf16 checkpoint chain at phase 10's page size (one
+    full save, one delta) restored with ``shardings=`` through
+    ``DIST_RESTORES``: every leaf a ``DTensor`` with the requested
+    placements whose local tensor is bitwise the saved state; each timed
+    by CUDA events beside the same method's unsharded restore."""
+    sh, _build = d["sh"], mods["_build"]
+    cfg = mods["get_config"](DIST_ARCH)
+    state = _checkpoint_state(torch, mods, cfg)
+    rules = sh.make_rules(mesh)
+    ck = mods["ckpt"].SnapshotCheckpointer(state, max_chain=CKPT_MAX_CHAIN,
+                                           scalable=True, stream_threshold=10**9,
+                                           device=DEV)
+    shardings = sh.param_shardings(state, rules)
+    _build.reset_launches()
+    ck.save(state)
+    state["layers"]["attn"]["wo"][0] += 1
+    state["step"] += 1
+    ck.save(state)
+    rows = {}
+    for m in DIST_RESTORES:
+        got = ck.restore(method=m, shardings=shardings)
+        for x, want, s_ in zip(_leaves_sorted(got), _leaves_sorted(state),
+                               _leaves_sorted(shardings)):
+            require(list(x.placements) == s_.placements_for(tuple(x.shape)),
+                    f"restore({m}, shardings=): placements")
+            require(_same_leaves(torch, x.to_local(), want),
+                    f"restore({m}, shardings=) differs from the saved state")
+        del got
+        rows[m] = dict(bitwise=True)
+    launches = dict(_build.LAUNCHES)              # read just after the path
+    for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather"):
+        require(launches[k] > 0, f"restore(shardings=): kernel {k} never launched")
+    with uncounted(_build):
+        for m in DIST_RESTORES:
+            rows[m]["sharded_ms"] = timed_ms(
+                torch, lambda: ck.restore(method=m, shardings=shardings),
+                CKPT_TIMED, flush)
+            rows[m]["unsharded_ms"] = timed_ms(
+                torch, lambda: ck.restore(method=m), CKPT_TIMED, flush)
+    image_bytes = ck.spec.n_pages * ck.spec.page_size * 4
+    _dist(dict(part="restore_sharded", model=cfg.name, n_pages=ck.spec.n_pages,
+               page_bytes=ck.spec.page_size * 4, image_GB=image_bytes / 1e9,
+               restore_bound_ms=1e3 * 2 * image_bytes / HBM_BYTES_PER_S,
+               methods=rows, launches=launches), mods)
+    del ck, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves_sorted(tree):
+    """Leaves in sorted-key order (``NamedSharding`` leaves too)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_sorted(tree[k])]
+    return [tree]
+
+
+def dp_train(torch, mods, d, mesh):
+    """14d: ``make_dp_train_step`` on the one-rank group, Qwen2.5-3B at full
+    width with 2 layers, f32 state, ``DIST_DP_STEPS`` steps: without
+    compression bitwise ``make_train_step`` (loss, parameters, AdamW
+    state); with compression every residual element within its leaf's
+    scale. Both under deterministic algorithms (the embedding gradient's
+    scatter-add sums in one order); each step timed by CUDA events;
+    ``wire_bytes`` of both on the pod axis (2 ranks) and the data axis
+    (16), where the int8 all-gather sends more than the f32 all-reduce."""
+    comp, tree = d["comp"], mods["tree"]
+    cfg = dataclasses.replace(mods["get_config"](DIST_ARCH), n_layers=DIST_DP_LAYERS)
+    model = mods["get_model"](cfg)
+    ocfg = mods["adamw"].AdamWConfig(lr=1e-3, total_steps=DIST_DP_STEPS)
+    from repro_torch.train.train_step import value_and_grad
+
+    def fresh():
+        p = model.init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        return p, mods["adamw"].init(p)
+
+    ref = mods["make_train_step"](model, ocfg)
+    dp = comp.make_dp_train_step(model, ocfg, mesh, compress=False)
+    dpc = comp.make_dp_train_step(model, ocfg, mesh, compress=True)
+    batches = [d["make_batch"](cfg, i, *DIST_DP_BATCH, device=DEV)
+               for i in range(DIST_DP_STEPS)]
+    with _deterministic(torch):
+        p1, o1 = fresh()
+        ms = dict(train_step=[], dp=[], dp_int8=[])
+        for b in batches:
+            (p1, o1, met), t = _events_ms(torch, lambda: ref(p1, o1, b))
+            ms["train_step"].append(t)
+        ref_loss = float(met["loss"])
+        p2, o2 = fresh()
+        e2 = comp.init_error_state(p2)
+        for b in batches:
+            (p2, o2, e2, loss), t = _events_ms(torch, lambda: dp(p2, o2, e2, b))
+            ms["dp"].append(t)
+        require(float(loss) == ref_loss, "DP step loss differs from make_train_step")
+        require(all(torch.equal(a, b) for a, b in zip(tree.leaves((p1, o1)),
+                                                       tree.leaves((p2, o2)))),
+                "DP step (no compression) is not bitwise make_train_step")
+        wire = {f"{k}_{n}_ranks": comp.wire_bytes(p2, compressed=k == "int8",
+                                                   ranks=n)
+                for n in DIST_WIRE_RANKS for k in ("f32", "int8")}
+        del p1, o1, p2, o2, e2
+        torch.cuda.empty_cache()
+        p3, o3 = fresh()
+        e3 = comp.init_error_state(p3)
+        worst = 0.0
+        for b in batches:
+            grads = value_and_grad(model.loss, p3, b)[1]
+            scales = [comp.quantize_int8(g.float() + e)[1]
+                      for g, e in zip(tree.leaves(grads), tree.leaves(e3))]
+            del grads
+            (p3, o3, e3, loss_c), t = _events_ms(torch, lambda: dpc(p3, o3, e3, b))
+            ms["dp_int8"].append(t)
+            for e, s_ in zip(tree.leaves(e3), scales):
+                require(bool((e.abs() <= s_).all()), "int8 residual above its scale")
+                worst = max(worst, float((e.abs() / s_).max()))
+    _dist(dict(part="dp_train", model=cfg.name, n_layers=cfg.n_layers,
+               batch=list(DIST_DP_BATCH), steps=DIST_DP_STEPS,
+               step_ms=ms, loss=ref_loss, loss_int8=float(loss_c),
+               bitwise_equal_train_step=True, residual_over_scale_max=worst,
+               wire_bytes=wire), mods)
+    del p3, o3, e3
+    torch.cuda.empty_cache()
+
+
+def train_launcher(torch, mods, d):
+    """14e: ``python -m repro_torch.launch.train`` through its ``main`` on
+    the host mesh (``DIST_TRAIN_ARGV``): the state and batches are
+    ``DTensor``s, its pool GC merges (K9), and its last loss is bitwise a
+    plain ``Trainer``'s at the same settings (both under deterministic
+    algorithms); then ``--production`` refuses on one rank, naming the
+    ranks it needs."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    _build = mods["_build"]
+    with _deterministic(torch):
+        _build.reset_launches()
+        report, ms = _host_timed(torch, lambda: d["train"].main(DIST_TRAIN_ARGV))
+        launches = dict(_build.LAUNCHES)          # read just after the run
+        with uncounted(_build):
+            cfg = mods["smoke_config"](DIST_ARCH)
+            steps = report["steps"]
+            plain = Trainer(mods["get_model"](cfg),
+                            mods["adamw"].AdamWConfig(lr=1e-3, total_steps=steps),
+                            DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                       global_batch=4),
+                            TrainerConfig(total_steps=steps, ckpt_every=1),
+                            device=DEV).run()
+    require(launches["merge"] > 0, "train launcher: K9 never launched")
+    require(report["final_loss"] == plain["final_loss"],
+            f"train launcher's loss {report['final_loss']!r} is not the plain "
+            f"Trainer's {plain['final_loss']!r}")
+    try:
+        d["train"].main(["--production"])
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    require(refused is not None and "needs 256 ranks" in refused,
+            f"--production on one rank: {refused!r}")
+    _dist(dict(part="train_launcher", argv=DIST_TRAIN_ARGV, host_ms=ms,
+               report={k: v for k, v in report.items()
+                       if isinstance(v, (int, float, str))},
+               plain_final_loss=plain["final_loss"],
+               production_refusal=refused, launches=launches), mods)
+    return launches
+
+
+def start_dryrun(out_dir):
+    """14f: the dry-run of Qwen2.5-3B's train_4k on the 16x16 fake group,
+    in its own process (the fake group cannot share one with the real)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DIST_ARCH,
+         "--shape", "train_4k", "--out", str(out_dir)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def distributed_phase(torch, mods):
+    """14: (f) started in a subprocess first, then on a one-rank ``nccl``
+    group (``make_host_mesh``): (a) the serve launcher, (b) sharded ≡
+    plain, (c) ``restore(shardings=)``, (d) the DP step, (e) the training
+    launcher; the group destroyed at the end. Returns the launches of
+    (a), (c) and (e)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, train
+    from repro_torch.models.api import make_batch
+
+    collect_cycles(torch, lambda obj: _dist({"part": "start", **obj}, mods))
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    dry = start_dryrun(out_dir)
+    try:
+        mesh = mesh_lib.make_host_mesh(device=DEV)
+        require(dist.get_backend() == ("nccl" if DEV == "cuda" else "gloo")
+                and dist.get_world_size() == 1, "phase 14 needs a one-rank group")
+        d = dict(sh=sh, comp=comp, serve=serve, train=train,
+                 make_batch=make_batch, mesh_shape=mesh_lib.mesh_shape)
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=DEV)
+        totals = collections.Counter(serve_launcher(torch, mods, d))
+        sharded_equals_plain(torch, mods, d, mesh)
+        totals.update(restore_sharded(torch, mods, d, mesh, flush))
+        dp_train(torch, mods, d, mesh)
+        totals.update(train_launcher(torch, mods, d))
+        del flush
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    try:
+        log, _ = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+    require(dry.returncode == 0, f"dry-run failed:\n{log[-4000:]}")
+    rec = json.loads((out_dir / f"{DIST_ARCH}__train_4k__16x16.json").read_text())
+    _dist(dict(part="dryrun", cell=f"{DIST_ARCH} train_4k 16x16",
+               record={k: rec[k] for k in (
+                   "n_devices", "accum", "trace_s", "memory", "flops_per_device",
+                   "hbm_bytes_per_device", "collective_bytes_per_device",
+                   "model_flops_per_device", "useful_flops_ratio",
+                   "roofline_terms_s", "bottleneck", "roofline_frac")}), mods)
+    _dist({"part": "end", "seconds": time.perf_counter() - t0,
+           "launches": dict(totals)}, mods)
+    return dict(totals)
+
+
 def main() -> int:
     import torch
 
@@ -4467,10 +4921,14 @@ def main() -> int:
     # 13. the other model families: RWKV-6, Zamba2, Whisper
     family13_launches, family13_merge_row = other_families_phase(torch, mods)
 
+    # 14. distribution and the launchers, last, on a one-rank nccl group
+    dist_launches = distributed_phase(torch, mods)
+
     # launches on the main paths: the engines' runs, both store depths,
     # both fleets, the maintenance runs, the golden and migration runs,
-    # phase 11's engines and phase 12's and 13's trainer paths (each
-    # counted from zero just before its run)
+    # phase 11's engines, phase 12's and 13's trainer paths and phase 14's
+    # launcher runs and sharded restores (each counted from zero just
+    # before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
                    + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
                                               disk_launches, maint_launches,
@@ -4479,7 +4937,7 @@ def main() -> int:
                                               admission_launches,
                                               seqmig_launches, paper_launches,
                                               family_launches, train_launches,
-                                              family13_launches))
+                                              family13_launches, dist_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])

@@ -38,9 +38,9 @@ state after ``save_async`` returns never reaches the checkpoint.
 
 Restored leaves are views into one freshly materialized page image on the
 chain's device: no leaf aliases the chain, the state saved or another
-leaf. JAX's ``shardings=`` argument (placing a restore for another mesh)
-is not ported: it needs the port's ``distributed/``, which is not written
-yet.
+leaf. ``restore(shardings=)`` places each leaf by its sharding (a tree of
+``distributed.sharding.NamedSharding``) as a ``DTensor`` on that mesh:
+an elastic restore onto another mesh than the one that saved.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ from repro_torch.core import resolve as resolve_lib
 from repro_torch.core import store as store_lib
 from repro_torch.core.chain import Chain, ChainSpec
 from repro_torch.device import as_device
+from repro_torch.distributed import sharding
 from repro_torch.tree import leaves as _leaves
 from repro_torch.tree import tree_map
 from repro_torch.tree import unflatten as _unflatten
@@ -226,9 +227,14 @@ class SnapshotCheckpointer:
 
         return self._pool.submit(job)
 
-    def restore(self, *, method: str = "direct"):
-        """The last saved state, read through ``store.materialize(method)``."""
-        return self._unflatten(store_lib.materialize(self.chain, method=method))
+    def restore(self, *, method: str = "direct", shardings: Any = None):
+        """The last saved state, read through ``store.materialize(method)``;
+        with ``shardings`` (a tree shaped like the state) each leaf placed
+        by its ``NamedSharding`` as a ``DTensor``."""
+        state = self._unflatten(store_lib.materialize(self.chain, method=method))
+        if shardings is not None:
+            state = sharding.distribute(state, shardings)
+        return state
 
     def resolve_cost(self, method: str) -> int:
         """Total index lookups a full restore performs (Fig 17 low-level)."""

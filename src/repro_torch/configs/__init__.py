@@ -1,13 +1,21 @@
 """Arch registry of the port: ``get_config(arch_id)`` and smoke-reduced
 variants, for every config of ``repro.configs``: the decoder-only
 transformers (dense and MoE), RWKV-6 (ssm), Zamba2 (hybrid) and Whisper
-(encdec)."""
+(encdec); and the dry-run's shape cells (``SHAPES``, ``cells_for``)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (
+from repro_torch.configs.base import (  # noqa: F401
+    LONG_CONTEXT_ARCHS,
+    SHAPES,
+    ModelConfig,
+    ShapeSpec,
+    cells_for,
+)
+
+from repro_torch.configs import (  # noqa: E402
     chameleon_34b,
     nemotron_4_15b,
     phi3_5_moe,
@@ -19,7 +27,6 @@ from repro_torch.configs import (
     whisper_base,
     zamba2_2_7b,
 )
-from repro_torch.configs.base import ModelConfig
 
 _REGISTRY = {
     c.CONFIG.name: c.CONFIG

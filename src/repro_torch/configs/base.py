@@ -100,3 +100,31 @@ class ModelConfig:
             + (self.top_k + self.n_shared_experts) * mlp + d * self.n_experts
         )
         return active + self.vocab_size * d * (1 if self.tie_embeddings else 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic sequence handling: it runs only for the
+# SSM and hybrid archs
+LONG_CONTEXT_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+
+
+def cells_for(arch: str) -> list[str]:
+    """The dry-run's shape cells of ``arch``."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        cells.append("long_500k")
+    return cells

@@ -4,7 +4,7 @@
 Every family exposes the same five entry points, so train and serve code
 is architecture-agnostic:
 
-* ``init(generator) -> params``
+* ``init(generator) -> params`` (``init_shapes()``: the tree on ``meta``)
 * ``loss(params, batch) -> scalar``          (batch: tokens/labels[/frames])
 * ``init_cache(batch, max_seq) -> cache``
 * ``prefill(params, batch) -> (logits, cache)``
@@ -37,6 +37,12 @@ class LM:
     def init(self, generator: torch.Generator, device="cuda",
              dtype=L.PARAM_DTYPE):
         return _mod(self.cfg).init_params(self.cfg, generator, device, dtype)
+
+    def init_shapes(self, dtype=L.PARAM_DTYPE):
+        """The parameter tree on the ``meta`` device: every leaf's shape
+        and dtype with no allocation and no random draw (the JAX
+        package's ``jax.eval_shape`` of ``init``)."""
+        return self.init(torch.Generator(), device="meta", dtype=dtype)
 
     def loss(self, params, batch):
         cfg = self.cfg
@@ -91,3 +97,24 @@ def make_batch(cfg: ModelConfig, seed: int, batch: int, seq: int,
         out["frames"] = torch.from_numpy(
             tf.normal(kf, (batch, cfg.enc_frames, cfg.d_model))).to(dev)
     return out
+
+
+def batch_specs(cfg: ModelConfig, batch: int, seq: int, *, kind: str):
+    """``meta`` tensors standing in for every model input of a shape cell:
+    int32 ``tokens`` (and ``labels`` to train), (batch, 1) tokens to
+    decode, and the encoder-decoder's f32 ``frames`` to train or prefill."""
+    meta = torch.device("meta")
+    tok = torch.empty((batch, seq), dtype=torch.int32, device=meta)
+    if kind == "train":
+        specs = dict(tokens=tok, labels=torch.empty_like(tok))
+    elif kind == "prefill":
+        specs = dict(tokens=tok)
+    elif kind == "decode":
+        specs = dict(tokens=torch.empty((batch, 1), dtype=torch.int32,
+                                        device=meta))
+    else:
+        raise ValueError(kind)
+    if cfg.family == "encdec" and kind in ("train", "prefill"):
+        specs["frames"] = torch.empty((batch, cfg.enc_frames, cfg.d_model),
+                                      dtype=torch.float32, device=meta)
+    return specs

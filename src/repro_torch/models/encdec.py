@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
+from repro_torch.distributed.sharding import lshard, merge_last, split_last
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import embed_tokens
 
@@ -76,16 +77,15 @@ def _self_attn(cfg: ModelConfig, p, x, positions, *, causal):
     q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          positions, rope_theta=cfg.rope_theta, use_rope=False)
     out = L.attention_ref(q, k, v, causal=causal)
-    out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.hd)
+    out = merge_last(out)
     return x + out @ p["attn"]["wo"].to(x.dtype), (k, v)
 
 
 def _cross_attn(cfg: ModelConfig, p, x, k, v):
-    b, s, _ = x.shape
     h = L.layernorm(x, p["lnx"], p["lnxb"], cfg.norm_eps)
-    q = (h @ p["xattn"]["wq"].to(h.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
+    q = split_last(h @ p["xattn"]["wq"].to(h.dtype), cfg.n_heads)
     out = L.attention_ref(q, k, v, causal=False)
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd)
+    out = merge_last(out)
     return x + out @ p["xattn"]["wo"].to(x.dtype)
 
 
@@ -103,6 +103,7 @@ def encode(cfg: ModelConfig, params, frames):
     """frames: (B, F, d_model) stub embeddings → encoder memory."""
     x = frames.to(L.COMPUTE_DTYPE)
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    x = lshard(x, "batch", "frames", "embed")
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
     x, _ = _layers(cfg, _enc_block, x, params["enc_layers"], cfg.n_enc_layers,
                    positions)
@@ -110,16 +111,14 @@ def encode(cfg: ModelConfig, params, frames):
 
 
 def _cross_kv(cfg: ModelConfig, p, memory):
-    b, f, _ = memory.shape
-    k = (memory @ p["xattn"]["wk"].to(memory.dtype)).reshape(
-        b, f, cfg.n_kv_heads, cfg.hd)
-    v = (memory @ p["xattn"]["wv"].to(memory.dtype)).reshape(
-        b, f, cfg.n_kv_heads, cfg.hd)
+    k = split_last(memory @ p["xattn"]["wk"].to(memory.dtype), cfg.n_kv_heads)
+    v = split_last(memory @ p["xattn"]["wv"].to(memory.dtype), cfg.n_kv_heads)
     return k, v
 
 
 def _dec_block(cfg: ModelConfig, p, x, positions, memory):
     x, kv = _self_attn(cfg, p, x, positions, causal=True)
+    kv = tuple(lshard(a, "batch", "kv_seq", "kv_heads", "head_dim") for a in kv)
     xkv = _cross_kv(cfg, p, memory)
     x = _cross_attn(cfg, p, x, *xkv)
     return _mlp(cfg, p, x), (kv, xkv)
@@ -131,6 +130,7 @@ def _decoder(cfg: ModelConfig, params, tokens, memory):
     s = tokens.shape[1]
     x = embed_tokens(params, tokens)
     x = x + L.sinusoidal_positions(s, cfg.d_model, x.device)[None].to(x.dtype)
+    x = lshard(x, "batch", "seq", "embed")
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
     x, kvs = _layers(cfg, _dec_block, x, params["dec_layers"], cfg.n_layers,
                      positions, memory)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
+from repro_torch.distributed.sharding import lshard, merge_last
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.transformer import embed_tokens
@@ -56,10 +57,13 @@ def _shared_fwd(cfg: ModelConfig, p, x, positions):
     q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          positions, rope_theta=cfg.rope_theta)
     attn = L.attention_ref(q, k, v, causal=True)
-    attn = attn.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.hd)
+    attn = merge_last(attn)
     x = x + attn @ p["attn"]["wo"].to(x.dtype)
     h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["ff"], h2, cfg.activation), (k, v)
+    x = x + L.mlp_apply(p["ff"], h2, cfg.activation)
+    k = lshard(k, "batch", "kv_seq", "kv_heads", "head_dim")
+    v = lshard(v, "batch", "kv_seq", "kv_heads", "head_dim")
+    return lshard(x, "batch", "seq", "embed"), (k, v)
 
 
 def _shared_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int):
@@ -71,8 +75,10 @@ def _shared_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int):
                          positions, rope_theta=cfg.rope_theta)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    k_cache = lshard(k_cache, "batch", "kv_seq", "kv_heads", "head_dim")
+    v_cache = lshard(v_cache, "batch", "kv_seq", "kv_heads", "head_dim")
     attn = L.decode_attention_ref(q, k_cache, v_cache, pos + 1)
-    attn = attn.reshape(x.shape[0], 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    attn = merge_last(attn).to(x.dtype)
     x = x + attn @ p["attn"]["wo"].to(x.dtype)
     h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     return x + L.mlp_apply(p["ff"], h2, cfg.activation)

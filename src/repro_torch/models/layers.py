@@ -16,6 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import as_device
+from repro_torch.distributed import sharding as sh
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -30,8 +31,11 @@ PARAM_DTYPE = torch.float32
 # ---------------------------------------------------------------------------
 
 def normal_init(generator: torch.Generator, shape, scale: float, dtype, device):
+    dev = as_device(device)
+    if dev.type == "meta":  # shapes only (``LM.init_shapes``): draw nothing
+        return torch.empty(shape, dtype=dtype, device=dev)
     x = torch.randn(shape, generator=generator, device=generator.device)
-    return x.mul_(scale).to(device=as_device(device), dtype=dtype)
+    return x.mul_(scale).to(device=dev, dtype=dtype)
 
 
 def dense_init(generator, d_in, d_out, *, scale=None, dtype=PARAM_DTYPE,
@@ -259,7 +263,13 @@ def _grouped_out(probs, v):
 def attention_ref(q, k, v, *, causal: bool, kv_len=None, q_chunk: int = 1024):
     """Chunked exact attention (softmax per q-chunk over full K rows), so
     memory is O(q_chunk * Sk) per chunk. ``kv_len`` masks the valid prefix
-    of the KV buffers."""
+    of the KV buffers. ``DTensor`` inputs run it on each rank's heads
+    (``sharding.local_attention``)."""
+    if sh.active_rules() is not None and (isinstance(q, sh.DTensor)
+                                          or isinstance(k, sh.DTensor)):
+        return sh.local_attention(
+            lambda q, k, v: attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                          q_chunk=q_chunk), q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -316,7 +326,6 @@ def attn_init(generator, d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias,
 def attn_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, *, rope_theta,
              use_rope=True):
     """Project to rope'd q/k and v. x: (B, S, d) → (B,S,H,D),(B,S,Hkv,D)x2."""
-    b, s, _ = x.shape
     cd = x.dtype
     q = x @ p["wq"].to(cd)
     k = x @ p["wk"].to(cd)
@@ -325,9 +334,9 @@ def attn_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, *, rope_theta,
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
-    q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, n_kv_heads, head_dim)
-    v = v.reshape(b, s, n_kv_heads, head_dim)
+    q = sh.split_last(q, n_heads)
+    k = sh.split_last(k, n_kv_heads)
+    v = sh.split_last(v, n_kv_heads)
     if "q_norm" in p:
         # after the bias, before rope, at rmsnorm's default eps (not the
         # config's norm_eps), as the JAX package
@@ -391,8 +400,18 @@ def lm_loss(hidden, w_out, labels, *, s_chunk: int = 512, mask=None):
         lab = labels[:, lo:lo + s_chunk].long()
         m = mask[:, lo:lo + s_chunk]
         logits = (h @ w).float()
-        gold = logits.gather(-1, lab[..., None])[..., 0]
-        nll = torch.where(m, torch.logsumexp(logits, dim=-1) - gold, 0.0)
+        if isinstance(logits, sh.DTensor):
+            # a vocab-sharded gather is a masked partial sum whose mask
+            # DTensor checks by value (no meta kernel: the dry-run's
+            # tensors have no values); select by comparison instead, the
+            # same number (one term of the sum is not zero)
+            hit = lab[..., None] == torch.arange(logits.shape[-1],
+                                                 device=lab.device)
+            gold = torch.where(hit, logits, 0.0).sum(-1, keepdim=True)
+        else:
+            gold = logits.gather(-1, lab[..., None])
+        nll = (torch.logsumexp(logits, dim=-1, keepdim=True) - gold)[..., 0]
+        nll = torch.where(m, nll, 0.0)
         total = total + nll.sum()
         count = count + m.sum()
     return total / count.clamp(min=1.0)

@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_batch, merge_last, split_last
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
@@ -55,7 +56,6 @@ def _ssm_step(hstate, inp):
 
 def block_apply(cfg: ModelConfig, p, x, conv_prev, ssm_state):
     """x: (B, S, d). Returns (out, new_conv_prev, new_ssm_state)."""
-    b, s, d = x.shape
     cd = x.dtype
     din, nh, hd, st = d_inner(cfg), n_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
 
@@ -66,17 +66,19 @@ def block_apply(cfg: ModelConfig, p, x, conv_prev, ssm_state):
                                              prev=conv_prev)
     xbc = L.silu(xbc)
     xs, bmat, cmat = torch.split(xbc, [din, st, st], dim=-1)
-    xs = xs.reshape(b, s, nh, hd).float()
+    xs = split_last(xs, nh).float()
     bmat, cmat = bmat.float(), cmat.float()               # (B, S, N)
     dt = L.softplus(dt.float() + p["dt_bias"])             # (B, S, nh)
     decay = torch.exp(-torch.exp(p["a_log"].float())[None, None] * dt)
 
     inputs = tuple(a.movedim(1, 0) for a in (xs, bmat, cmat, dt, decay))
-    ssm_state, ys = R.chunked_time_scan(_ssm_step, ssm_state, inputs,
-                                        chunk=cfg.scan_chunk, remat=cfg.remat)
+    ssm_state, ys = local_batch(   # each rank's batch rows (a no-op unsharded)
+        lambda st, xs: R.chunked_time_scan(_ssm_step, st, xs, chunk=cfg.scan_chunk,
+                                           remat=cfg.remat),
+        (ssm_state, 0), (inputs, 1), out_dims=(0, 1))
     y = ys.movedim(0, 1)                                  # (B, S, nh, hd)
     y = y + p["d_skip"].float()[None, None, :, None] * xs
-    y = y.reshape(b, s, din).to(cd)
+    y = merge_last(y).to(cd)
     y = L.rmsnorm(y * L.silu(z), p["norm"], cfg.norm_eps)
     return x + y @ p["out_proj"].to(cd), conv_prev, ssm_state
 

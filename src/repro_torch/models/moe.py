@@ -5,8 +5,13 @@ Dispatch is sort-based with per-group capacity, as in the JAX package:
 token→expert assignments are stably argsorted, ranked within their expert
 segment and scattered into a dense ``(groups, E, capacity, d)`` buffer;
 assignments ranked past the capacity are dropped, and a load-balance aux
-loss is returned beside the output. On one card the JAX package's
-sharding hints (``lshard``) have nothing to shard.
+loss is returned beside the output. The JAX package's sharding hints
+(``lshard``) sit at the same three points: the groups split over the
+dispatch (data) axes, the expert buffers over the expert (model) axis.
+Under sharding rules ``dispatch`` and ``combine``, which have no
+``DTensor`` sharding rule (``searchsorted``, ``scatter_``, ``gather``),
+run on each rank's groups (``sharding.local_batch``); without rules, or
+on plain tensors, every hint is a no-op.
 
 ``moe_apply`` is four steps, each a function of this module: ``route``
 (router, softmax, top-k), ``dispatch`` (ranks, capacity, the buffer),
@@ -37,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
+from repro_torch.distributed.sharding import local_batch, lshard, pin_grad
 from repro_torch.models import layers as L
 
 
@@ -160,11 +166,21 @@ def moe_apply(cfg: ModelConfig, p, x):
     if t % g:
         raise ValueError(f"dispatch_groups {g} must divide token count {t}")
     cap = capacity(t // g, cfg)
-    xt = x.reshape(g, t // g, d)
+    # the batch split over the DP axes alone, then through (t, d): DTensor's
+    # view rules take a flatten and a split one at a time
+    x = lshard(x, "batch", "seq", "embed")
+    xt = pin_grad(lshard(x.reshape(t, d).reshape(g, t // g, d), "dispatch", None,
+                         "embed"))
     probs, top_p, top_i = route(cfg, p, xt)
     aux = aux_loss(probs, top_i, cfg.n_experts)
-    buf, slot = dispatch(xt, top_i, cfg.n_experts, cap)
-    out = combine(expert_products(p, buf), slot, top_p).reshape(b, s, d)
+    buf, slot = local_batch(lambda xg, ig: dispatch(xg, ig, cfg.n_experts, cap),
+                            (xt, 0), (top_i, 0), axis="dispatch")
+    buf = lshard(buf, "dispatch", "expert", None, "embed")
+    out_buf = lshard(expert_products(p, buf), "dispatch", "expert", None,
+                     "embed")
+    out = local_batch(combine, (out_buf, 0), (slot, 0), (top_p, 0),
+                      axis="dispatch")
+    out = pin_grad(out.reshape(t, d).reshape(b, s, d))
     if "shared" in p:
         out = out + shared_expert(p, x)
     return out, aux

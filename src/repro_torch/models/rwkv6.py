@@ -22,6 +22,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
+from repro_torch.distributed.sharding import (
+    local_batch,
+    lshard,
+    merge_last,
+    split_last,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models.transformer import embed_tokens
@@ -69,13 +75,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
 
 def _heads(cfg: ModelConfig, x):
-    b, s, _ = x.shape
-    return x.reshape(b, s, cfg.n_heads, cfg.ssm_head_dim)
+    return split_last(x, cfg.n_heads)
 
 
 def _time_mix(cfg: ModelConfig, p, x, shift_prev, state):
     """x: (B, S, d). Returns (out, new_shift, new_state)."""
-    b, s, d = x.shape
+    s = x.shape[1]
     cd = x.dtype
     shifted, new_shift = R.token_shift(x, shift_prev)
 
@@ -93,20 +98,27 @@ def _time_mix(cfg: ModelConfig, p, x, shift_prev, state):
     w = _heads(cfg, torch.exp(-torch.exp(logw)))     # (B,S,H,D) data-dep decay
     u = p["u"].float().reshape(cfg.n_heads, cfg.ssm_head_dim)
 
+    # the recurrences run on each rank's batch rows (sharding.local_batch)
     if cfg.rwkv_chunked and s > 1:
-        state, y = _chunked_recurrence(cfg, r, k, v, w, u, state)
-        y = y.reshape(b, s, d)
+        state, y = local_batch(
+            lambda rkvw, u, st: _chunked_recurrence(cfg, *rkvw, u, st),
+            ((r, k, v, w), 0), (u, None), (state, 0))
+        y = merge_last(y)
     else:
-        def step(S, inp):                            # S: (B, H, D, E)
-            r_t, k_t, v_t, w_t = inp                 # (B, H, D) each
-            kv = k_t[..., :, None] * v_t[..., None, :]
-            y = torch.einsum("bhd,bhde->bhe", r_t, S + u[None, :, :, None] * kv)
-            return w_t[..., :, None] * S + kv, y
+        def scan(xs, u, state):
+            def step(S, inp):                        # S: (B, H, D, E)
+                r_t, k_t, v_t, w_t = inp             # (B, H, D) each
+                kv = k_t[..., :, None] * v_t[..., None, :]
+                y = torch.einsum("bhd,bhde->bhe", r_t, S + u[None, :, :, None] * kv)
+                return w_t[..., :, None] * S + kv, y
+
+            return R.chunked_time_scan(step, state, xs, chunk=cfg.scan_chunk,
+                                       remat=cfg.remat)
 
         xs = tuple(a.float().movedim(1, 0) for a in (r, k, v, w))
-        state, ys = R.chunked_time_scan(step, state, xs, chunk=cfg.scan_chunk,
-                                        remat=cfg.remat)
-        y = ys.movedim(0, 1).reshape(b, s, d)        # (B, S, d) f32
+        state, ys = local_batch(scan, (xs, 1), (u, None), (state, 0),
+                                out_dims=(0, 1))
+        y = merge_last(ys.movedim(0, 1))             # (B, S, d) f32
     y = L.layernorm(y.to(cd), p["lnx_g"], p["lnx_b"])
     out = (y * L.silu(g)) @ p["wo"].to(cd)
     return out, new_shift, state
@@ -182,10 +194,10 @@ def _channel_mix(p, x, shift_prev):
 def _block(cfg: ModelConfig, p, x, att_shift, ffn_shift, state):
     h = L.layernorm(x, p["ln1_g"], p["ln1_b"])
     att, att_shift, state = _time_mix(cfg, p, h, att_shift, state)
-    x = x + att
+    x = lshard(x + att, "batch", "seq", "embed")
     h2 = L.layernorm(x, p["ln2_g"], p["ln2_b"])
     ffn, ffn_shift = _channel_mix(p, h2, ffn_shift)
-    return x + ffn, att_shift, ffn_shift, state
+    return lshard(x + ffn, "batch", "seq", "embed"), att_shift, ffn_shift, state
 
 
 def _stack(cfg: ModelConfig, params, x, cache):

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
+from repro_torch.distributed.sharding import lshard, merge_last
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
@@ -78,7 +79,7 @@ def embed_tokens(params, tokens):
     vocabulary, as the JAX gather clamps out-of-range indices."""
     table = params["embed"]
     ids = tokens.clamp(0, table.shape[0] - 1)
-    return table.to(L.COMPUTE_DTYPE)[ids]
+    return lshard(table.to(L.COMPUTE_DTYPE)[ids], "batch", "seq", "embed")
 
 
 def ff(cfg: ModelConfig, p_ff, h):
@@ -95,12 +96,21 @@ def block_fwd(cfg: ModelConfig, p, x, positions):
     q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          positions, rope_theta=cfg.rope_theta,
                          use_rope=cfg.use_rope)
+    q = lshard(q, "batch", "seq", "heads", "head_dim")
+    k = lshard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = lshard(v, "batch", "seq", "kv_heads", "head_dim")
     attn = L.attention_ref(q, k, v, causal=True)
-    attn = attn.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.hd)
+    attn = merge_last(attn)
     x = x + attn @ p["attn"]["wo"].to(x.dtype)
+    x = lshard(x, "batch", "seq", "embed")
     h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     ff_out, aux = ff(cfg, p["ff"], h2)
-    return x + ff_out, k, v, aux
+    x = lshard(x + ff_out, "batch", "seq", "embed")
+    # cache-destined copies are sequence-sharded (kv_seq → model axis) so a
+    # 32k-token prefill's collected KV fits per-device memory
+    k_out = lshard(k, "batch", "kv_seq", "kv_heads", "head_dim")
+    v_out = lshard(v, "batch", "kv_seq", "kv_heads", "head_dim")
+    return x, k_out, v_out, aux
 
 
 def _block_train(cfg: ModelConfig, p, x, positions):
@@ -143,8 +153,10 @@ def block_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int):
                          use_rope=cfg.use_rope)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    k_cache = lshard(k_cache, "batch", "kv_seq", "kv_heads", "head_dim")
+    v_cache = lshard(v_cache, "batch", "kv_seq", "kv_heads", "head_dim")
     attn = L.decode_attention_ref(q, k_cache, v_cache, pos + 1)
-    attn = attn.reshape(x.shape[0], 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    attn = merge_last(attn).to(x.dtype)
     x = x + attn @ p["attn"]["wo"].to(x.dtype)
     h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     ff_out, _ = ff(cfg, p["ff"], h2)

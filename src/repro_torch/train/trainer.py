@@ -19,6 +19,16 @@ The state saved is ``dict(params=..., opt=..., step=int32 scalar)``; the
 checkpointer lays its leaves out in JAX's pytree order, so the same state
 gives the JAX trainer's chain word for word. Everything lives on
 ``device``, the card unless the caller asks for the CPU.
+
+Given sharding ``rules`` (``distributed.sharding.make_rules``), the
+parameters and the optimizer state are ``DTensor``s on the rules' mesh,
+placed by ``param_shardings``, and each batch is split over the DP axes by
+``batch_spec``: data parallelism, and FSDP/TP where the mesh has those
+axes. Every rank draws the same state and the same global batch and keeps
+its own shard; the gradients are pinned to the parameters' placements
+(``make_train_step(grad_shardings=)``); a save gathers the whole state and
+``resume`` places the restored one again. Run it under
+``use_rules(rules)``, as the launcher does.
 """
 
 from __future__ import annotations
@@ -28,13 +38,16 @@ import time
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.snapstore_ckpt import SnapshotCheckpointer
 from repro_torch.data import pipeline as data_lib
 from repro_torch.device import as_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.api import LM
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import make_train_step
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -50,7 +63,8 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: LM, opt_cfg: adamw.AdamWConfig,
                  data_cfg: data_lib.DataConfig, tcfg: TrainerConfig,
-                 *, seed: int = 0, device="cuda"):
+                 *, seed: int = 0, device="cuda",
+                 rules: Optional[sh.Rules] = None):
         """The parameters are drawn on ``device`` from
         ``torch.Generator(device).manual_seed(seed)`` (other numbers than
         the JAX trainer's ``PRNGKey(seed)`` draw: to start from JAX's state,
@@ -65,8 +79,19 @@ class Trainer:
         self.params = model.init(gen, device=self.device)
         self.opt_state = adamw.init(self.params)
         self.step = 0
+        self.rules = rules
+        self._shardings = grad_shardings = None
+        if rules is not None:
+            self._shardings = dict(
+                params=sh.param_shardings(self.params, rules),
+                opt=sh.param_shardings(self.opt_state, rules),
+                step=sh.NamedSharding(rules.mesh, sh.P()))
+            self.params = sh.distribute(self.params, self._shardings["params"])
+            self.opt_state = sh.distribute(self.opt_state, self._shardings["opt"])
+            grad_shardings = self._shardings["params"]
         self._step_fn = make_train_step(model, opt_cfg,
-                                        accum_steps=tcfg.accum_steps)
+                                        accum_steps=tcfg.accum_steps,
+                                        grad_shardings=grad_shardings)
         self.ckpt = SnapshotCheckpointer(
             self._state(), page_size=tcfg.page_size, device=self.device
         )
@@ -76,16 +101,25 @@ class Trainer:
         self.losses: list[float] = []
 
     def _state(self):
-        return dict(params=self.params, opt=self.opt_state,
-                    step=torch.tensor(self.step, dtype=torch.int32,
-                                      device=self.device))
+        """The state as plain tensors: a ``DTensor`` leaf gathered whole."""
+        state = dict(params=self.params, opt=self.opt_state,
+                     step=torch.tensor(self.step, dtype=torch.int32,
+                                       device=self.device))
+        if self.rules is None:
+            return state
+        return tree_map(lambda x: x.full_tensor()
+                        if isinstance(x, DTensor) else x, state)
 
     def _batch(self, step: int):
         cfg = self.model.cfg
-        return data_lib.batch_at(
+        batch = data_lib.batch_at(
             self.data_cfg, step,
             with_frames=cfg.enc_frames if cfg.family == "encdec" else 0,
             d_model=cfg.d_model, device=self.device)
+        if self.rules is None:
+            return batch
+        return sh.distribute(batch, sh.shardings_of(
+            sh.batch_spec(batch, self.rules), self.rules.mesh))
 
     def run(self, *, crash_after: Optional[int] = None) -> dict:
         t_useful = 0.0
@@ -128,9 +162,10 @@ class Trainer:
         """Restore the latest checkpoint from the chain; returns the step.
 
         The live state is dropped first; the restored leaves are views of
-        the one restored page image (no copy)."""
+        the one restored page image (no copy), placed as the live state
+        was under ``rules``."""
         self.params = self.opt_state = None
-        state = self.ckpt.restore(method=method)
+        state = self.ckpt.restore(method=method, shardings=self._shardings)
         self.params = state["params"]
         self.opt_state = state["opt"]
         self.step = int(state["step"])

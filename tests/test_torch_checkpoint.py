@@ -2,8 +2,8 @@
 ``repro.checkpoint.snapstore_ckpt``.
 
 The cases of ``tests/test_checkpoint.py`` replay on the port (all but
-``test_elastic_reshard``, which needs ``distributed/``, and the trainer
-restart, which needs ``train/``). States are drawn with numpy and handed to
+the trainer restart, which ``tests/test_torch_train.py`` holds;
+``test_elastic_reshard`` restores onto a one-rank ``gloo`` mesh). States are drawn with numpy and handed to
 both packages; after the same saves the port's chain (L1/L2 words, pool
 words, cursor, length, flags) and every save's stats must equal the JAX
 checkpointer's — through the pool GC and the streaming policy too. Also:
@@ -481,3 +481,44 @@ def test_checkpoint_tenant_dir_round_trip(tmp_path, depth):
 
 def _bits(x):
     return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_elastic_reshard(method):
+    """Save unsharded, restore onto a live mesh with real shardings: every
+    leaf a ``DTensor`` with the requested placements, its local tensor
+    bitwise the saved leaf, and the values JAX's ``restore(shardings=)``
+    gives on its own one-device mesh."""
+    import jax
+    import torch.distributed as dist
+    from jax.sharding import NamedSharding as JNamed
+    from jax.sharding import PartitionSpec as JP
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro.launch.mesh import make_host_mesh as j_host_mesh
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    state = dict(w=np.random.default_rng(5).standard_normal((8, 16)).astype(
+        np.float32), b=np.arange(6, dtype=np.int32))
+    pair = Pair(state, page_size=32, scalable=method != "vanilla")
+    pair.save(state)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = make_host_mesh(data=1, model=1, device="cpu")
+    try:
+        shardings = dict(w=sh.NamedSharding(mesh, sh.P("data", "model")),
+                         b=sh.NamedSharding(mesh, sh.P(None)))
+        got = pair.t.restore(method=method, shardings=shardings)
+        assert isinstance(got["w"], DTensor) and isinstance(got["b"], DTensor)
+        assert list(got["w"].placements) == [Shard(0), Shard(1)]
+        assert list(got["b"].placements) == [Replicate(), Replicate()]
+        jmesh = j_host_mesh(data=1, model=1)
+        jgot = pair.j.restore(method=method, shardings=dict(
+            w=JNamed(jmesh, JP(None, None)), b=JNamed(jmesh, JP(None))))
+        for k in state:
+            np.testing.assert_array_equal(got[k].to_local().numpy(), state[k])
+            np.testing.assert_array_equal(got[k].full_tensor().numpy(),
+                                          np.asarray(jax.device_get(jgot[k])))
+    finally:
+        dist.destroy_process_group()

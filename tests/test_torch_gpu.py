@@ -895,3 +895,98 @@ def test_trainer_crash_restart_on_card(cuda, arch):
     assert t.resume(method="pallas_direct") == 3
     t.run()
     np.testing.assert_allclose(t.losses[-1], ref.losses[-1], rtol=1e-5)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank ``nccl`` host mesh for one test, destroyed after it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield make_host_mesh(device=cuda)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2-moe-a2.7b", "rwkv6-3b"])
+def test_sharded_equals_plain_on_card(nccl_mesh, arch):
+    """Parameters placed by ``param_shardings`` on the one-rank ``nccl``
+    mesh, under ``use_rules``: prefill logits and a decode step bitwise
+    the plain run's on the card (``chip_smoke.py`` phase 14b)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import get_model
+    from repro_torch.models.api import make_batch
+
+    cfg = smoke_config(arch)
+    model = get_model(cfg)
+    rules = sh.make_rules(nccl_mesh)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = make_batch(cfg, 0, 2, 8, device="cuda")
+    dparams = sh.distribute(params, sh.param_shardings(params, rules))
+    dbatch = sh.distribute(batch, sh.shardings_of(sh.batch_spec(batch, rules),
+                                                  nccl_mesh))
+    tok = batch["tokens"][:, :1]
+    cache = model.init_cache(2, 12, device="cuda")
+    dcache = sh.distribute(model.init_cache(2, 12, device="cuda"),
+                           sh.shardings_of(sh.cache_specs(cache, rules), nccl_mesh))
+    with torch.no_grad():
+        logits, _ = model.prefill(params, batch)
+        step, _ = model.decode_step(params, cache, tok)
+        with sh.use_rules(rules):
+            dlogits, _ = model.prefill(dparams, dbatch)
+            dstep, _ = model.decode_step(dparams, dcache, sh.place(
+                tok, sh.NamedSharding(nccl_mesh, sh.P("data", None))))
+    assert isinstance(dlogits, DTensor)
+    assert torch.equal(dlogits.full_tensor(), logits)
+    assert torch.equal(dstep.full_tensor(), step)
+
+
+def test_dp_step_is_train_step_on_card(nccl_mesh):
+    """``make_dp_train_step(compress=False)`` on the one-rank ``nccl``
+    group is bitwise ``make_train_step`` on the card, three steps, under
+    deterministic algorithms (the embedding gradient's scatter-add sums in
+    one order); with compression every residual is within its leaf's
+    scale (``chip_smoke.py`` phase 14d)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import compression as comp
+    from repro_torch.models import get_model
+    from repro_torch.models.api import make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch.tree import leaves
+
+    cfg = smoke_config("qwen2.5-3b")
+    model = get_model(cfg)
+    ocfg = adamw.AdamWConfig(lr=1e-3)
+
+    def fresh():
+        p = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        return p, adamw.init(p)
+
+    ref = make_train_step(model, ocfg)
+    dp = comp.make_dp_train_step(model, ocfg, nccl_mesh, compress=False)
+    dpc = comp.make_dp_train_step(model, ocfg, nccl_mesh, compress=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (p1, o1), (p2, o2), (p3, o3) = fresh(), fresh(), fresh()
+        e2, e3 = comp.init_error_state(p2), comp.init_error_state(p3)
+        for i in range(3):
+            b = make_batch(cfg, i, 4, 16, device="cuda")
+            p1, o1, met = ref(p1, o1, b)
+            p2, o2, e2, loss = dp(p2, o2, e2, b)
+            assert torch.equal(loss, met["loss"])
+            grads = value_and_grad(model.loss, p3, b)[1]
+            scales = [comp.quantize_int8(g.float() + e)[1]
+                      for g, e in zip(leaves(grads), leaves(e3))]
+            p3, o3, e3, _ = dpc(p3, o3, e3, b)
+            for e, s in zip(leaves(e3), scales):
+                assert bool((e.abs() <= s).all())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(leaves((p1, o1)), leaves((p2, o2))):
+        assert torch.equal(a, b)

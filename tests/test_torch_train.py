@@ -579,7 +579,7 @@ def test_launch_train_cpu(capsys):
     out = capsys.readouterr().out
     assert "device: cpu  arch: qwen2.5-3b" in out and "done: loss" in out
     assert report["steps"] == 2 and report["ckpt_chain_length"] == 3
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="needs 256 ranks; the world has 1"):
         t_launch.main(["--production", "--device", "cpu"])
     report = t_launch.main(["--arch", "whisper-base", "--device", "cpu",
                             "--steps", "1", "--batch", "2", "--seq", "16"])
