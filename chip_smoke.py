@@ -236,7 +236,7 @@ Phases, each printing its own lines:
    equal to the whole run's; each pool-GC merge (K9) equals the plain
    merge (``whisper_train_shape`` on K9's row). 13d's K1/K2/K8/K9
    launches go on the kernels line.
-14. distributed — distribution and the launchers, last, on a one-rank
+14. distributed — distribution and the launchers, on a one-rank
    ``nccl`` group (``launch.mesh.make_host_mesh``) destroyed at its end;
    its lines carry ``"phase": "distributed"`` and the card's name and
    power limit. (f) starts first, in a subprocess. (a) The serve launcher
@@ -265,7 +265,25 @@ Phases, each printing its own lines:
    --arch qwen2.5-3b --shape train_4k`` (the 16x16 fake group), its
    record's headline fields.
 
-Phases 10 to 14 start with ``gc.collect()``, and before it a report
+15. storm — the seeded storm of both planes (``tests/scenario/
+   harness_torch.py``: COW writes, snapshots, streaming, compaction,
+   scheduler ticks, demote/promote, free/attach, migration to a fleet of
+   another geometry, writes mid-migration, golden register/fork/release;
+   KV fork storms, appends, tombstone cascades, park/resume, sequence
+   migration, golden admission), the invariant suite after every event
+   and the data oracle every 10; its lines carry ``"phase": "storm"`` and
+   the card's name and power limit. (a) The harness's geometry, seeds 0-2,
+   200 events each, on the card and on the CPU in this process: equal
+   traces and final states equal word for word and byte for byte; K1, K2,
+   K5 and K9 launch in the events (the checks run uncounted). (b) 200
+   events at deployment scale (``STORM_SCALE``: 64 tenants of 512
+   clusters of 64 KiB, chains to 256, Qwen2.5-3B's KV geometry, 36 layers
+   x 2 KV heads x 128 in blocks of 16; the cuts from phase 7's fleet and
+   the check costs that force them are named beside the constants): host
+   ms an event and of its checks by kind, of a check with and without the
+   data oracle, events a second, launches, peak device memory.
+
+Phases 10 to 15 start with ``gc.collect()``, and before it a report
 of what it frees (``cycles``): the CUDA tensors that only reference
 cycles hold, largest first, with the objects that refer to them;
 ``held_GB_before_collect`` must then stay within 1 GB of
@@ -274,7 +292,8 @@ cycles hold, largest first, with the objects that refer to them;
 Launch counts are zeroed just before each phase's main path (an engine's
 run, a store depth, a fleet, each part of phase 9, each checkpoint chain
 of phase 10, each engine of phase 11, phase 12b's and 13d's trainer
-paths, phase 14's launcher runs and sharded restores) and read
+paths, phase 14's launcher runs and sharded restores, phase 15's storms
+on the card) and read
 just after it,
 before any kernel is compared with its plain version. Every row of the kernels line carries
 ``floor_ms``: ``timed_ms`` of a one-element ``zero_()``, the harness's
@@ -440,7 +459,41 @@ DIST_DP_LAYERS, DIST_DP_STEPS, DIST_DP_BATCH = 2, 3, (4, 64)
 DIST_WIRE_RANKS = (2, 16)      # the pod axis and the data axis
 DIST_TRAIN_ARGV = ["--scale", "smoke", "--steps", "8", "--ckpt-every", "1"]
 DIST_RESTORES = ("direct", "pallas_vanilla", "pallas_direct")
-DEV = "cuda"                     # phases 6-14 run here
+# phase 15: the seeded storm of both planes (tests/scenario/harness_torch.py).
+# (a) the harness's own geometry, seeds 0-2, 200 events, card against CPU;
+# (b) deployment scale: phase 6/7's 64 KiB pages and 64 tenants, and
+# Qwen2.5-3B's KV geometry on the serving plane. The phase has ~90 s: 200
+# events, the invariant suite after each, the data oracle after every
+# 10th. Two costs set the cuts from phase 7's fleet (64 disks of 16,384
+# clusters, 1 GiB; chains to 500), each a host read that grows with a
+# dimension of the fleet (H100, 700 W: 1.2-1.4 ms a MB for a data
+# check, which reads both fleets' disks to the host and compares them;
+# 0.33-0.62 ms a MB of L2 words for the invariants, which read every
+# fleet's L2):
+#   disks of 512 clusters (32 MiB; 1/32 of phase 7's): 20 data checks of
+#   (64 + 16) x 32 MiB = 2.7 GB, 3.3-3.7 s each, 65-73 s; at 16,384
+#   clusters one check would take ~2 min;
+#   chains to 256 (of 500): 180 invariants-only checks of 84 MB of L2
+#   words, 28-52 ms each, 5-10 s (at 500, 164 MB, 55-100 ms each, 10-18
+#   s, and the phase would pass 90 s).
+#   A 200-event storm, which streams and compacts as it snapshots, keeps
+#   its chains far shorter than either anyway;
+# a pool of 16,384 rows (1 GiB), half the disks' clusters, so that the
+# scheduler's device budget (half the pool) binds.
+STORM_SEEDS = (0, 1, 2)
+STORM_EVENTS = 200
+STORM_SCALE = dict(
+    n_tenants=64, n_pages=512, page_size=16_384, max_chain=256,
+    pool_capacity=16_384, lease_quantum=8,
+    dst_tenants=16, dst_max_chain=264, dst_pool_capacity=8_192,
+    dst_lease_quantum=16,
+    kv_layers=36, kv_heads=2, kv_head_dim=128, kv_block_size=16,
+    kv_blocks=1_024, kv_max_blocks=128, kv_dst_block_size=32,
+    kv_dst_blocks=512,
+)
+STORM_KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet",
+                 "gather_fleet", "merge")
+DEV = "cuda"                     # phases 6-15 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
                               "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
@@ -4753,6 +4806,135 @@ def distributed_phase(torch, mods):
     return dict(totals)
 
 
+# -- phase 15: the seeded storm of both planes ---------------------------------
+
+
+def _storm(obj, mods):
+    """A phase-15 line: the card's name and power limit beside its numbers."""
+    emit({**obj, "phase": "storm", "card": mods["smi"]})
+
+
+def _by_kind(timings) -> dict:
+    """Host ms an event and of its checks, by event kind: count, mean, max."""
+    out = collections.defaultdict(list)
+    for kind, ev, chk in timings:
+        out[kind].append((1e3 * ev, 1e3 * chk))
+    return {k: dict(n=len(v), event_ms_mean=float(np.mean([e for e, _ in v])),
+                    event_ms_max=float(max(e for e, _ in v)),
+                    check_ms_mean=float(np.mean([c for _, c in v])))
+            for k, v in sorted(out.items())}
+
+
+def _check_ms(h) -> dict:
+    """Host ms of a step's checks: the invariant suite alone, and with the
+    data oracle (every ``check_data_every``-th step), mean and count."""
+    every = h.config.check_data_every
+    out = {"invariants": [], "invariants_and_data": []}
+    for i, (_, _, chk) in enumerate(h.timings, start=1):
+        out["invariants_and_data" if i % every == 0 else "invariants"].append(
+            1e3 * chk)
+    return {k: dict(n=len(v), ms_mean=float(np.mean(v)) if v else None)
+            for k, v in out.items()}
+
+
+def _require_launched(launches: dict) -> None:
+    if DEV == "cuda":
+        for k in STORM_KERNELS:
+            require(launches[k] > 0, f"storm: {k} never launched")
+
+
+def _events_only(h, _build):
+    """The harness ``h`` with its checks (the invariant suite after every
+    event, the data oracle on its cadence) uncounted: what its run counts
+    is its events' launches, the main path's."""
+    check = h.check
+
+    def check_uncounted(**kwargs):
+        with uncounted(_build):
+            check(**kwargs)
+
+    h.check = check_uncounted
+    return h
+
+
+def _run_counted(h, _build) -> dict:
+    """``h.run()`` with the launch counts zeroed just before it; the
+    events' launches, read just after it."""
+    _build.reset_launches()
+    h.run()
+    return {k: _build.LAUNCHES[k] for k in STORM_KERNELS}
+
+
+def _storm_harness():
+    """``tests/scenario/harness_torch.py``, loaded by its path: a ``tests``
+    package installed elsewhere may shadow the repo's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "harness_torch", ROOT / "tests" / "scenario" / "harness_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def storm_phase(torch, mods):
+    """15: (a) the storm at the harness's geometry, seeds 0-2, on the card
+    and on the CPU in this process: equal traces, equal final states word
+    for word and byte for byte, the invariant suite after every event and
+    the data oracle every 10 on both; (b) 200 events at deployment scale
+    (``STORM_SCALE``). Returns the launches of the storms' events on the
+    card: the checks run uncounted, and the counts are read before
+    ``state_of`` gathers the final states."""
+    ht = _storm_harness()
+    _build = mods["_build"]
+    collect_cycles(torch, lambda obj: _storm({"part": "start", **obj}, mods))
+    t0 = time.perf_counter()
+    small = dict.fromkeys(STORM_KERNELS, 0)
+    for seed in STORM_SEEDS:
+        runs = {}
+        for dev in (DEV, "cpu"):
+            h = _events_only(ht.ScenarioHarness(ht.ScenarioConfig(
+                seed=seed, events=STORM_EVENTS, device=dev)), _build)
+            t1 = time.perf_counter()
+            launches = _run_counted(h, _build)
+            runs[dev] = (h, time.perf_counter() - t1)
+            if dev == DEV:
+                small = {k: small[k] + launches[k] for k in STORM_KERNELS}
+        (card, card_s), (cpu, cpu_s) = runs[DEV], runs["cpu"]
+        require(card.trace == cpu.trace, f"storm seed {seed}: traces differ")
+        diffs = ht.state_diffs(ht.state_of(card), ht.state_of(cpu))
+        require(not diffs, f"storm seed {seed}: states differ in {diffs[:8]}")
+        _storm(dict(part="card_vs_cpu", seed=seed, events=STORM_EVENTS,
+                    card_s=card_s, cpu_s=cpu_s, stats=card.stats(),
+                    traces_equal=True, states_equal=True), mods)
+        del runs, card, cpu
+    _require_launched(small)
+    _storm(dict(part="card_vs_cpu", seconds=time.perf_counter() - t0,
+                launches=small), mods)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    h = _events_only(ht.ScenarioHarness(ht.ScenarioConfig(
+        seed=0, events=STORM_EVENTS, device=DEV, **STORM_SCALE)), _build)
+    big = _run_counted(h, _build)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    _require_launched(big)
+    stats = h.stats()
+    require(stats["invariant_checks"] >= STORM_EVENTS, "storm: checks missed")
+    _storm(dict(part="scale", geometry=STORM_SCALE, events=STORM_EVENTS,
+                seconds=wall, events_per_s=STORM_EVENTS / wall,
+                by_kind=_by_kind(h.timings), check_ms=_check_ms(h),
+                stats=stats, launches=big,
+                peak_GB=torch.cuda.max_memory_allocated() / 1e9), mods)
+    del h
+    torch.cuda.empty_cache()
+    _storm({"part": "end", "seconds": time.perf_counter() - t0}, mods)
+    return {k: small[k] + big[k] for k in STORM_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -4921,14 +5103,17 @@ def main() -> int:
     # 13. the other model families: RWKV-6, Zamba2, Whisper
     family13_launches, family13_merge_row = other_families_phase(torch, mods)
 
-    # 14. distribution and the launchers, last, on a one-rank nccl group
+    # 14. distribution and the launchers, on a one-rank nccl group
     dist_launches = distributed_phase(torch, mods)
+
+    # 15. the seeded storm of both planes, card against CPU and at scale
+    storm_launches = storm_phase(torch, mods)
 
     # launches on the main paths: the engines' runs, both store depths,
     # both fleets, the maintenance runs, the golden and migration runs,
-    # phase 11's engines, phase 12's and 13's trainer paths and phase 14's
-    # launcher runs and sharded restores (each counted from zero just
-    # before its run)
+    # phase 11's engines, phase 12's and 13's trainer paths, phase 14's
+    # launcher runs and sharded restores and phase 15's storms on the card
+    # (each counted from zero just before its run)
     launches_of = {k: sum(r["launches"][k] for r in results.values())
                    + sum(x.get(k, 0) for x in (store_launches, fleet_launches,
                                               disk_launches, maint_launches,
@@ -4937,7 +5122,8 @@ def main() -> int:
                                               admission_launches,
                                               seqmig_launches, paper_launches,
                                               family_launches, train_launches,
-                                              family13_launches, dist_launches))
+                                              family13_launches, dist_launches,
+                                              storm_launches))
                    for k in KERNEL_SOURCES}
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])

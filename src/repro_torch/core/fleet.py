@@ -1099,7 +1099,8 @@ def tenant_stats(fleet: ChainFleet) -> dict:
     """Per-tenant occupancy arrays: (T,) numpy arrays of chain ``length``,
     ``alloc_count`` (pool rows held), ``lease_count`` (quanta held),
     ``cold_count`` (host rows held) and the ``overflow``/``snap_dropped``
-    pressure flags."""
-    return {name: getattr(fleet, name).cpu().numpy()
+    pressure flags. Owned copies: a caller keeps them across ops that
+    update the fleet in place (the scheduler's tick does)."""
+    return {name: getattr(fleet, name).cpu().numpy().copy()
             for name in ("length", "alloc_count", "lease_count", "overflow",
                          "snap_dropped", "cold_count")}

@@ -136,7 +136,10 @@ def _rewrite_ptrs(l2: np.ndarray, mask: np.ndarray,
 
 
 def _host_words(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy().view(np.uint32)
+    """An owned ``uint32`` host copy of index words. ``.cpu()`` of a CPU
+    tensor is the tensor itself, and the fleet ops rewrite ``l1``/``l2``
+    in place, so a blob must never hold a view of them."""
+    return x.cpu().numpy().view(np.uint32).copy()
 
 
 # -- export ------------------------------------------------------------------
@@ -165,6 +168,7 @@ def export_tenant(fleet, t: int, *, store=None) -> TenantBlob:
             "TieredStore so export can pack its cold pages"
         )
     empty = np.zeros((0, spec.page_size), dtype_name(spec.dtype))
+    # advanced indexing gathers into fresh tensors: both are owned copies
     hot_pages = (fleet.pool[torch.as_tensor(hot_rows, device=fleet.device)]
                  .cpu().numpy() if hot_rows.size else empty)
     cold_pages = store.get(cold_rows).numpy() if cold_rows.size else empty

@@ -308,7 +308,103 @@ def _coordinate(mesh, axes) -> int:
     return c
 
 
-def local_attention(fn, q, k, v):
+def _seq_axes(x) -> list[int]:
+    """The mesh dims that split dim 1 (the sequence) of a ``DTensor`` into
+    more than one shard (none for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return []
+    axes = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+    return axes if math.prod(x.device_mesh.size(i) for i in axes) > 1 else []
+
+
+def _seq_offset(x, placements_) -> int:
+    """This rank's first global position along dim 1 of ``x`` placed as
+    ``placements_``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    _, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, placements_)
+    return int(offset[1])
+
+
+def write_position(cache, pos: int, value) -> None:
+    """``cache[:, pos] = value`` in place: a cache (B, S, Hkv, D) and a
+    value (B, Hkv, D). Where the cache's sequence is split over ranks
+    (``kv_seq``), the rank whose shard holds ``pos`` writes it into its
+    local shard, and no rank gathers the cache."""
+    axes = _seq_axes(cache)
+    if not axes:
+        cache[:, pos] = value
+        return
+    mesh = cache.device_mesh
+    # the value split as the cache is, but whole where the cache's
+    # sequence is split: every rank holds the row it may have to write
+    want = [Replicate() if i in axes
+            else Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) else p
+            for i, p in enumerate(cache.placements)]
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    row = value.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    lo = _seq_offset(cache, cache.placements)
+    if lo <= pos < lo + local.shape[1]:
+        local[:, pos - lo] = row
+
+
+def _all_reduce(x, op: str, mesh, axes):
+    from torch.distributed import _functional_collectives as funcol
+
+    for i in axes:
+        x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, i)))
+    return x
+
+
+def _split_softmax(partial_fn, q, k, v, axes, rules):
+    """Attention over k/v (B, Sk, Hkv, D) whose sequence is split over the
+    mesh dims ``axes``: each rank attends q (B, Sq, H, D), all its heads,
+    over its own shard at global positions (``partial_fn(q, k, v,
+    offset)`` → the shard's row max, exp-sum and unnormalized output),
+    and the partial max, sum and output are combined over ``axes``: three
+    all-reduces, the largest of q's size. The caches stay where they lie. A shard
+    wholly past ``kv_len`` contributes zeros; a row with no valid key at
+    all is zero, as in the plain path."""
+    mesh = k.device_mesh
+    # the batch split as the cache splits it; q's heads whole (every head
+    # reads every shard), and k/v as they lie
+    kp = [p if (isinstance(p, Shard) and p.dim in (0, 1)) else Replicate()
+          for p in k.placements]
+    qp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in kp]
+
+    def local(x, want):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, want).to_local()
+
+    ql, kl, vl = local(q, qp), local(k, kp), local(v, kp)
+    m, l, o = partial_fn(ql, kl, vl, _seq_offset(k, kp))
+    big = _all_reduce(m, "max", mesh, axes)
+    # exp(-inf) = 0 for a shard with no valid key; a row with none anywhere
+    # has big = -inf, clamped so that no inf - inf makes a NaN
+    alpha = torch.exp(m - torch.clamp(big, min=torch.finfo(big.dtype).min))
+    l = _all_reduce(l * alpha, "sum", mesh, axes)
+    b, hkv, g, sq, _ = alpha.shape
+    scale = alpha.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, 1)
+    o = _all_reduce(o * scale, "sum", mesh, axes)
+    denom = l.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, 1)
+    out = torch.where(denom > 0, o / torch.where(denom > 0, denom, 1.0), 0.0)
+    qs = rules.partition(("batch", None, "heads", None), q.shape)
+    want = placements(qs, mesh, q.shape)
+    return DTensor.from_local(out.to(v.dtype), mesh, qp,
+                              run_check=False).redistribute(mesh, want)
+
+
+def local_attention(fn, q, k, v, *, partial_fn=None):
     """``fn(q, k, v)``, an attention over q (B, Sq, H, D) and k/v (B, Sk,
     Hkv, D), on each rank's heads: the batch split over the DP axes as the
     rules say, each sequence whole, q's heads split over the model axis
@@ -317,15 +413,24 @@ def local_attention(fn, q, k, v):
     one rank the result is bitwise the plain one. With no rules or no
     ``DTensor`` argument it is ``fn(q, k, v)``.
 
-    The sequence is gathered: a decode step over a ``kv_seq``-sharded cache
-    all-gathers the cache (where XLA's partitioner would split the softmax
-    over the shards instead)."""
+    Where k/v's sequence is split over ranks (a decode step over a
+    ``kv_seq``-sharded cache), ``partial_fn`` is given and nothing needs
+    a gradient, the softmax is split over the shards instead
+    (``_split_softmax``), as XLA's partitioner splits it: nothing of the
+    cache is gathered. Its collectives are not autograd-aware, so a step
+    that records gradients (a prefill or training step under
+    ``make_rules(seq_shard=True)``) gathers k/v as any other does."""
     from torch.distributed.tensor import Partial
 
     rules = active_rules()
     dts = [a for a in (q, k, v) if isinstance(a, DTensor)]
     if rules is None or not dts:
         return fn(q, k, v)
+    axes = _seq_axes(k)
+    grad = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in (q, k, v))
+    if axes and partial_fn is not None and not grad:
+        return _split_softmax(partial_fn, q, k, v, axes, rules)
     mesh = dts[0].device_mesh
     qs = rules.partition(("batch", None, "heads", None), q.shape)
     ks = rules.partition(("batch", None, "kv_heads", None), k.shape)

@@ -19,7 +19,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
-from repro_torch.distributed.sharding import lshard, merge_last, split_last
+from repro_torch.distributed.sharding import (
+    lshard,
+    merge_last,
+    split_last,
+    write_position,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import embed_tokens
 
@@ -187,8 +192,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
         h = L.layernorm(x, p["ln1"], p["ln1b"], cfg.norm_eps)
         q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                              positions, rope_theta=cfg.rope_theta, use_rope=False)
-        kc[:, pos] = k[:, 0].to(kc.dtype)
-        vc[:, pos] = v[:, 0].to(vc.dtype)
+        write_position(kc, pos, k[:, 0].to(kc.dtype))
+        write_position(vc, pos, v[:, 0].to(vc.dtype))
         out = L.decode_attention_ref(q, kc, vc, pos + 1)
         x = x + out.reshape(b, 1, -1).to(x.dtype) @ p["attn"]["wo"].to(x.dtype)
         hx = L.layernorm(x, p["lnx"], p["lnxb"], cfg.norm_eps)

@@ -269,7 +269,9 @@ def attention_ref(q, k, v, *, causal: bool, kv_len=None, q_chunk: int = 1024):
                                           or isinstance(k, sh.DTensor)):
         return sh.local_attention(
             lambda q, k, v: attention_ref(q, k, v, causal=causal, kv_len=kv_len,
-                                          q_chunk=q_chunk), q, k, v)
+                                          q_chunk=q_chunk), q, k, v,
+            partial_fn=lambda q, k, v, offset: attention_partial(
+                q, k, v, causal=causal, kv_len=kv_len, k_offset=offset))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -290,6 +292,28 @@ def attention_ref(q, k, v, *, causal: bool, kv_len=None, q_chunk: int = 1024):
 
     outs = [one_chunk(q[:, s:s + q_chunk], s) for s in range(0, sq, q_chunk)]
     return torch.cat(outs, dim=1)
+
+
+def attention_partial(q, k, v, *, causal: bool, kv_len=None, k_offset: int = 0):
+    """One shard of a sequence-split softmax: q (B, Sq, H, D) over the keys
+    k/v (B, Sk, Hkv, D) at global positions ``k_offset + arange(Sk)``,
+    queries at positions ``arange(Sq)``. Returns the row max and exp-sum,
+    each (B, Hkv, G, Sq, 1) f32 (-inf and 0 where the shard has no valid
+    key), and the unnormalized output (B, Sq, H, D) f32; the combine is
+    ``sharding._split_softmax``."""
+    sq, sk = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kpos = k_offset + torch.arange(sk, device=q.device)
+    scores = _grouped_scores(q, k) * scale                 # (B,Hkv,G,Sq,Sk)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= torch.arange(sq, device=q.device)[:, None]
+    if kv_len is not None:
+        mask &= kpos[None, :] < kv_len
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - torch.clamp(m, min=torch.finfo(m.dtype).min))
+    return m, p.sum(dim=-1, keepdim=True), _grouped_out(p, v.float())
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_len):

@@ -12,17 +12,36 @@ a few small kernels a token, on the card as on the CPU.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.models import layers as L
 
 
+def _loop(n: int, trip, carry, xs, remat=None):
+    """``carry, y_t = trip(t, carry)`` for ``t < n``, each trip under
+    ``remat(trip, t, carry)`` if given: the last carry and the ``y_t``.
+    An active dispatch mode with a ``loop`` method may run the trips its
+    own way and gets ``xs`` to tell whether it may (the dry-run's op
+    counter, which on ``meta`` tensors counts a few trips for all)."""
+    runner = getattr(_get_current_dispatch_mode(), "loop", None)
+    out = runner(n, trip, carry, xs, remat) if runner is not None else None
+    if out is not None:
+        return out
+    ys = []
+    for t in range(n):
+        carry, y = trip(t, carry) if remat is None else remat(trip, t, carry)
+        ys.append(y)
+    return carry, ys
+
+
 def _scan(step_fn, carry, xs):
     """``lax.scan`` over axis 0 of each tensor of ``xs``."""
-    ys = []
-    for t in range(xs[0].shape[0]):
-        carry, y = step_fn(carry, tuple(x[t] for x in xs))
-        ys.append(y)
+    carry, ys = _loop(xs[0].shape[0],
+                      lambda t, c: step_fn(c, tuple(x[t] for x in xs)),
+                      carry, xs)
     return carry, torch.stack(ys)
 
 
@@ -44,11 +63,13 @@ def chunked_time_scan(step_fn, carry, xs, *, chunk: int = 64, remat: bool = True
     if pad:
         xs = tuple(torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
                    for x in xs)
-    ys = []
-    for c in range(n_chunks):
-        xc = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
-        carry, yc = L.remat_call(remat, _scan, step_fn, carry, xc)
-        ys.append(yc)
+
+    def one_chunk(c, carry):
+        return _scan(step_fn, carry,
+                     tuple(x[c * chunk:(c + 1) * chunk] for x in xs))
+
+    carry, ys = _loop(n_chunks, one_chunk, carry, xs,
+                      functools.partial(L.remat_call, remat))
     return carry, torch.cat(ys)[:length]
 
 

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import as_device
-from repro_torch.distributed.sharding import lshard, merge_last
+from repro_torch.distributed.sharding import lshard, merge_last, write_position
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
@@ -151,8 +151,8 @@ def block_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos: int):
     q, k, v = L.attn_qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          positions, rope_theta=cfg.rope_theta,
                          use_rope=cfg.use_rope)
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    write_position(k_cache, pos, k[:, 0].to(k_cache.dtype))
+    write_position(v_cache, pos, v[:, 0].to(v_cache.dtype))
     k_cache = lshard(k_cache, "batch", "kv_seq", "kv_heads", "head_dim")
     v_cache = lshard(v_cache, "batch", "kv_seq", "kv_heads", "head_dim")
     attn = L.decode_attention_ref(q, k_cache, v_cache, pos + 1)

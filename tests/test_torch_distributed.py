@@ -546,6 +546,155 @@ def test_dp_step_uncompressed_is_train_step(host_mesh):
 
 
 # ---------------------------------------------------------------------------
+# decode over a kv_seq-sharded cache: the split softmax, on two ranks
+# ---------------------------------------------------------------------------
+
+SPLIT_ARCHS = ("qwen2.5-3b", "zamba2-2.7b", "whisper-base")
+SPLIT_PROMPT = 14
+
+
+def _pad_kv(cache, length):
+    """The cache with its self-attention K/V (L, B, S, Hkv, D) zero-padded
+    to ``length`` positions (cross K/V and states as they are)."""
+    def visit(path, x):
+        if str(path[-1]) in ("k", "v"):
+            pad = x.new_zeros(x.shape[:2] + (length - x.shape[2],) + x.shape[3:])
+            return torch.cat([x, pad], dim=2)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+    return sh.map_with_path(visit, cache)
+
+
+def _split_decode_worker(rank, world, store_path):
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        tl.COMPUTE_DTYPE = torch.float32
+        mesh = tmesh.make_host_mesh(data=1, model=2, device="cpu")
+        rules = sh.make_rules(mesh)
+        for arch in SPLIT_ARCHS:
+            cfg = smoke_config(arch)
+            model = get_model(cfg)
+            params = model.init(torch.Generator().manual_seed(0), device="cpu")
+            batch = make_batch(cfg, 0, 2, SPLIT_PROMPT, device="cpu")
+            _, cache = model.prefill(params, batch)
+            dparams = sh.distribute(params, sh.param_shardings(params, rules))
+            gen = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=gen,
+                                 dtype=torch.int32)
+
+            def placed(c):
+                return sh.distribute(c, sh.shardings_of(sh.cache_specs(c, rules),
+                                                        mesh))
+
+            # 32 positions in two shards of 16: the first two steps leave
+            # shard 1 wholly past kv_len, the last two write into it
+            plain, dcache = _pad_kv(cache, 32), placed(_pad_kv(cache, 32))
+            assert Shard(2) in dcache["k"].placements, arch
+            for tok in toks:
+                want, plain = model.decode_step(params, plain, tok)
+                with sh.use_rules(rules):
+                    got, dcache = model.decode_step(
+                        dparams, dcache,
+                        sh.place(tok, sh.NamedSharding(mesh, sh.P("data", None))))
+                got = _full(got)
+                assert torch.isfinite(got).all(), arch
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+            for name in ("k", "v"):
+                torch.testing.assert_close(_full(dcache[name]), plain[name],
+                                           rtol=0, atol=1e-4)
+            # the step's collectives do not grow with the cache: nothing of
+            # it is gathered
+            reports = []
+            for length in (32, 64):
+                dc = placed(_pad_kv(cache, length))
+                with sh.use_rules(rules):
+                    _, rep = op_analysis.count(
+                        model.decode_step, dparams, dc,
+                        sh.place(toks[0], sh.NamedSharding(mesh, sh.P("data", None))))
+                reports.append(rep["collective_bytes"])
+            assert reports[0] == reports[1], (arch, reports)
+            assert reports[0]["all-reduce"] > 0, arch
+    finally:
+        dist.destroy_process_group()
+
+
+def test_split_softmax_decode_on_two_ranks(tmp_path):
+    """Decode over a cache whose sequence is split over two spawned gloo
+    ranks (a (1, 2) mesh), in f32, for the three families whose decode
+    writes and reads a ``kv_seq`` cache: every step's logits within 1e-4
+    of the plain decode, the written caches too, a shard wholly past
+    ``kv_len`` contributing zeros (no NaN), and the collective bytes of a
+    step the same at 32 and 64 cached positions (the cache is never
+    all-gathered)."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_split_decode_worker, args=(2, str(tmp_path / "store")),
+             nprocs=2, join=True)
+
+
+def _seq_shard_train_worker(rank, world, store_path):
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        tl.COMPUTE_DTYPE = torch.float32
+        mesh = tmesh.make_host_mesh(data=1, model=2, device="cpu")
+        rules = sh.make_rules(mesh, seq_shard=True)
+        cfg = smoke_config("qwen2.5-3b")
+        model = get_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        batch = make_batch(cfg, 0, 2, 16, device="cpu")
+        loss, grads = value_and_grad(model.loss, params, batch)
+        dparams = sh.distribute(params, sh.param_shardings(params, rules))
+        dbatch = sh.distribute(batch, sh.shardings_of(
+            sh.batch_spec(batch, rules), mesh))
+        with sh.use_rules(rules):
+            dloss, dgrads = value_and_grad(model.loss, dparams, dbatch)
+        torch.testing.assert_close(_full(dloss), loss, rtol=0, atol=1e-4)
+        for g, want in zip(leaves(dgrads), leaves(grads)):
+            assert torch.isfinite(_full(g)).all()
+            torch.testing.assert_close(_full(g), want, rtol=0, atol=1e-4)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_seq_shard_train_step_on_two_ranks(tmp_path):
+    """The loss and every gradient of a training step under
+    ``make_rules(seq_shard=True)`` on two spawned gloo ranks (a (1, 2)
+    mesh), in f32: k/v's sequence is split over the model axis, and a step
+    that records gradients gathers them (the split softmax's collectives
+    carry no gradient); within 1e-4 of the plain step."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_seq_shard_train_worker, args=(2, str(tmp_path / "store")),
+             nprocs=2, join=True)
+
+
+def test_attention_partial_combines_to_attention_ref():
+    """The split softmax's shard function: two shards' partials, combined
+    as ``_split_softmax`` combines them, equal ``attention_ref`` within
+    1e-6, with one shard wholly masked."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 3, 4, 8, generator=gen)
+    k = torch.randn(2, 10, 2, 8, generator=gen)
+    v = torch.randn(2, 10, 2, 8, generator=gen)
+    for kv_len in (4, 5, 9):
+        want = tl.attention_ref(q, k, v, causal=False, kv_len=kv_len)
+        parts = [tl.attention_partial(q, k[:, a:b], v[:, a:b], causal=False,
+                                      kv_len=kv_len, k_offset=a)
+                 for a, b in ((0, 5), (5, 10))]
+        big = torch.maximum(parts[0][0], parts[1][0])
+        alphas = [torch.exp(m - big) for m, _, _ in parts]
+        den = sum(l * a for (_, l, _), a in zip(parts, alphas))
+        num = sum(o * a.permute(0, 3, 1, 2, 4).reshape(2, 3, 4, 1)
+                  for (_, _, o), a in zip(parts, alphas))
+        got = num / den.permute(0, 3, 1, 2, 4).reshape(2, 3, 4, 1)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        if kv_len <= 5:
+            assert parts[1][0].isinf().all() and (parts[1][1] == 0).all()
+            assert (parts[1][2] == 0).all()
+
+
+# ---------------------------------------------------------------------------
 # op_analysis
 # ---------------------------------------------------------------------------
 

@@ -207,3 +207,53 @@ def test_dryrun_smoke_cell_in_subprocess(tmp_path):
     n_active = j_smoke("qwen2.5-3b").active_param_count()
     assert rec["model_flops_total"] == 6.0 * n_active * 256 * 4096
     assert rec["model_flops_per_device"] == rec["model_flops_total"] / 8
+
+
+# A recurrent cell traced twice on a fake (2, 4) group: its time loops
+# weighted (four trips stand for all), and with ``OpCounter.loop``
+# answering no, every trip run. The shapes are cut to 200 positions (4
+# chunks of 64, the last one padded) so that the every-trip trace ends in
+# seconds, and a train cell accumulates 2 micro-batches. A first trace
+# warms the process (tables a model computes once), so the two compared
+# traces both come second.
+_WEIGHTED_CELL = """
+import json, sys
+from repro_torch.configs import SHAPES, ShapeSpec
+from repro_torch.launch import dryrun, op_analysis
+arch, shape = sys.argv[1:3]
+SHAPES["train_4k"] = ShapeSpec("train_4k", 200, 8, "train")
+SHAPES["prefill_32k"] = ShapeSpec("prefill_32k", 200, 2, "prefill")
+dryrun.ACCUM[(arch, "train_4k")] = 2
+dryrun.join_fake_world(8)
+weighted = op_analysis.OpCounter.loop
+recs = []
+for runner in (weighted, lambda self, *args: None, weighted):
+    op_analysis.OpCounter.loop = runner
+    recs.append(dryrun.lower_cell(arch, shape, multi_pod=False, smoke=True))
+keys = ("flops_per_device", "hbm_bytes_per_device",
+        "collective_bytes_per_device")
+lower = [r["memory"]["peak_is_lower_bound"] for r in recs[1:]]
+print(json.dumps([{k: r[k] for k in keys} for r in recs[1:]] + [lower]))
+"""
+
+
+def test_dryrun_weighted_time_loop_equals_every_trip():
+    """RWKV6's and Zamba2's smoke configs, prefill- and train-shaped: the
+    FLOPs, HBM bytes and collective bytes of the weighted trace equal those
+    of the trace that runs every trip of the time loop, exactly; only the
+    weighted trace marks its peak memory as a lower bound."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    cells = [(a, s) for a in ("rwkv6-3b", "zamba2-2.7b")
+             for s in ("prefill_32k", "train_4k")]
+    procs = [subprocess.Popen([sys.executable, "-c", _WEIGHTED_CELL, a, s],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for a, s in cells]
+    for (arch, shape), proc in zip(cells, procs):
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+        full, weighted, lower = json.loads(out.strip().splitlines()[-1])
+        assert full["flops_per_device"] > 0
+        assert weighted == full, (arch, shape, weighted, full)
+        # the weighted loop's peak saves one trip's activations for n
+        assert lower == [False, True], (arch, shape, lower)

@@ -388,6 +388,43 @@ def test_import_evicts_previous_occupant():
     tinv.check_fleet_invariants(td, store=tds)
 
 
+def test_exported_blob_owns_its_words_after_source_churn():
+    """A blob exported from a CPU fleet is a copy: freeing, reattaching and
+    snapshotting the source afterwards leaves it equal to the JAX package's
+    blob of the same events, and importing it lands the JAX import's
+    words. (A blob whose ``l1`` is a view of ``fleet.l1`` changes with the
+    source.)"""
+    rng = np.random.default_rng(5)
+    jf = _grow(jfleet.create(jfleet.FleetSpec(**_kw()), scalable=True), rng,
+               layers=4)
+    js = JStore.for_fleet(jf.spec)
+    jf, rep = jfleet.demote_tenants(jf, js, [0], max_rows=6)
+    assert rep["rows_demoted"] > 0
+    tf, ts = to_port(jf, js)
+    jb = jmigrate.export_tenant(jf, 0, store=js)
+    tb = tmigrate.export_tenant(tf, 0, store=ts)
+    same_blob(jb, tb)
+
+    jf = jfleet.free_tenant(jf, 0, store=js)
+    jf = jfleet.attach_tenant(jf, 0, scalable=False)
+    jf = jfleet.snapshot(jf, jnp.asarray([True, False, False]))
+    tf = tfleet.free_tenant(tf, 0, store=ts)
+    tf = tfleet.attach_tenant(tf, 0, scalable=False)
+    tf = tfleet.snapshot(tf, torch.tensor([True, False, False]))
+    same_fleet(jf, tf)
+    same_blob(jb, tb)
+
+    jd, jds, td, tds = dst_pair(4)
+    jd = jmigrate.import_tenant(jd, 1, jb, store=jds)
+    td = tmigrate.import_tenant(td, 1, tb, store=tds)
+    same_fleet(jd, td)
+    same_store(jds, tds)
+    np.testing.assert_array_equal(
+        tmigrate.materialize_tenant(td, 1, store=tds).numpy(),
+        np.asarray(jmigrate.materialize_tenant(jd, 1, store=jds)))
+    tinv.check_fleet_invariants(td, store=tds)
+
+
 @pytest.mark.parametrize("fault", ["verify_miss", "stale_detach"])
 def test_failed_migration_leaves_destination_slot_empty(monkeypatch, fault):
     """A migration that fails after the import (a destination that does

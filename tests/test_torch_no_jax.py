@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` nor
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch/``, nor
+``chip_smoke.py``, nor the port's scenario harness imports JAX or anything
+of the JAX package ``repro``."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "scenario" / "harness_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
