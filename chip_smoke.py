@@ -55,7 +55,11 @@ Phases, each printing its own lines:
    methods and formats; at depth 500 the vanilla walk costs about 500
    lookups a request and direct exactly 1. K6/K7/K8 run on the disk's own
    planes and must equal ``store.read``; at depth 500 each is held against
-   its plain version and timed as in phase 5. K7's row carries
+   its plain version and timed as in phase 5. K6's row carries
+   ``pages_a_thread``, ``layers_a_batch``, ``words_walked`` and
+   ``group_words_walked`` (V times the deepest walk of each group of V
+   pages a thread: what the group reads past its pages' own walks), as
+   its checkpoint-chain row does. K7's row carries
    ``size_sweep``: K7 at N = 2^18 to 2^24, each size held bit-exact,
    and the line through (bytes, ms): its slope as a rate and its
    intercept, the fixed cost a call.
@@ -1436,10 +1440,10 @@ def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
     cg, cg_ref = mods["cg"], mods["cg_ref"]
     c, n = planes["alloc"].shape
     length = van.length
-    top = min(int(length), c) - 1
     owner = k6[0]
     hits = int((owner >= 0).sum())
-    walked = int(torch.where(owner >= 0, top - owner + 1, top + 1).sum())
+    walk = k6_walk(torch, cr, planes["alloc"], owner, length)
+    walked = walk["words_walked"]
     page = van.pool.shape[1] * van.pool.element_size()
     found = int(ok.sum())
     b = safe_rows.numel()
@@ -1464,6 +1468,7 @@ def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
         row, _ = measure(torch, name, kern, plain, nbytes, 0, None, flush,
                          library=library)
         rows.append(row)
+    rows[0].update(walk)
     rows[1]["size_sweep"] = k7_size_sweep(torch, mods, flush)
     rows[2]["variant"] = cg.gather_variant(page).name
     emit({"phase": "store", "kernel_shapes": {
@@ -1471,6 +1476,20 @@ def store_kernels(torch, mods, planes, van, safe_rows, ok, k6, flush):
         "words_walked": walked, "hits": hits, "gather_pages": b,
         "gather_found": found}})
     return rows
+
+
+def k6_walk(torch, cr, alloc, owner, length):
+    """What K6's walk reads on this data: ``words_walked``, per page the
+    layers from the top down to its owner (the whole live chain on a
+    miss), and ``group_words_walked``, V times the deepest walk of each
+    group of V pages a thread (a thread walks until its deepest page is
+    found), beside its ``pages_a_thread`` and ``layers_a_batch``."""
+    v, u = cr.vanilla_config(alloc)
+    top = min(int(length), alloc.shape[0]) - 1
+    depth = torch.where(owner >= 0, top - owner + 1, top + 1).to(torch.int64)
+    return dict(words_walked=int(depth.sum()),
+                group_words_walked=v * int(depth.view(-1, v).amax(1).sum()),
+                pages_a_thread=v, layers_a_batch=u)
 
 
 def k7_size_sweep(torch, mods, flush):
@@ -2804,13 +2823,15 @@ def _ckpt_kernels(torch, mods, ck, flush):
             walk=cr.fleet_walk(1, n))
         alloc = fmt.entry_allocated(l2).to(torch.int32)
         ptrs = fmt.entry_ptr(l2).contiguous()
-        row, _ = measure(torch, "resolve_vanilla",
-                         lambda: cr.resolve_vanilla_cuda(alloc, ptrs, length),
-                         lambda: cr_ref.resolve_vanilla_ref(alloc, ptrs, length),
-                         4 * (walked + hits + 1) + 8 * n, 0, None, flush,
-                         n_kernel=20, n_plain=3)
+        row, got = measure(torch, "resolve_vanilla",
+                           lambda: cr.resolve_vanilla_cuda(alloc, ptrs, length),
+                           lambda: cr_ref.resolve_vanilla_ref(alloc, ptrs, length),
+                           4 * (walked + hits + 1) + 8 * n, 0, None, flush,
+                           n_kernel=20, n_plain=3)
+        walk = k6_walk(torch, cr, alloc, got[0], length)
+        require(walk["words_walked"] == walked, "K6 walked words differ from K1's")
         out["resolve_vanilla"] = _shape_row(row, "resolve_vanilla", C_N=[c, n],
-                                            words_walked=walked)
+                                            **walk)
     return out
 
 
@@ -4940,6 +4961,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {ROOT}: run the script "
+              "from a checkout of the repo", file=sys.stderr)
         return 1
 
     from repro_torch.configs import get_config, smoke_config

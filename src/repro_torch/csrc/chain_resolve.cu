@@ -40,12 +40,18 @@
 //
 // The single-chain kernels take the chain as separate planes, as the TPU
 // kernels do: an allocation map (int32 or bool, tested != 0) and a pointer
-// plane. One thread per page, coalesced along N, from layer
-// min(length, C) - 1 down to the first allocated layer (layers >= C are
-// invalid, and so are layers >= length); ptr is 0 on a miss. That walk is
-// first_hit_down (chain_walk.cuh). The direct kernel (K7) is one
-// elementwise pass over the active layer. It does not look at BFI_VALID:
-// its caller decides what is trusted.
+// plane. The walk (K6) is K9's planes walk (planes_first_hit,
+// chain_walk.cuh) from layer min(length, C) - 1 down (layers >= C are
+// invalid, and so are layers >= length; the length is read on the device):
+// a thread owns V neighbouring pages (4 where 4 divides N and the plane is
+// aligned to their bytes, else 1; the wrapper picks), reads them as one
+// load a layer, and issues U layers' loads before testing any, until all V
+// have an owner (U: 32 registers of loads, kVanillaLoadWords). A walk of
+// one page a thread and one dependent 4-byte load a layer leaves an SM
+// 2-8 KB in flight, where the card needs ~15 KB to stream. ptr is the
+// owner's pointer, 0 on a miss. The direct kernel (K7) is one elementwise
+// pass over the active layer. It does not look at BFI_VALID: its caller
+// decides what is trusted.
 //
 // Words are read as uint32_t; the layout comes from -D macros generated
 // from repro_torch/core/format.py (kernels/_build.py).
@@ -70,6 +76,16 @@ constexpr int kMaxGridY = 65535;
 // every shape of the walk sweep up to 65,536 pages and tied it at the
 // fleet read's 1,048,576 (PERF.md).
 constexpr int kWalkBatch = 8;
+
+// Registers a thread of the single-chain walk (K6) holds loads in: a
+// batch is kVanillaLoadWords / (the 4-byte words of one load) layers, so
+// 8 layers of 4 int32 pages, 32 of 4 bool pages or of one page. On an
+// H100 4 int32 pages x 32 layers took 160 registers and one block an SM,
+// and lost to 8 layers by 44 % at the depth-500 disk and 56 % at the
+// checkpoint chain; with 4 bool pages, 32 layers beat 8 at the disk (62
+// against 75 us) and lost at the checkpoint chain (20 against 17.5 us)
+// (PERF.md).
+constexpr int kVanillaLoadWords = 32;
 
 // Many pages: one thread a (tenant, page). ES: word0's element stride.
 template <int ES>
@@ -151,17 +167,24 @@ __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
   }
 }
 
-template <typename A>
-__global__ void vanilla_kernel(const A* __restrict__ alloc,
+// V pages a thread, U layers a batch, E bytes an allocation entry.
+template <int E, int V, int U>
+__global__ void vanilla_kernel(const uint8_t* __restrict__ alloc,
                                const int32_t* __restrict__ ptrs,
                                const int32_t* __restrict__ length,
                                int32_t* __restrict__ owner,
                                int32_t* __restrict__ ptr, int C, int N) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= N) return;
-  const int o = first_hit_down(alloc, min(length[0], C) - 1, N, p);
-  owner[p] = o;
-  ptr[p] = o >= 0 ? ptrs[(size_t)o * N + p] : 0;
+  const long long p0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (p0 >= N) return;                     // the host makes V divide N
+  int s[V];
+  planes_first_hit<E, V, U>(alloc + p0 * E, (size_t)N * E,
+                            min(length[0], C) - 1, s);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const long long p = p0 + i;
+    owner[p] = s[i];
+    ptr[p] = s[i] >= 0 ? ptrs[(size_t)s[i] * N + p] : 0;
+  }
 }
 
 template <typename A>
@@ -180,6 +203,15 @@ __global__ void direct_kernel(const A* __restrict__ alloc,
 unsigned int blocks_for(int T, int P) {
   const long long n = (long long)T * P;
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+template <int E, int V, int U>
+int launch_vanilla(const void* alloc, const void* ptrs, const void* length,
+                   void* owner, void* ptr, int C, int N, cudaStream_t st) {
+  vanilla_kernel<E, V, U><<<blocks_for(1, N / V), kThreads, 0, st>>>(
+      (const uint8_t*)alloc, (const int32_t*)ptrs, (const int32_t*)length,
+      (int32_t*)owner, (int32_t*)ptr, C, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -237,24 +269,22 @@ extern "C" int resolve_direct_fleet(const void* w0, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// alloc_bytes: 1 (bool) or 4 (int32) per allocation-map entry.
+// alloc_bytes: 1 (bool) or 4 (int32) per allocation-map entry; vec: pages
+// a thread (1 or 4), which must divide N, with the plane aligned to
+// vec * alloc_bytes.
 extern "C" int resolve_vanilla(const void* alloc, const void* ptrs,
                                const void* length, void* owner, void* ptr,
-                               int C, int N, int alloc_bytes, void* stream) {
+                               int C, int N, int alloc_bytes, int vec,
+                               void* stream) {
   (void)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  if (alloc_bytes == 1) {
-    vanilla_kernel<uint8_t><<<blocks_for(1, N), kThreads, 0, st>>>(
-        (const uint8_t*)alloc, (const int32_t*)ptrs, (const int32_t*)length,
-        (int32_t*)owner, (int32_t*)ptr, C, N);
-  } else if (alloc_bytes == 4) {
-    vanilla_kernel<int32_t><<<blocks_for(1, N), kThreads, 0, st>>>(
-        (const int32_t*)alloc, (const int32_t*)ptrs, (const int32_t*)length,
-        (int32_t*)owner, (int32_t*)ptr, C, N);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+#define SNAP_VANILLA(E, V)                                                   \
+  if (alloc_bytes == E && vec == V)                                          \
+    return launch_vanilla<E, V, (kVanillaLoadWords / Entries<E, V>::kWords)>( \
+        alloc, ptrs, length, owner, ptr, C, N, st);
+  SNAP_VANILLA(1, 1) SNAP_VANILLA(1, 4) SNAP_VANILLA(4, 1) SNAP_VANILLA(4, 4)
+#undef SNAP_VANILLA
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int resolve_direct(const void* alloc, const void* bfi,

@@ -1,28 +1,81 @@
-// First-hit walks down a snapshot chain. first_hit_down is K6's
-// single-chain walk (chain_resolve.cu, resolve_vanilla); warp_first_hit_row
-// is K4's; batched_first_hit (K1's many-pages walk and K9's word entry) and
-// warp_first_hit (K1's few-pages walk) follow them.
+// First-hit walks down a snapshot chain. planes_first_hit is the walk of
+// one chain's (C, N) allocation plane (K9's planes entry, stream_merge.cu
+// merge, and K6, chain_resolve.cu resolve_vanilla); warp_first_hit_row is
+// K4's; batched_first_hit (K1's many-pages walk and K9's word entry) and
+// warp_first_hit (K1's few-pages walk) walk the packed entry words.
 //
-// One thread owns page p of a chain stored as (C, N) planes. It walks
-// down from layer `top` and stops at the first layer whose allocation
-// entry is non-zero; that is the page's owner (-1 if no layer has it).
-// "First hit going down" is "last write wins going up", so the same walk
-// resolves a read (top = length - 1) and plans a streaming merge (top =
-// K - 1 of the merged layers). Neighbouring threads hold neighbouring
-// pages, so each layer's loads are coalesced along N, and a page stops
-// reading at its owner: only the layers above it are read.
+// A thread owns page p (or V neighbouring pages) of a chain stored as
+// (C, N) planes. It walks down from layer `top` and stops at the first
+// layer whose allocation entry is non-zero; that is the page's owner (-1
+// if no layer has it). "First hit going down" is "last write wins going
+// up", so the same walk resolves a read (top = min(length, C) - 1) and
+// plans a streaming merge (top = K - 1 of the merged layers). Neighbouring
+// threads hold neighbouring pages, so each layer's loads are coalesced
+// along N, and a page stops reading at its owner (or at most a batch
+// past it): only the layers above it are read.
 
 #pragma once
 
 #include <stdint.h>
 
-template <typename A>
-__device__ __forceinline__ int first_hit_down(const A* __restrict__ alloc,
-                                              int top, int N, int p) {
-  for (int layer = top; layer >= 0; --layer) {
-    if (alloc[(size_t)layer * N + p] != 0) return layer;
+// V neighbouring allocation entries of E bytes (1: bool, 4: int32), read
+// as one load of E * V bytes.
+template <int E, int V>
+struct Entries {
+  static constexpr int kBytes = E * V;
+  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ at) {
+    if constexpr (kBytes == 16) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(at));
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    } else if constexpr (kBytes == 4) {
+      w[0] = __ldg(reinterpret_cast<const uint32_t*>(at));
+    } else {
+      static_assert(kBytes == 1, "bool x1, bool x4, int32 x1, int32 x4");
+      w[0] = __ldg(at);
+    }
   }
-  return -1;
+
+  __device__ __forceinline__ bool allocated(int i) const {
+    if constexpr (E == 4) return w[i] != 0u;
+    else return ((w[i / 4] >> (8 * (i % 4))) & 0xffu) != 0u;
+  }
+};
+
+// The first-hit walk of V neighbouring pages of a (C, N) allocation plane
+// of E-byte entries (tested != 0). `col` points at the first page's entry
+// in layer 0; layers are `row_bytes` apart, and `col` is aligned to E * V
+// bytes (so is every layer: V divides N). A batch issues U layers' loads,
+// one load of V entries a layer, before testing any; the walk goes on
+// from layer `top` down until all V pages have an owner. `s[i]` gets page
+// i's owner (-1 on a miss). Loads below layer 0 are clamped to layer 0
+// (the same sector) and never tested. A group reads as deep as its
+// deepest page, plus at most U - 1 layers.
+template <int E, int V, int U>
+__device__ __forceinline__ void planes_first_hit(const uint8_t* __restrict__ col,
+                                                 size_t row_bytes, int top,
+                                                 int (&s)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) s[i] = -1;
+  bool open = true;
+  for (int base = top; base >= 0 && open; base -= U) {
+    Entries<E, V> x[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) x[j].load(col + (size_t)max(base - j, 0) * row_bytes);
+    open = false;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int c = -1;
+#pragma unroll
+      for (int j = U - 1; j >= 0; --j) {
+        if (base - j >= 0 && x[j].allocated(i)) c = base - j;
+      }
+      if (s[i] < 0) s[i] = c;
+      open |= s[i] < 0;
+    }
+  }
 }
 
 // The warp-cooperative first-hit walk of one page of a (C, P) word0 stack,

@@ -36,12 +36,13 @@
 //   plan. A warp's load of one layer is 256 contiguous bytes. word1 comes
 //   with word0: a 32-byte sector holds four whole entries. U = 4 (it beat
 //   8 on an H100 at the depth-500 disk; PERF.md).
-//   merge reads a bool or int32 plane through one templated loader: a
-//   thread owns V neighbouring pages (4, so one load of a bool plane is 4
-//   bytes, of an int32 plane 16; 1 where 4 does not divide N), walks 32
-//   layers a batch until all V have an owner, then reads one pointer per
-//   hit. 4 pages x 32 layers won a sweep of {1, 4} x {8, 16, 32} on a bool
-//   plane (PERF.md); the int32 plane takes the same and was not timed.
+//   merge reads a bool or int32 plane through one templated loader
+//   (planes_first_hit, chain_walk.cuh, which K6 shares): a thread owns V
+//   neighbouring pages (4, so one load of a bool plane is 4 bytes, of an
+//   int32 plane 16; 1 where 4 does not divide N), walks 32 layers a batch
+//   until all V have an owner, then reads one pointer per hit. 4 pages x
+//   32 layers won a sweep of {1, 4} x {8, 16, 32} on a bool plane
+//   (PERF.md); the int32 plane takes the same and was not timed here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,32 +75,6 @@ __global__ void merge_entries_kernel(const uint2* __restrict__ sub,
   src[p] = s;
 }
 
-// V neighbouring allocation entries of E bytes (1: bool, 4: int32), read
-// as one load of E * V bytes.
-template <int E, int V>
-struct Entries {
-  static constexpr int kBytes = E * V;
-  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
-  uint32_t w[kWords];
-
-  __device__ __forceinline__ void load(const uint8_t* __restrict__ at) {
-    if constexpr (kBytes == 16) {
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(at));
-      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-    } else if constexpr (kBytes == 4) {
-      w[0] = __ldg(reinterpret_cast<const uint32_t*>(at));
-    } else {
-      static_assert(kBytes == 1, "bool x1, bool x4, int32 x1, int32 x4");
-      w[0] = __ldg(at);
-    }
-  }
-
-  __device__ __forceinline__ bool allocated(int i) const {
-    if constexpr (E == 4) return w[i] != 0u;
-    else return ((w[i / 4] >> (8 * (i % 4))) & 0xffu) != 0u;
-  }
-};
-
 template <int E, int V>
 __global__ void merge_kernel(const uint8_t* __restrict__ alloc,
                              const int32_t* __restrict__ ptrs,
@@ -108,29 +83,8 @@ __global__ void merge_kernel(const uint8_t* __restrict__ alloc,
                              int32_t* __restrict__ src, int K, int N) {
   const long long p0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (p0 >= N) return;                     // the host makes V divide N
-  const uint8_t* col = alloc + p0 * E;
-  const size_t row = (size_t)N * E;
   int s[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) s[i] = -1;
-  bool open = true;
-  constexpr int U = kPlanesUnroll;
-  for (int base = K - 1; base >= 0 && open; base -= U) {
-    Entries<E, V> x[U];
-#pragma unroll
-    for (int j = 0; j < U; ++j) x[j].load(col + (size_t)max(base - j, 0) * row);
-    open = false;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int c = -1;
-#pragma unroll
-      for (int j = U - 1; j >= 0; --j) {
-        if (base - j >= 0 && x[j].allocated(i)) c = base - j;
-      }
-      if (s[i] < 0) s[i] = c;
-      open |= s[i] < 0;
-    }
-  }
+  planes_first_hit<E, V, kPlanesUnroll>(alloc + p0 * E, (size_t)N * E, K - 1, s);
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const long long p = p0 + i;

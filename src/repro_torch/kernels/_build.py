@@ -60,7 +60,7 @@ _SIGNATURES = {
                         _I, _I, _I, _P],
     "fused_chain_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
     "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

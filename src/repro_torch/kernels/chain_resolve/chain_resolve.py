@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.stream_merge.stream_merge import planes_config
 
 
 def _check_words(name: str, *tensors: torch.Tensor) -> None:
@@ -166,11 +167,27 @@ def _check_planes(name: str, alloc: torch.Tensor, *words: torch.Tensor) -> int:
     return alloc.element_size()
 
 
+#: The 4-byte registers of loads a K6 thread holds in a batch, fixed in
+#: ``csrc/chain_resolve.cu`` (``kVanillaLoadWords``): a batch is this many
+#: words over the words of one layer's load.
+VANILLA_LOAD_WORDS = 32
+
+
+def vanilla_config(alloc: torch.Tensor) -> tuple[int, int]:
+    """``(pages a thread, layers a batch)`` of K6 for a (C, N) allocation
+    map. The pages a thread are K9's planes pick (``planes_config``): 4
+    where 4 divides N and the map is aligned to 4 entries' bytes, else 1.
+    The layers a batch follow: 8 for 4 int32 pages, else 32."""
+    v = planes_config(alloc)[0]
+    return v, VANILLA_LOAD_WORDS // max(1, v * alloc.element_size() // 4)
+
+
 def resolve_vanilla_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, length):
     """Single-chain first-hit walk: ``alloc`` (C, N) bool or int32 (tested
     ``!= 0``), ``ptrs`` (C, N) int32, ``length`` an int or a 0-d tensor
     (it may exceed C; layers >= C do not exist). Returns ``(owner (N,)
-    int32 [-1 on a miss], ptr (N,) int32 [0 on a miss])``."""
+    int32 [-1 on a miss], ptr (N,) int32 [0 on a miss])``. The pages a
+    thread come from ``vanilla_config``."""
     nbytes = _check_planes("resolve_vanilla", alloc, ptrs)
     if alloc.dim() != 2:
         raise ValueError("resolve_vanilla: alloc/ptrs must be (C, N)")
@@ -181,9 +198,10 @@ def resolve_vanilla_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, length):
     ptr = torch.empty((n,), dtype=torch.int32, device=alloc.device)
     if n == 0:
         return owner, ptr
+    vec, _ = vanilla_config(alloc)
     code = _build.library().resolve_vanilla(
         alloc.data_ptr(), ptrs.data_ptr(), ln.data_ptr(), owner.data_ptr(),
-        ptr.data_ptr(), c, n, nbytes,
+        ptr.data_ptr(), c, n, nbytes, vec,
         torch.cuda.current_stream(alloc.device).cuda_stream)
     _build.check_launch("resolve_vanilla", code)
     return owner, ptr

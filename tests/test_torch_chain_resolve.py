@@ -27,6 +27,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_resolve import chain_resolve as tcr  # noqa: E402
 from repro_torch.kernels.chain_resolve import ops as tops  # noqa: E402
 from repro_torch.kernels.chain_resolve import ref as tref  # noqa: E402
+from repro_torch.kernels.stream_merge import stream_merge as tsm  # noqa: E402
 
 
 def packed_stack(seed, t, c, p, density=0.5):
@@ -324,3 +325,20 @@ def test_single_chain_cpu_dispatch_takes_the_plain_version():
         tcr.resolve_vanilla_cuda(alloc, ptrs, 3)
     with pytest.raises(ValueError, match="CUDA"):
         tcr.resolve_direct_cuda(alloc[0], ptrs[1], ptrs[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("n,offset,vec", [(4_096, 0, 4), (4_113, 0, 1),
+                                          (4_096, 1, 1)])
+def test_single_chain_pages_a_thread_pick(dtype, n, offset, vec):
+    """K6 takes K9's planes pick: 4 pages a thread where 4 divides N and
+    the map is aligned to 4 entries' bytes; 1 for N = 4,113 and for a view
+    one entry past an aligned base. A batch holds 32 words of loads: 8
+    layers of 4 int32 pages, 32 layers otherwise."""
+    c = 7
+    buf = torch.zeros(c * n + 4, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    alloc = buf[offset:offset + c * n].view(c, n)
+    unroll = 8 if (vec, dtype) == (4, torch.int32) else 32
+    assert tcr.vanilla_config(alloc) == (vec, unroll)
+    assert tcr.vanilla_config(alloc)[0] == tsm.planes_config(alloc)[0]

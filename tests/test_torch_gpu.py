@@ -430,6 +430,35 @@ def test_single_chain_resolve_kernels_bit_exact(cuda, c, n, alloc_dtype):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("alloc_dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("n", [4_096, 4_113, 65_536])
+def test_single_chain_walk_every_config_bit_exact(cuda, alloc_dtype, n):
+    """K6 against its plain version at C = 1, 7 and 500, with 4 pages a
+    thread and 1 (N = 4,113, and a view one entry past an aligned base),
+    lengths 0, 1, C/2, C and C + 3 as ints and as 0-d CUDA tensors, and a
+    500-deep chain whose pages mostly miss. Each call counts one launch."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for c, density in ((1, 0.5), (7, 0.3), (500, 0.004), (500, 0.0003)):
+        alloc = (torch.rand((c, n), generator=g, device=cuda) < density
+                 ).to(alloc_dtype)
+        ptrs = torch.randint(-(1 << 31), 1 << 31, (c, n), generator=g,
+                             device=cuda, dtype=torch.int32)
+        for a, vec in ((alloc, 1 if n % 4 else 4), (shifted(alloc, 1), 1)):
+            assert cr.vanilla_config(a)[0] == vec
+            for length in (0, 1, c // 2, c, c + 3):
+                want = cr_ref.resolve_vanilla_ref(a, ptrs, length)
+                for ln in (length, torch.tensor(length, device=cuda)):
+                    before = _build.LAUNCHES["resolve_vanilla"]
+                    got = cr.resolve_vanilla_cuda(a, ptrs, ln)
+                    torch.cuda.synchronize()
+                    assert _build.LAUNCHES["resolve_vanilla"] == before + 1
+                    for x, w in zip(got, want):
+                        assert x.dtype == w.dtype and torch.equal(x, w), (c, length)
+        if density < 0.001:
+            # most pages miss: the walk reads the whole chain for them
+            assert float((want[0] < 0).float().mean()) > 0.7
+
+
 @pytest.mark.parametrize("k,n", [(1, 1000), (7, 33), (64, 4097), (512, 2_000)])
 @pytest.mark.parametrize("alloc_dtype", [torch.int32, torch.bool])
 def test_merge_kernel_bit_exact(cuda, k, n, alloc_dtype):
