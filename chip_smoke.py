@@ -30,8 +30,9 @@ Phases, each printing its own lines:
    version (K1/K2 bit-exact, K3/K4 within bf16 2e-2; K3 and K4 bit-identical
    to each other), timed with CUDA events (L2 flushed before each call),
    with the least time the card could take (bound) beside it. K3/K4's
-   rows carry the split they ran with (pages per split, grid, working
-   blocks: at least the card's SMs) and a long-context shape: 8 rows of
+   rows carry the plan they ran with (the body's layout, ``tokens`` or
+   ``heads``, warps a block, pages per split, grid, working blocks: at
+   least the card's SMs) and a long-context shape: 8 rows of
    2,048 tokens through 128 distinct blocks each of the 1,024-block pool,
    K4 through a 64-deep chain, held against the plain versions and timed
    against the bytes bound, with scaled_dot_product_attention over the
@@ -123,17 +124,19 @@ Phases, each printing its own lines:
    and a scalable tables engine: a golden prompt of 392 tokens registered
    (24½ blocks of 16, so a fork's shared tail block is copied on write),
    four prompts extending it by 0, 17, 100 and 200 tokens admitted through
-   the trie (suffix buckets 32, 128, 256: ``paged_suffix_prefill``, K3 with
-   the bucket on its batch axis) and one miss. Each hit's first token and
+   the trie (suffix buckets 32, 128, 256: ``paged_suffix_prefill``, K3's
+   shared-table entry with the bucket's rows on the sequence's one table)
+   and one miss. Each hit's first token and
    gathered K/V must equal, bit for bit, a duplicate-storage admission
    through the same ``_suffix_prefill``; ``golden_stats`` must show at
    least 24 blocks saved a fork; hits and duplicates then decode 8 steps
    to the same tokens, ``release_golden`` after the 4th. Printed: each
    admission's ms beside a full prefill of the 592-token prompt, and the
    blocks the hits hold against the duplicates'. K3 at the 256-row suffix
-   shape (lengths 393-592) is held against its plain version (bf16 2e-2)
-   and timed against its bound, dense SDPA beside it (``suffix_shape`` on
-   K3's row). (b) At the end of phase 7, on its vanilla fleet while it
+   shape (lengths 393-592), through the shared-table entry and through the
+   JAX-signature entry on the table repeated, is held against its plain
+   version and timed against its bound, with its plan, dense SDPA beside
+   it (``suffix_shape`` on K3's row). (b) At the end of phase 7, on its vanilla fleet while it
    lives: the tenants of depth 1, 64 and 500 (256 rows of the deeper two
    demoted first) migrate to a 4-tenant scalable fleet with twice the
    lease quantum; export, import, verify (``materialize_tenant`` of both,
@@ -697,7 +700,8 @@ def serve_phase(torch, mods, cfg, params, prompts, tag=None, groups=None,
 
 SERVE_GROUPS = {"attention (K3/K4)": ("paged_attention_kernel",
                                       "fused_chain_attention_kernel",
-                                      "attention_combine_kernel"),
+                                      "shared_table_kernel",
+                                      "attention_combine"),
                 "chain resolve (K1/K2)": ("fleet_kernel",),
                 "matmul": ("nvjet", "gemm", "gemv", "xmma", "cutlass")}
 READ_GROUPS = {"gather (K5/K8)": ("gather_pages_kernel",),
@@ -1081,8 +1085,9 @@ def kernel_phase(torch, mods, state):
 
 
 ATTENTION_PASSES = {"split pass": ("paged_attention_kernel",
-                                   "fused_chain_attention_kernel"),
-                    "combine": ("attention_combine_kernel",)}
+                                   "fused_chain_attention_kernel",
+                                   "shared_table_kernel"),
+                    "combine": ("attention_combine",)}
 
 
 def attention_passes(torch, kern, flush, tries=3):
@@ -1100,12 +1105,19 @@ def attention_passes(torch, kern, flush, tries=3):
     return {k: None for k in ATTENTION_PASSES}
 
 
+def plan_report(plan, lengths, bs, n_pages):
+    """What a K3/K4 plan chose (the body's layout, warps a block, pages a
+    split, grid) and the blocks that did work."""
+    return dict(layout="tokens" if plan.layout else "heads", warps=plan.warps,
+                pages_per_split=plan.pages_per_split, grid=list(plan.grid),
+                working_blocks=plan.working_blocks(lengths, bs, n_pages))
+
+
 def split_report(pa, q, hkv, n_pages, bs, lengths):
-    """The split K3/K4 chose for this call, and the blocks that did work."""
+    """The plan K3/K4 chose for this call, and the blocks that did work."""
     b, h, _ = q.shape
     plan = pa.plan(b, h, hkv, n_pages, bs, q.dtype, pa.sm_count(q.device))
-    return dict(pages_per_split=plan.pages_per_split, grid=list(plan.grid),
-                working_blocks=plan.working_blocks(lengths, bs, n_pages))
+    return plan_report(plan, lengths, bs, n_pages)
 
 
 def long_context(torch, mods, flush, cfg=None, line=emit):
@@ -2335,14 +2347,16 @@ def golden_admission(torch, mods, cfg, params, line=emit):
 def suffix_kernel(torch, mods, s, cfg, line=emit):
     """K3 at the suffix prefill's shape, on the engine's own layer-0 pools
     and the 200-token admission's table: 256 rows (200 real, lengths
-    393-592, and 56 padded of length 1) reading one table, held against
-    its plain version (the long context's absolute and relative L2
-    limits, with the outputs' spread beside them, and a check that the
-    errors a dropped page or a short length would give exceed them) and
-    timed against
-    its bound, with its ms by pass (the split pass, the combine).
-    ``scaled_dot_product_attention`` over the same K/V gathered dense,
-    with the causal mask, is timed beside it as a yardstick."""
+    393-592, and 56 padded of length 1) reading one table, through the
+    shared-table entry the suffix prefill calls and through the
+    JAX-signature entry on the table repeated (``repeated_table``). Each is
+    held against its plain version (the long context's absolute and
+    relative L2 limits, with the outputs' spread beside them, and a check
+    that the errors a dropped page or a short length would give exceed
+    them) and timed against its bound, with its plan and its ms by pass
+    (the split pass, the combine). ``scaled_dot_product_attention`` over
+    the same K/V gathered dense, with the causal mask, is timed beside
+    them as a yardstick."""
     pa, pa_ref = mods["pa"], mods["pa_ref"]
     n = max(GOLDEN_EXTENSIONS)
     pad = mods["Engine"]._bucket(n)
@@ -2368,11 +2382,20 @@ def suffix_kernel(torch, mods, s, cfg, line=emit):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(0, 1)[None], kd, vd, attn_mask=causal, enable_gqa=True)
 
+    table = tables[0].contiguous()
+
     def kern():
         return pa.paged_attention_cuda(q, pool_k, pool_v, tables, lens)
 
     def plain(lengths=lens):
         return pa_ref.paged_attention_ref(q, pool_k, pool_v, tables, lengths)
+
+    def shared():
+        return pa.paged_attention_shared_table_cuda(q, pool_k, pool_v, table, lens)
+
+    def shared_plain():
+        return pa_ref.paged_attention_shared_table_ref(q, pool_k, pool_v, table,
+                                                       lens)
 
     def rel_l2(a, want):
         return float((a.float() - want).norm() / want.norm())
@@ -2384,6 +2407,15 @@ def suffix_kernel(torch, mods, s, cfg, line=emit):
         rel = rel_l2(got[0], want)
         require(rel <= LONG_CONTEXT_REL_TOL,
                 f"suffix shape: paged_attention relative error {rel}")
+        srow, sgot = measure(torch, "paged_attention", shared, shared_plain,
+                             nbytes, ops, LONG_CONTEXT_TOL, flush)
+        require(torch.equal(shared_plain().float(), want),
+                "suffix shape: the shared table's plain version is not K3's")
+        srel = rel_l2(sgot[0], want)
+        require(srel <= LONG_CONTEXT_REL_TOL,
+                f"suffix shape: the shared-table entry's relative error {srel}")
+        splan = pa.shared_plan(pad, cfg.n_heads, hkv, tables.shape[1], bs, q.dtype,
+                               pa.sm_count(q.device))
         # what the two limits see of a fault: the plain version with the
         # real rows' last 16 positions (up to a page) dropped, and 4 short
         faults = {}
@@ -2396,17 +2428,23 @@ def suffix_kernel(torch, mods, s, cfg, line=emit):
                     f"suffix shape: the limits would pass a kernel with {fault}")
         dense_ms = timed_ms(torch, dense, 50, flush)
         by_pass = attention_passes(torch, kern, flush)
+        shared_by_pass = attention_passes(torch, shared, flush)
     real = want[:n]
     out = dict(batch=pad, real_rows=n, lengths=[int(lens_h[0]), m],
-               ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-               bound_by=row["bound_by"], bytes=nbytes, ops=ops,
-               max_abs_err=row["max_abs_err"], rel_err=rel, tol=LONG_CONTEXT_TOL,
+               ms=srow["ms"], plain_ms=srow["plain_ms"], bound_ms=srow["bound_ms"],
+               bound_by=srow["bound_by"], bytes=nbytes, ops=ops,
+               max_abs_err=srow["max_abs_err"], rel_err=srel, tol=LONG_CONTEXT_TOL,
                rel_tol=LONG_CONTEXT_REL_TOL,
                output_spread=dict(std=float(real.std()),
                                   max_abs=float(real.abs().max())),
                fault_errors=faults, dense_sdpa_ms=dense_ms,
-               device_ms_by_pass=by_pass,
-               **split_report(pa, q, hkv, tables.shape[1], bs, lens_h))
+               device_ms_by_pass=shared_by_pass,
+               **plan_report(splan, lens_h, bs, tables.shape[1]),
+               repeated_table=dict(
+                   ms=row["ms"], plain_ms=row["plain_ms"],
+                   max_abs_err=row["max_abs_err"], rel_err=rel,
+                   device_ms_by_pass=by_pass,
+                   **split_report(pa, q, hkv, tables.shape[1], bs, lens_h)))
     line({"phase": "golden", "part": "k3_suffix_shape", "model": cfg.name,
           "heads": [cfg.n_heads, hkv], **out})
     return out
@@ -3263,8 +3301,9 @@ def attention_pair(torch, mods, cfg, s, flush):
                              kv_lengths=len_h.tolist(), ms=row["ms"],
                              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                              bound_by=row["bound_by"], max_abs_err=row["max_abs_err"],
-                             dense_sdpa_ms=dense_ms, pages_per_split=plan.pages_per_split,
-                             grid=list(plan.grid))
+                             dense_sdpa_ms=dense_ms,
+                             **plan_report(plan, len_h, bs, plan.splits
+                                           * plan.pages_per_split))
     require(torch.equal(got["paged_attention"][0], got["fused_chain_attention"][0]),
             f"{cfg.name}: K3 and K4 differ on the engine's rows")
     return out

@@ -52,14 +52,17 @@ _L = ctypes.c_longlong
 #: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``),
 #: ``merge_entries`` and ``merge`` both launch K9 (counted as ``merge``);
 #: ``paged_attention``/``fused_chain_attention`` launch a split pass and its
-#: combine, counted as one launch.
+#: combine, counted as one launch; ``paged_attention_shared`` (the
+#: shared-table entry) counts as ``paged_attention``.
 _SIGNATURES = {
     "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _P],
+    "paged_attention_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P],
     "fused_chain_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],

@@ -11,6 +11,7 @@ from repro_torch.kernels.paged_attention import ref
 from repro_torch.kernels.paged_attention.paged_attention import (
     fused_chain_attention_cuda,
     paged_attention_cuda,
+    paged_attention_shared_table_cuda,
 )
 
 
@@ -19,6 +20,16 @@ def paged_attention(q, pool_k, pool_v, tables, lengths):
     if q.is_cuda:
         return paged_attention_cuda(q, pool_k, pool_v, tables, lengths)
     return ref.paged_attention_ref(q, pool_k, pool_v, tables, lengths)
+
+
+def paged_attention_shared_table(q, pool_k, pool_v, table, lengths):
+    """Attention of S rows that all read one table (M,), each up to its
+    own length → (S, H, D)."""
+    if q.is_cuda:
+        return paged_attention_shared_table_cuda(q, pool_k, pool_v, table,
+                                                 lengths)
+    return ref.paged_attention_shared_table_ref(q, pool_k, pool_v, table,
+                                                lengths)
 
 
 def fused_chain_attention(q, pool_k, pool_v, w0, chain_lengths, tenants,

@@ -5,6 +5,8 @@ Line for line the oracles of ``repro.kernels.paged_attention.ref``:
 ``fused_chain_attention_ref`` composes the stacked first-hit chain walk
 (``kernels.chain_resolve.ref``) with it, so the fused kernel is held
 against two already-pinned versions rather than a third one.
+``paged_attention_shared_table_ref`` is the shared-table entry's: the
+table-consuming version on the one table repeated for every row.
 ``paged_attention_split_ref`` is the CUDA kernels' two-pass algorithm
 (per-split partials, then the combine) in plain PyTorch; only tests use it.
 """
@@ -50,6 +52,14 @@ def paged_attention_ref(q, pool_k, pool_v, tables, lengths):
     probs = probs / probs.sum(-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention_shared_table_ref(q, pool_k, pool_v, table, lengths):
+    """q: (S, H, D); table: (M,) int32, the one table every row reads;
+    lengths: (S,) int32. ``paged_attention_ref`` on the table repeated S
+    times. Returns (S, H, D) in q.dtype."""
+    tables = table[None, :].expand(q.shape[0], table.shape[0])
+    return paged_attention_ref(q, pool_k, pool_v, tables, lengths)
 
 
 def fused_tables_ref(w0, chain_lengths, tenants):

@@ -96,7 +96,8 @@ def paged_suffix_prefill(cfg: ModelConfig, params, pool_k, pool_v, tables,
     prefix plus suffix tokens ``<= i``. One pass replaces S decode steps.
 
     pool_k/pool_v: (L, nb, bs, Hkv, D); tables: (S, M) int32, contiguous
-    (the sequence's table repeated per position); slots_blk/slots_off: (S,)
+    (the sequence's table repeated per position: attention reads row 0,
+    through the shared-table kernel); slots_blk/slots_off: (S,)
     pool slot of each suffix position (padded positions point at a
     reserved scratch block); attn_lens: (S,) int32, prefix + i + 1 for real
     positions (1 for padded rows, whose outputs are discarded); tokens:
@@ -105,9 +106,10 @@ def paged_suffix_prefill(cfg: ModelConfig, params, pool_k, pool_v, tables,
     """
     x = embed_tokens(params, tokens)                           # (1,S,d)
     positions = (attn_lens - 1)[None, :]                       # (1,S)
+    table = tables[0]
 
     def attend(q, pk, pv):
-        return pa_ops.paged_attention(q, pk, pv, tables, attn_lens)
+        return pa_ops.paged_attention_shared_table(q, pk, pv, table, attn_lens)
 
     x = _layers(cfg, params, pool_k, pool_v, x, positions,
                 (slots_blk.to(torch.int64), slots_off.to(torch.int64)), attend)

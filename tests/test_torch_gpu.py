@@ -192,15 +192,20 @@ def test_paged_attention_split_widths(cuda, dtype, hkv, d, bs):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", ["long", "batch1", "batch64", "batch64x4kv",
-                                   "batch512", "group32", "head16"])
+                                   "batch512", "batch512_d64", "batch512_d16",
+                                   "group32", "head16"])
 def test_paged_attention_split_shapes(cuda, dtype, shape):
     """K3 where the split matters: rows of 2,048 tokens (M 128, bs 16, one
-    page a split), batch 1, batch 64 with per-row lengths (the shape the
-    suffix prefill hands K3), batches whose (row, KV head) pairs outnumber
-    the SMs (two pages a split, a two-stage ring), 32 query heads a KV head
-    (two mma head tiles), and the smoke config's head dim 16."""
+    page a warp), batch 1, batch 64 with per-row lengths, batches whose
+    (row, KV head) pairs outnumber the SMs (two pages a warp, a two-stage
+    ring; at batch 512 the combine takes a warp a (row, head), also at head
+    dims 64 and 16, where slices of lanes share a column), 32 query heads a
+    KV head (two mma head tiles), and the smoke config's head dim 16."""
     rng = np.random.default_rng(len(shape))
     h, hkv, d, bs, m = 16, 2, 128, 16, 128
+    if shape.startswith("batch512_d"):
+        d = int(shape[len("batch512_d"):])
+        shape = "batch512"
     if shape == "long":
         lengths = [2048] * 8
     elif shape == "batch1":
@@ -222,6 +227,8 @@ def test_paged_attention_split_shapes(cuda, dtype, shape):
     _close_to_plain(got, pa_ref.paged_attention_ref(*args), dtype)
     split = pa.pages_per_split(len(lengths), hkv, pa.sm_count(cuda))
     assert (shape in ("batch64x4kv", "batch512")) == (split > 1)
+    assert pa.plan(len(lengths), h, hkv, m, bs, dtype, pa.sm_count(
+        cuda)).warp_combine == (shape == "batch512")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -643,13 +650,18 @@ def test_direct_single_chain_misaligned_views_bit_exact(cuda, n, alloc_dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("prefix,suffix", [(392, 200), (392, 17), (16, 1)])
-def test_paged_attention_suffix_prefill_shape(cuda, dtype, prefix, suffix):
+@pytest.mark.parametrize("h,hkv", [(16, 2), (16, 16), (28, 4)])
+def test_paged_attention_suffix_prefill_shape(cuda, dtype, prefix, suffix, h,
+                                              hkv):
     """K3 at the shape golden admission's suffix prefill hands it: the
     padded suffix bucket on the batch axis, every row the one sequence's
     table (a contiguous repeat), lengths prefix + i + 1 for the real rows
-    and 1 for the padded ones."""
-    rng = np.random.default_rng(prefix + suffix)
-    h, hkv, d, bs, m, nb = 16, 2, 128, 16, 128, 1024
+    and 1 for the padded ones; groups 8, 1 and 7. The shared-table entry,
+    which the suffix prefill calls, on the one table: against K3's plain
+    version and against K3 on the repeated table; its blocks take 1, 2 or
+    4 query tiles across these buckets and groups."""
+    rng = np.random.default_rng(prefix + suffix + h + hkv)
+    d, bs, m, nb = 128, 16, 128, 1024
     pad = 1 << (suffix - 1).bit_length()
     lengths = np.ones(pad, np.int32)
     lengths[:suffix] = prefix + 1 + np.arange(suffix)
@@ -659,14 +671,26 @@ def test_paged_attention_suffix_prefill_shape(cuda, dtype, prefix, suffix):
     row = rng.permutation(nb)[:m].astype(np.int32)
     row[-(-(prefix + suffix) // bs):] = -1
     tables = torch.as_tensor(np.repeat(row[None], pad, 0), device=cuda)
+    table = torch.as_tensor(row, device=cuda)
     lens = torch.as_tensor(lengths, device=cuda)
     got = pa.paged_attention_cuda(q, pk, pv, tables, lens)
+    before = _build.LAUNCHES["paged_attention"]
+    shared = pa.paged_attention_shared_table_cuda(q, pk, pv, table, lens)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_attention"] == before + 1
     want = pa_ref.paged_attention_ref(q, pk, pv, tables, lens).float()
+    assert torch.equal(pa_ref.paged_attention_shared_table_ref(
+        q, pk, pv, table, lens).float(), want)
     _close_to_plain(got, want, dtype)
+    _close_to_plain(shared, want, dtype)
+    _close_to_plain(shared, got, dtype)
     # outputs over ~500 positions spread little: the relative L2 error is
     # what a dropped page or a short length would move
-    assert float((got.float() - want).norm() / want.norm()) <= 1e-2
+    for out in (got, shared):
+        assert float((out.float() - want).norm() / want.norm()) <= 1e-2
+    plan = pa.shared_plan(pad, h, hkv, m, bs, dtype, pa.sm_count(cuda))
+    assert plan.warps == (min(pa.SHARED_WARPS, -(-pad * (h // hkv) // 16))
+                          if dtype == torch.bfloat16 else 1)
 
 
 def test_materialize_tenant_on_card_equals_cpu(cuda):
@@ -788,25 +812,44 @@ def test_cache_simulators_on_card_equal_cpu(cuda, n_slots):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,hkv", [(16, 16), (28, 4), (48, 8), (64, 8)])
-def test_attention_kernels_at_the_family_head_layouts(cuda, dtype, h, hkv):
-    """K3 and K4 at the head layouts of the decoder-only configs, head dim
-    128 and pages of 16: Qwen2-MoE's 16 over 16 (group 1: one query head
-    in the mma's 16 rows), Qwen2-7B's 28 over 4 (group 7), Nemotron-4's
-    48 over 8 (group 6), Qwen2-72B's and Chameleon's 64 over 8 (group 8);
-    a length-0 row, a partial page, a split boundary and a full row."""
-    rng = np.random.default_rng(h * hkv)
-    args = lengths_case(rng, [0, 17, 300, 2048], h, hkv, 128, 16, 128, 512,
+@pytest.mark.parametrize("h,hkv", [(16, 16), (32, 8), (48, 8), (28, 4), (64, 8),
+                                   (32, 2)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bs", [16, 32])
+def test_attention_kernels_at_the_family_head_layouts(cuda, dtype, h, hkv, d, bs):
+    """K3 and K4 at the groups of the decoder-only configs: Qwen2-MoE's 16
+    over 16 (group 1), Phi-3.5-MoE's 32 over 8 (4), Nemotron-4's 48 over 8
+    (6), Qwen2-7B's 28 over 4 (7), Qwen2-72B's and Chameleon's 64 over 8
+    (8), all with tokens on the mma's rows in bf16, and 32 over 2 (16:
+    query heads on the rows); head dims 64 and 128, pages of 16 and 32. K3
+    on a length-0 row, a partial page, a split boundary and a full row; K4
+    with holes and with a tenant that owns nothing (all masked); then K3 on
+    the tables K4's walk resolves, bitwise K4."""
+    rng = np.random.default_rng(h * hkv + d + bs)
+    m = 2048 // bs
+    args = lengths_case(rng, [0, 17, 300, 2048], h, hkv, d, bs, m, 512,
                         dtype, cuda)
     got = pa.paged_attention_cuda(*args)
     torch.cuda.synchronize()
     _close_to_plain(got, pa_ref.paged_attention_ref(*args), dtype)
     assert torch.count_nonzero(got[0]) == 0
-    args = fused_case(rng, 4, 6, 128, 4, 512, 16, h, hkv, 128, dtype, cuda,
-                      density=0.55)
-    got = pa.fused_chain_attention_cuda(*args)
+    q, pk, pv, w0, cl, tn, kl = fused_case(rng, 4, 6, m, 4, 512, bs, h, hkv,
+                                           d, dtype, cuda, density=0.55)
+    w0[3] = 0                               # tenant 3 owns nothing anywhere
+    tn[1] = 3
+    got = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
     torch.cuda.synchronize()
-    _close_to_plain(got, pa_ref.fused_chain_attention_ref(*args), dtype)
+    _close_to_plain(got, pa_ref.fused_chain_attention_ref(
+        q, pk, pv, w0, cl, tn, kl), dtype)
+    assert torch.count_nonzero(got[1]) == 0
+    q, pk, pv, w0, cl, tn, kl = fused_case(rng, 4, 6, m, 8, 512, bs, h, hkv,
+                                           d, dtype, cuda, density=1.0)
+    kl[0] = 2048
+    tables = pa_ref.fused_tables_ref(w0, cl, tn)
+    fused = pa.fused_chain_attention_cuda(q, pk, pv, w0, cl, tn, kl)
+    via_tables = pa.paged_attention_cuda(q, pk, pv, tables, kl)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, via_tables)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
