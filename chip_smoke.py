@@ -72,11 +72,12 @@ Phases, each printing its own lines:
    tenants, then the device read is zeros exactly where cold,
    ``read_tiered`` and the read after ``promote_tenants`` equal the read
    before, and ``free_tenant(store=)`` returns every host row.
-   ``fleet.read(auto)`` and ``fleet.read(pallas_vanilla)`` are timed with
-   CUDA events and profiled with K1, K2, K5 and the copies apart (the
-   profiler's split is an estimate where it dropped events; these
-   measurements and a profile's retakes leave the launch counts as they
-   were). K5 is held against its plain
+   ``fleet.read(pallas_vanilla)`` is timed with CUDA events and profiled
+   with K1, K2, K5 and the copies apart (the profiler's split is an
+   estimate where it dropped events; these measurements and a profile's
+   retakes leave the launch and page counts as they were);
+   ``fleet.read(auto)``, the read the benchmark's cells time
+   (``snapbench/``), is checked here and not timed. K5 is held against its plain
    version and timed on the vanilla fleet's read; K1 likewise at the
    fleet's shape on the strided words (beside the contiguous plane and the
    copy it no longer pays), then swept over its walks at P = 16-16,384;
@@ -84,13 +85,11 @@ Phases, each printing its own lines:
    (``k2_fleet_shape``: bit-exact, its bound, the contiguous planes' time
    and ``plane_copy_ms``, the two copies it no longer pays; its
    ``size_sweep`` at 16-1,024 tenants of 16,384 pages, as K7's).
-   ``read_auto_peak_extra_GB`` is the device memory one
-   ``fleet.read(auto)`` adds at its peak (its output included). The two
-   kernel reads are timed by CUDA events after a spin of twice their host
-   ms (so the host has enqueued the whole read before the first event),
-   and after a spin of 1 ms and of four times their host ms beside it
-   (``read_*_device_ms_by_spin``): the time is device time only where it
-   stays flat as the spin grows.
+   The pallas_vanilla read is timed by CUDA events after a spin of twice
+   its host ms (so the host has enqueued the whole read before the first
+   event), and after a spin of 1 ms and of four times its host ms beside
+   it (``read_pallas_vanilla_device_ms_by_spin``): the time is device
+   time only where it stays flat as the spin grows.
 8. maintenance — (a) one disk: the phase-6 disk at depth 500 (pool of
    196,608 rows), one format at a time, ``store.stream(chain, 498,
    copy_data=True)``, then ``compact_pool``, then on the vanilla image
@@ -718,12 +717,13 @@ READ_GROUPS = {"gather (K5/K8)": ("gather_pages_kernel",),
 @contextlib.contextmanager
 def uncounted(_build):
     """Launches made inside are measurements, not the main path's run: the
-    launch counts are put back as they were on the way out."""
-    before = dict(_build.LAUNCHES)
+    launch and page counts are put back as they were on the way out."""
+    before, pages = dict(_build.LAUNCHES), dict(_build.PAGES)
     try:
         yield
     finally:
         _build.LAUNCHES.update(before)
+        _build.PAGES.update(pages)
 
 
 def profile_calls(torch, fn, n, wall_ms, groups, tries=1, counts=None,
@@ -1586,25 +1586,10 @@ def fleet_phase(torch, mods):
         plain, _ = fleet_lib.read(fl, ids, method="vanilla")
         require(_same(torch, pre, plain), f"{name}: fleet read auto != vanilla")
         del plain
-        auto_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids, method="auto"), 5)
         van_ms = _host_ms(torch, lambda: fleet_lib.read(fl, ids, method="vanilla"), 3)
-        read_profile = profile_calls(
-            torch, lambda: fleet_lib.read(fl, ids, method="auto"), 2, auto_ms,
-            READ_GROUPS, tries=3, counts=_build)
-        # measurements beside the phase's own reads: device ms of both kernel
-        # reads by CUDA events, and the pallas_vanilla read checked and split
+        # measurements beside the phase's own reads: the pallas_vanilla read
+        # checked, timed by CUDA events and split
         with uncounted(_build):
-            auto_by_spin = spin_sweep(
-                torch, lambda: fleet_lib.read(fl, ids, method="auto"), auto_ms,
-                flush)
-            torch.cuda.synchronize()
-            phase_peak = torch.cuda.max_memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-            extra = fleet_lib.read(fl, ids, method="auto")
-            torch.cuda.synchronize()
-            auto_peak_extra = (torch.cuda.max_memory_allocated() - held) / 1e9
-            del extra
             walk_read, _ = fleet_lib.read(fl, ids, method="pallas_vanilla")
             require(_same(torch, walk_read, pre),
                     f"{name}: pallas_vanilla read differs")
@@ -1669,13 +1654,8 @@ def fleet_phase(torch, mods):
               "n_pages": FLEET_PAGES, "pool_rows": fl.spec.pool_capacity,
               "chain_lengths": [1, FLEET_MAX_DEPTH], "build_seconds": build_s,
               "read_pages_per_tenant": FLEET_BATCH, "read_GB": out_bytes / 1e9,
-              "read_auto_ms": auto_ms, "read_auto_GBps": out_bytes / auto_ms / 1e6,
               "read_vanilla_ms": van_ms,
               "read_vanilla_GBps": out_bytes / van_ms / 1e6,
-              "read_auto_device_ms": auto_by_spin["2x_host"],
-              "read_auto_device_ms_by_spin": auto_by_spin,
-              "read_auto_peak_extra_GB": auto_peak_extra,
-              "read_auto_profile": read_profile,
               "read_pallas_vanilla_ms": pv_ms,
               "read_pallas_vanilla_device_ms": pv_by_spin["2x_host"],
               "read_pallas_vanilla_device_ms_by_spin": pv_by_spin,
@@ -1685,7 +1665,7 @@ def fleet_phase(torch, mods):
               "device_read_zero_where_cold": True, "tiered_equals_before": True,
               "promoted_equals_before": True, "host_rows_after_free": 0,
               "launches": launches, "stats": fleet_lib.fleet_stats(fl),
-              "peak_GB": max(phase_peak, torch.cuda.max_memory_allocated()) / 1e9})
+              "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
         if not scalable:
             measured = fleet_kernel(torch, mods, fl.pool, res, flush)
             shapes = dict(fleet_walk(torch, mods, fl, flush),

@@ -48,6 +48,7 @@ from repro_torch.core import store as store_lib
 from repro_torch.core.chain import Chain, ChainSpec
 from repro_torch.device import as_device
 from repro_torch.kernels.cow_gather import ops as cow_ops
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -364,14 +365,23 @@ def read(fleet: ChainFleet, page_ids, *, method: str = "auto"):
         ``store.read``. Kernel methods gather through the fleet gather of
         ``kernels/cow_gather`` (K5); the plain methods use
         ``store.gather_pages``. Both give the same bytes.
+
+    While a profiler records, the call is the span ``fleet.read``, and the
+    resolver and the gather are ``fleet.resolve`` and ``fleet.gather``
+    inside it (``repro_torch.trace``).
     """
-    ids = torch.as_tensor(page_ids, device=fleet.device)
-    res = get_resolver(method)(fleet, ids)
-    if _uses_kernels(fleet, method):
-        # cold hits address the host tier: masked like ZERO clusters
-        # (read_tiered fills them from the TieredStore afterwards)
-        return cow_ops.gather_fleet(fleet.pool, *store_lib.readable_rows(res)), res
-    return store_lib.gather_pages(fleet.pool, res), res
+    with span("fleet.read"):
+        ids = torch.as_tensor(page_ids, device=fleet.device)
+        with span("fleet.resolve"):
+            res = get_resolver(method)(fleet, ids)
+        with span("fleet.gather"):
+            if _uses_kernels(fleet, method):
+                # cold hits address the host tier: masked like ZERO clusters
+                # (read_tiered fills them from the TieredStore afterwards)
+                data = cow_ops.gather_fleet(fleet.pool, *store_lib.readable_rows(res))
+            else:
+                data = store_lib.gather_pages(fleet.pool, res)
+        return data, res
 
 
 def materialize(fleet: ChainFleet, *, method: str = "auto") -> torch.Tensor:

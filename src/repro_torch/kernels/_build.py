@@ -15,7 +15,9 @@ seconds.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. ``PAGES`` counts, beside it, the pages
+each launch was given to resolve: the fleet resolvers K1 and K2 take every
+tenant's whole map (T × P pages), whatever the batch asks for.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
 
 #: Launches per kernel since the last ``reset_launches``.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+#: Pages given to the launches counted in ``LAUNCHES`` (the fleet resolvers').
+PAGES: dict[str, int] = {name: 0 for name in KERNELS}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -79,6 +83,7 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        PAGES[name] = 0
 
 
 def _nvcc() -> str:
@@ -141,8 +146,10 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check_launch(name: str, code: int) -> None:
-    """Raise if a C launcher reported a CUDA error; else count the launch."""
+def check_launch(name: str, code: int, pages: int = 0) -> None:
+    """Raise if a C launcher reported a CUDA error; else count the launch
+    and the ``pages`` it was given."""
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
     LAUNCHES[name] += 1
+    PAGES[name] += pages

@@ -90,7 +90,7 @@ def resolve_vanilla_fleet_cuda(w0: torch.Tensor, lengths: torch.Tensor, *,
         w0.data_ptr(), lengths.data_ptr(), owner.data_ptr(), hit.data_ptr(),
         t, c, p, es, WALKS[walk or fleet_walk(t, p)],
         torch.cuda.current_stream(w0.device).cuda_stream)
-    _build.check_launch("resolve_vanilla_fleet", code)
+    _build.check_launch("resolve_vanilla_fleet", code, pages=t * p)
     return owner, hit
 
 
@@ -151,7 +151,7 @@ def resolve_direct_fleet_cuda(w0: torch.Tensor, w1: torch.Tensor,
         w0.data_ptr(), w1.data_ptr(), lengths.data_ptr(), owner.data_ptr(),
         h0.data_ptr(), h1.data_ptr(), t, c, p, es,
         torch.cuda.current_stream(w0.device).cuda_stream)
-    _build.check_launch("resolve_direct_fleet", code)
+    _build.check_launch("resolve_direct_fleet", code, pages=t * p)
     return owner, h0, h1
 
 
