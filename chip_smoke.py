@@ -45,7 +45,14 @@ Phases, each printing its own lines:
    planner's pick (``walk_sweep`` on its row; phase 7 adds the fleet's
    shapes). K2 likewise runs on the ``l2[..., 0]``/``l2[..., 1]`` pair of
    the packed words, with its time on the two contiguous planes beside it
-   (``plane_ms``) and its layout (``elem_stride``).
+   (``plane_ms``) and its layout (``elem_stride``). K1's batch entry
+   (``resolve_auto_batch``, the auto resolve) has a row of its own at the
+   engine's call: every page, one row of ids expanded over the tenants;
+   every leaf bit-exact with each walk forced and with the planner's pick
+   (``walk_sweep``), its bound the active entries, the untrusted reads'
+   walks, the ids, lengths and leaves (phase 7 adds the read's shape).
+   Its launches count under K1's name too; K1's row counts the whole
+   map's alone.
 6. store — one 16 GiB virtual disk (262,144 clusters of 64 KiB, float32
    pages of 16,384) in both formats with the same content: a base layer
    at 25 % fill, then 64 random clusters per layer with a snapshot
@@ -66,7 +73,8 @@ Phases, each printing its own lines:
    intercept, the fixed cost a call.
 7. fleet — 64 tenants, each a 1 GiB disk (16,384 clusters) at 12.5 %
    fill, tenant t grown to chain length 1 + 499 t / 63 with 4 clusters a
-   layer, one format at a time. ``fleet.read(auto)`` (K2 + K1 + K5) of
+   layer, one format at a time. ``fleet.read(auto)`` (K1's batch entry,
+   one launch over the read's pages, + K5) of
    1,024 random clusters per tenant must equal ``method="vanilla"`` bit
    for bit. Cold tier: two 16,384-row ``demote_tenants`` calls on the odd
    tenants, then the device read is zeros exactly where cold,
@@ -84,7 +92,10 @@ Phases, each printing its own lines:
    K2 at the fleet's shape on the ``l2[..., 0]``/``l2[..., 1]`` pair
    (``k2_fleet_shape``: bit-exact, its bound, the contiguous planes' time
    and ``plane_copy_ms``, the two copies it no longer pays; its
-   ``size_sweep`` at 16-1,024 tenants of 16,384 pages, as K7's).
+   ``size_sweep`` at 16-1,024 tenants of 16,384 pages, as K7's). K1's
+   batch entry at the read's 64 x 1,024 ids on both formats
+   (``auto_batch_fleet_shape``: every leaf bit-exact with each walk and
+   the planner's pick, each timed, beside its bound).
    The pallas_vanilla read is timed by CUDA events after a spin of twice
    its host ms (so the host has enqueued the whole read before the first
    event), and after a spin of 1 ms and of four times its host ms beside
@@ -280,8 +291,9 @@ Phases, each printing its own lines:
    and the data oracle every 10; its lines carry ``"phase": "storm"`` and
    the card's name and power limit. (a) The harness's geometry, seeds 0-2,
    200 events each, on the card and on the CPU in this process: equal
-   traces and final states equal word for word and byte for byte; K1, K2,
-   K5 and K9 launch in the events (the checks run uncounted). (b) 200
+   traces and final states equal word for word and byte for byte; K1
+   (the auto resolve's batch entry), K5 and K9 launch in the events (the
+   checks run uncounted). (b) 200
    events at deployment scale (``STORM_SCALE``: 64 tenants of 512
    clusters of 64 KiB, chains to 256, Qwen2.5-3B's KV geometry, 36 layers
    x 2 KV heads x 128 in blocks of 16; the cuts from phase 7's fleet and
@@ -497,8 +509,7 @@ STORM_SCALE = dict(
     kv_blocks=1_024, kv_max_blocks=128, kv_dst_block_size=32,
     kv_dst_blocks=512,
 )
-STORM_KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet",
-                 "gather_fleet", "merge")
+STORM_KERNELS = ("resolve_vanilla_fleet", "gather_fleet", "merge")
 DEV = "cuda"                     # phases 6-15 run here
 KERNEL_SOURCES = {
     "resolve_vanilla_fleet": ("src/repro_torch/csrc/chain_resolve.cu",
@@ -519,6 +530,10 @@ KERNEL_SOURCES = {
                "src/repro/kernels/cow_gather/cow_gather.py:27"),
     "merge": ("src/repro_torch/csrc/stream_merge.cu",
               "src/repro/kernels/stream_merge/stream_merge.py:41"),
+    # K1's batch entry: the auto pick of K1 (:145) and K2 (:190) at a
+    # read's pages; its launches are counted under K1's name too
+    "resolve_auto_batch": ("src/repro_torch/csrc/chain_resolve.cu",
+                           "src/repro/kernels/chain_resolve/chain_resolve.py:145"),
 }
 
 
@@ -672,7 +687,8 @@ def serve_phase(torch, mods, cfg, params, prompts, tag=None, groups=None,
             for s in sorted(eng.active):
                 eng.finish_request(s)
             require(eng.kv.blocks_in_use() == 0, f"{name}: blocks leaked")
-            want = ({"resolve_vanilla_fleet", "resolve_direct_fleet"}
+            # the auto resolver is one launch of K1's batch entry
+            want = ({"resolve_vanilla_fleet"}
                     | {"paged_attention" if path == "tables"
                        else "fused_chain_attention"})
             for k in want:
@@ -1069,6 +1085,17 @@ def kernel_phase(torch, mods, state):
             require(row["working_blocks"] >= pa.sm_count(dev),
                     f"{row['name']}: {row['working_blocks']} working blocks "
                     "do not cover the SMs")
+    # K1's batch entry as prepare_step calls it: every page, one row of ids
+    # expanded over the tenants (row stride 0)
+    ids = torch.arange(p, dtype=torch.int32, device=dev)[None].expand(t, -1)
+    shape = auto_batch_shape(torch, mods, l2, cl, ids, flush)
+    batch_row, _ = measure(
+        torch, "resolve_auto_batch",
+        lambda: cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], cl, ids),
+        lambda: cr_ref.resolve_auto_batch_ref(l2[..., 0], l2[..., 1], cl, ids),
+        shape["bytes"], 0, None, flush)
+    batch_row.update(walk=shape["planner_picks"], walk_sweep={"engine": shape})
+    rows.append(batch_row)
     emit({"phase": "kernels", "shapes": {
         "fleet_T_C_P": [t, c, p], "pool_nb_bs_hkv_d": [nb, bs, hkv, d],
         "k1_words_walked": k1_walked, "k1_walk": rows[0]["walk"],
@@ -1277,6 +1304,65 @@ def walk_sweep(torch, mods, l2, lengths, flush, n=30):
         require(all(torch.equal(a, b) for a, b in zip(call(), want)),
                 f"K1 {walk} walk at {[t, c, p]} is not bit-exact")
         res["ms"][walk] = timed_ms(torch, call, n, flush)
+    return res
+
+
+def auto_batch_bytes(torch, mods, l2, lengths, ids, want):
+    """What K1's batch entry needs for (T, B) ``ids`` on the (T, C, P, 2)
+    words ``l2``, whose plain answer is ``want``: each distinct (tenant,
+    page) read's active entry (8 bytes) and, where that entry is not
+    trusted, the rest of its walk (8 bytes a further entry), the ids as
+    stored, a length a tenant, and 15 bytes of leaves a read. Returns
+    ``(bytes, distinct reads, trusted reads, words the walks read)``."""
+    fmt = mods["fmt"]
+    t, c, p, _ = l2.shape
+    b = ids.shape[1]
+    tt = torch.arange(t, device=ids.device)[:, None].expand(t, b)
+    act = (lengths.to(torch.int64) - 1)[:, None].expand(t, b)
+    act = torch.where(act < 0, act + c, act).clamp(0, c - 1)
+    entry = l2[tt, act, ids.to(torch.int64)]                    # (T, B, 2)
+    trusted = (((entry[..., 0] & fmt.FLAG_ALLOCATED_I32) != 0)
+               & ((entry[..., 1] & fmt.FLAG_BFI_VALID) != 0))
+    top = lengths.clamp(max=c).to(torch.int64)[:, None].expand(t, b)
+    walked = torch.where(trusted, 0, torch.where(want[2], top - want[0].to(torch.int64),
+                                                 top))
+    key = tt * p + ids.to(torch.int64)
+    uniq, inv = torch.unique(key.reshape(-1), return_inverse=True)
+    per = torch.zeros(len(uniq), dtype=torch.int64, device=ids.device)
+    per.scatter_(0, inv, (walked - 1).clamp(min=0).reshape(-1))
+    n_ids = b if ids.stride(0) == 0 else t * b
+    nbytes = 8 * (len(uniq) + int(per.sum())) + 4 * (n_ids + t) + 15 * t * b
+    return nbytes, len(uniq), int(trusted.sum()), int(walked.sum())
+
+
+def auto_batch_shape(torch, mods, l2, lengths, ids, flush, n=30):
+    """K1's batch entry (``resolve_auto_batch_cuda``) at (T, B) ``ids`` on
+    the packed words' ``l2[..., 0]``/``l2[..., 1]`` pair, with each walk
+    forced and with the planner's pick, every leaf of every call held bit
+    for bit against its plain version, each timed; the bound counts
+    ``auto_batch_bytes``."""
+    cr, cr_ref = mods["cr"], mods["cr_ref"]
+    t, c, p, _ = l2.shape
+    w0, w1 = l2[..., 0], l2[..., 1]
+    want = cr_ref.resolve_auto_batch_ref(w0, w1, lengths, ids)
+    nbytes, distinct, trusted, walked = auto_batch_bytes(torch, mods, l2, lengths,
+                                                         ids, want)
+    res = dict(T_C_P=[t, c, p], B=ids.shape[1], reads=ids.numel(),
+               distinct_reads=distinct, trusted_reads=trusted, words_walked=walked,
+               planner_picks=cr.fleet_walk(t, ids.shape[1]), bytes=nbytes,
+               bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, ms={})
+    for walk in (*cr.WALKS, None):
+        def call():
+            return cr.resolve_auto_batch_cuda(w0, w1, lengths, ids, walk=walk)
+        got = call()
+        require(all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got, want)),
+                f"K1's batch entry, {walk or 'planner'} walk, at "
+                f"{[t, c, p, ids.shape[1]]} is not bit-exact")
+        res["ms"][walk or "planner"] = timed_ms(torch, call, n, flush)
+    del want
+    res["plain_ms"] = timed_ms(torch, lambda: cr_ref.resolve_auto_batch_ref(
+        w0, w1, lengths, ids), 3, flush)
     return res
 
 
@@ -1572,7 +1658,7 @@ def fleet_phase(torch, mods):
                         device=DEV, dtype=torch.int32)
     out_bytes = FLEET_T * FLEET_BATCH * CLUSTER * 4
     odd = list(range(1, FLEET_T, 2))
-    total, measured, shapes, golden = {}, None, None, None
+    total, measured, shapes, golden, batch_shapes = {}, None, None, None, {}
     for scalable in (False, True):
         name = "scalable" if scalable else "vanilla"
         torch.cuda.reset_peak_memory_stats()
@@ -1647,7 +1733,7 @@ def fleet_phase(torch, mods):
         require(held == DEMOTE_ROWS and store.host_rows_in_use() == 0,
                 f"{name}: free_tenant left host rows")
         launches = dict(_build.LAUNCHES)        # read just after the run
-        for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather_fleet"):
+        for k in ("resolve_vanilla_fleet", "gather_fleet"):
             require(launches[k] > 0, f"fleet {name}: kernel {k} never launched")
         total = {k: total.get(k, 0) + v for k, v in launches.items()}
         emit({"phase": "fleet", "format": name, "tenants": FLEET_T,
@@ -1666,10 +1752,15 @@ def fleet_phase(torch, mods):
               "promoted_equals_before": True, "host_rows_after_free": 0,
               "launches": launches, "stats": fleet_lib.fleet_stats(fl),
               "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+        batch_shapes[name] = auto_batch_shape(torch, mods, fl.l2, fl.length, ids,
+                                              flush, n=10)
+        emit({"phase": "fleet", "format": name,
+              "auto_batch_fleet_shape": batch_shapes[name]})
         if not scalable:
             measured = fleet_kernel(torch, mods, fl.pool, res, flush)
             shapes = dict(fleet_walk(torch, mods, fl, flush),
-                          k2_fleet_shape=k2_fleet_shape(torch, mods, fl, flush))
+                          k2_fleet_shape=k2_fleet_shape(torch, mods, fl, flush),
+                          auto_batch_fleet_shape=batch_shapes)
         del pre, res
         if not scalable:
             golden = golden_fleet(torch, mods, fl, store)   # phase 9b and 9d
@@ -2075,8 +2166,7 @@ def fleet_maintenance(torch, mods):
                           host_rows=store.host_rows_in_use(), **_tick_summary(dms))
             del tiered, store, dsched
         launches = dict(_build.LAUNCHES)       # read just after the run
-        for key in ("merge", "resolve_vanilla_fleet", "resolve_direct_fleet",
-                    "gather_fleet"):
+        for key in ("merge", "resolve_vanilla_fleet", "gather_fleet"):
             require(launches[key] > 0, f"fleet maintenance: {key} never launched")
         total = {key: total.get(key, 0) + v for key, v in launches.items()}
         emit({"phase": "maintenance", "part": "fleet", "format": name,
@@ -2187,8 +2277,8 @@ def serve_maintenance(torch, mods, cfg, params, prompts):
         require(t == want, f"sid {s}: tokens differ across park/resume")
     require(len(tokens[parked]) == 1 + 2 * PARK_STEPS, "parked sequence length")
     launches = dict(_build.LAUNCHES)           # read just after the run
-    for key in ("resolve_vanilla_fleet", "resolve_direct_fleet",
-                "fused_chain_attention", "gather_fleet", "merge"):
+    for key in ("resolve_vanilla_fleet", "fused_chain_attention", "gather_fleet",
+                "merge"):
         require(launches[key] > 0, f"serve maintenance: {key} never launched")
     emit({"phase": "maintenance", "part": "serve", "model": cfg.name,
           "engine": "vanilla/fused", "steps": MAINT_STEPS,
@@ -2606,8 +2696,7 @@ def golden_fleet(torch, mods, fl, store):
     reg.unregister(gid)
     check(fl, store=store, registry=reg)
     launches = dict(_build.LAUNCHES)           # read just after the run
-    for key in ("resolve_vanilla_fleet", "resolve_direct_fleet", "gather_fleet",
-                "merge"):
+    for key in ("resolve_vanilla_fleet", "gather_fleet", "merge"):
         require(launches[key] > 0, f"golden fleet: {key} never launched")
     emit({"phase": "golden", "part": "registry", "owner": REGISTRY_OWNER,
           "owner_depth": owner_len, "forks": forks,
@@ -3504,7 +3593,7 @@ def dense_family(torch, mods, flush):
                 ms.append(a.elapsed_time(b))
             run = dict(_build.LAUNCHES)                 # read just after the run
             attn = "paged_attention" if path == "tables" else "fused_chain_attention"
-            for kname in ("resolve_vanilla_fleet", "resolve_direct_fleet", attn):
+            for kname in ("resolve_vanilla_fleet", attn):
                 require(run[kname] > 0, f"{arch} {path}: {kname} never launched")
             launches.update(run)
             tokens[path] = {s: list(t) for s, t in eng.active.items()}
@@ -4501,8 +4590,7 @@ def serve_launcher(torch, mods, d):
             del eng
     del params
     torch.cuda.empty_cache()
-    for k in ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
-              "fused_chain_attention"):
+    for k in ("resolve_vanilla_fleet", "paged_attention", "fused_chain_attention"):
         require(launches[k] > 0, f"serve launcher: kernel {k} never launched")
     _dist(dict(part="serve_launcher", model=cfg.name,
                runs=[dict(argv=r["argv"], host_ms=r["ms"], stats=r["stats"],
@@ -5081,6 +5169,7 @@ def main() -> int:
     per_step_of = {
         "resolve_vanilla_fleet": results["vanilla/fused"]["per_step"]["resolve_vanilla_fleet"],
         "resolve_direct_fleet": results["vanilla/fused"]["per_step"]["resolve_direct_fleet"],
+        "resolve_auto_batch": results["vanilla/fused"]["per_step"]["resolve_auto_batch"],
         "paged_attention": results["vanilla/tables"]["per_step"]["paged_attention"],
         "fused_chain_attention": results["vanilla/fused"]["per_step"]["fused_chain_attention"],
     }
@@ -5169,12 +5258,16 @@ def main() -> int:
                                               family13_launches, dist_launches,
                                               storm_launches))
                    for k in KERNEL_SOURCES}
+    # the batch entry counts under K1's name too: K1's row is the whole map's
+    launches_of["resolve_vanilla_fleet"] -= launches_of["resolve_auto_batch"]
+    per_step_of["resolve_vanilla_fleet"] -= per_step_of["resolve_auto_batch"]
     rows[0]["fleet_shape"] = fleet_shapes["fleet_shape"]      # K1's row
     rows[0]["walk_sweep"].update(fleet_shapes["walk_sweep"])
     rows[1]["fleet_shape"] = fleet_shapes["k2_fleet_shape"]   # K2's row
     rows[2]["suffix_shape"] = suffix_row                      # K3's row
     rows[2]["families"] = family_shapes["paged_attention"]    # phase 11
     rows[3]["families"] = family_shapes["fused_chain_attention"]
+    rows[4]["fleet_shape"] = fleet_shapes["auto_batch_fleet_shape"]  # batch entry
     rows += fleet_rows + store_rows + merge_rows
     for row in rows:                      # the page gather's two rows
         if row["name"] in ("gather", "gather_fleet"):

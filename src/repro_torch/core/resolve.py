@@ -19,7 +19,11 @@ The ``*_tables`` helpers are stacked over a leading tenant axis — l2
 them directly where the JAX package vmaps them; a single chain is the
 T = 1 case. The ``resolve_*_stacked`` functions run the fleet kernels of
 ``kernels/chain_resolve`` (CUDA on the card, the plain versions on the
-CPU) over every tenant's full page table, then gather the batch.
+CPU): ``resolve_auto_stacked`` one launch of the batch entry over the
+batch's (T, B) pages, which answers a trusted read from its active entry
+and walks only the others; ``resolve_vanilla_stacked`` and
+``resolve_direct_stacked`` the whole-map kernels over every tenant's full
+page table, then a gather of the batch.
 """
 
 from __future__ import annotations
@@ -117,8 +121,9 @@ def combine_auto(trust: torch.Tensor, direct: ResolveResult,
     """Field-wise pick of ``direct`` where ``trust`` else ``walk``.
 
     ``trust`` is "the active entry is allocated AND carries a valid
-    backing_file_index" — exactly ``direct.found``. Shared by the plain and
-    the kernel auto resolvers so the mixed-image semantics cannot drift.
+    backing_file_index" — exactly ``direct.found``. The plain auto
+    resolver's pick; the batch entry of ``resolve_auto_stacked`` makes the
+    same pick per read in its epilogue, and the tests hold the two equal.
     """
     return ResolveResult(*(torch.where(trust, d, w)
                            for d, w in zip(direct, walk)))
@@ -196,11 +201,15 @@ def resolve_direct_stacked(l2: torch.Tensor, lengths: torch.Tensor,
 
 def resolve_auto_stacked(l2: torch.Tensor, lengths: torch.Tensor,
                          page_ids: torch.Tensor) -> ResolveResult:
-    """Kernel-backed mixed-image resolution: both kernels, then the same
-    ``combine_auto`` trust pick as the plain auto resolver."""
-    direct = resolve_direct_stacked(l2, lengths, page_ids)
-    walk = resolve_vanilla_stacked(l2, lengths, page_ids)
-    return combine_auto(direct.found, direct, walk)
+    """Kernel-backed mixed-image resolution of the batch's pages in one
+    launch: the active entry where it is trusted (``combine_auto``'s
+    trust), the walk elsewhere, read in place from the packed words.
+    Bit-identical to ``combine_auto`` over ``resolve_direct_stacked`` and
+    ``resolve_vanilla_stacked``, and so to ``resolve_auto_tables`` but for
+    ``ptr`` on a miss (``ref.resolve_auto_batch_ref``)."""
+    return ResolveResult(*_kernel_ops.resolve_auto_batch(
+        l2[..., 0], l2[..., 1], lengths.to(torch.int32).contiguous(),
+        page_ids.to(torch.int32)))
 
 
 def _as_chain(fn):

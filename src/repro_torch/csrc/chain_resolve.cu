@@ -7,6 +7,9 @@
 //   resolve_direct_fleet   <- resolve_direct_fleet_pallas  (_direct_fleet_kernel)
 //   resolve_vanilla        <- resolve_vanilla_pallas       (_vanilla_kernel)
 //   resolve_direct         <- resolve_direct_pallas        (_direct_kernel)
+// and one entry that replaces no TPU kernel:
+//   resolve_auto_batch     (K1's batch entry, beside resolve_vanilla_fleet as
+//                           K9's merge_entries sits beside merge)
 //
 // What bounds them on the card: device-memory bytes, and for the fleet
 // walk the latency of getting them. Each page does a few integer ops per
@@ -37,6 +40,25 @@
 // entry one aligned 8-byte load. Tenants are on blockIdx.y, so a block
 // reads its tenant's length once, uniformly, and no thread divides. One
 // page a thread.
+//
+// The batch entry resolves a read's (T, B) page ids, not the (T, P) maps:
+// the auto resolve of core/resolve.py (direct where the active entry is
+// ALLOCATED and BFI_VALID, the walk otherwise) in one launch, with the
+// ResolveResult's six leaves written in its epilogue. Whole-map K1 and K2
+// resolve every page of every tenant and leave the pick and the batch's
+// takes to a dozen further launches; a fleet read asks for 128 (YCSB-C)
+// or 16 (dd) times fewer pages than the maps hold. A read loads its
+// active entry (one aligned 8-byte load at a stride of 2, as K2) and,
+// only where that entry is not trusted, walks from min(length, C) - 1
+// down with K1's walks: a thread a read (batched_first_hit) or a warp a
+// read (warp_first_hit), picked by the wrapper from T x B alone. Page ids
+// come with both strides, so an expanded (T, B) view of one row (row
+// stride 0) or any other view is read as it is. An id outside [0, P)
+// traps: the launch fails and the stream's next sync raises, as the
+// bound check of the gather it replaces did; no read answers with another
+// page. Kernel names keep "vanilla_fleet_kernel" (and not
+// "direct_fleet_kernel"): a trace puts them in K1's row, and a launch is
+// counted as one of K1's.
 //
 // The single-chain kernels take the chain as separate planes, as the TPU
 // kernels do: an allocation map (int32 or bool, tested != 0) and a pointer
@@ -167,6 +189,114 @@ __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
   }
 }
 
+// The batch entry's arguments. Outputs are two (3, T, B) stacks: int32
+// owner, ptr and lookups at out32, bool found, zero and cold at out8.
+struct AutoBatch {
+  const uint32_t* w0;
+  const uint32_t* w1;         // ES 1 only: the word1 plane
+  const int32_t* lengths;
+  const int32_t* ids;         // (T, B), id_row and id_col elements apart
+  long long id_row, id_col;
+  int32_t* out32;
+  uint8_t* out8;
+  int T, C, P, B;
+};
+
+// Read i's tenant, length, page and active entry (t's layer length - 1,
+// wrapped and clamped as in direct_fleet_kernel). A page outside [0, P)
+// traps.
+template <int ES>
+struct AutoRead {
+  int t, len, p;
+  uint2 e;
+
+  __device__ __forceinline__ AutoRead(const AutoBatch& a, long long i) {
+    t = (int)(i / a.B);
+    const long long b = i % a.B;
+    len = a.lengths[t];
+    p = a.ids[(long long)t * a.id_row + b * a.id_col];
+    if (p < 0 || p >= a.P) __trap();
+    int act = len - 1;
+    if (act < 0) act += a.C;
+    act = max(0, min(act, a.C - 1));
+    const size_t at = ((size_t)t * a.C + act) * a.P + p;
+    if constexpr (ES == 2) {
+      e = __ldg(reinterpret_cast<const uint2*>(a.w0 + 2 * at));
+    } else {
+      e = make_uint2(__ldg(a.w0 + at), __ldg(a.w1 + at));
+    }
+  }
+
+  // the direct entry answers the read: allocated, with a valid bfi
+  __device__ __forceinline__ bool trusted() const {
+    return (e.x & FMT_FLAG_ALLOCATED) != 0u && (e.y & FMT_FLAG_BFI_VALID) != 0u;
+  }
+
+  // word0 of layer 0 of the read's page; layers are col_stride() apart
+  __device__ __forceinline__ const uint32_t* col(const AutoBatch& a) const {
+    return a.w0 + ((size_t)t * a.C * a.P + p) * ES;
+  }
+  __device__ __forceinline__ size_t col_stride(const AutoBatch& a) const {
+    return (size_t)a.P * ES;
+  }
+};
+
+// Read i's six leaves from its owner and that owner's word0 (0 on a miss).
+__device__ __forceinline__ void write_read(const AutoBatch& a, long long i,
+                                           int owner, uint32_t word,
+                                           int lookups) {
+  const long long n = (long long)a.T * a.B;
+  a.out32[i] = owner;
+  a.out32[n + i] = (int32_t)(word & FMT_PTR_MASK);
+  a.out32[2 * n + i] = lookups;
+  a.out8[i] = owner >= 0;
+  a.out8[n + i] = (word & FMT_FLAG_ZERO) != 0u;
+  a.out8[2 * n + i] = (word & FMT_FLAG_COLD) != 0u;
+}
+
+// The answer of a walk that ended at owner o with word w (o < 0: a miss).
+__device__ __forceinline__ void write_walk(const AutoBatch& a, long long i,
+                                           int len, int o, uint32_t w) {
+  write_read(a, i, o, o >= 0 ? w : 0u, o >= 0 ? len - o : len);
+}
+
+// Many reads: one thread a read.
+template <int ES>
+__global__ void batch_vanilla_fleet_kernel(const AutoBatch a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)a.T * a.B) return;
+  const AutoRead<ES> r(a, i);
+  if (r.trusted()) {
+    write_read(a, i, (int)(r.e.y & FMT_BFI_MASK), r.e.x, 1);
+    return;
+  }
+  const uint32_t* col = r.col(a);
+  const size_t stride = r.col_stride(a);
+  uint32_t w = 0u;
+  const int o = batched_first_hit<kWalkBatch>(
+      min(r.len, a.C) - 1,
+      [&](int layer) { return __ldg(col + (size_t)layer * stride); },
+      [](uint32_t x) { return (x & FMT_FLAG_ALLOCATED) != 0u; }, &w);
+  write_walk(a, i, r.len, o, w);
+}
+
+// Few reads: one warp a read. Every lane loads the active entry (one
+// address, one transaction), so the trust test is the warp's own.
+template <int ES>
+__global__ void batch_warp_vanilla_fleet_kernel(const AutoBatch a) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (i >= (long long)a.T * a.B) return;   // whole warps leave together
+  const AutoRead<ES> r(a, i);
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (r.trusted()) {
+    if (lead) write_read(a, i, (int)(r.e.y & FMT_BFI_MASK), r.e.x, 1);
+    return;
+  }
+  uint32_t w;
+  const int o = warp_first_hit(r.col(a), min(r.len, a.C) - 1, r.col_stride(a), &w);
+  if (lead) write_walk(a, i, r.len, o, w);
+}
+
 // V pages a thread, U layers a batch, E bytes an allocation entry.
 template <int E, int V, int U>
 __global__ void vanilla_kernel(const uint8_t* __restrict__ alloc,
@@ -266,6 +396,37 @@ extern "C" int resolve_direct_fleet(const void* w0, const void* w1,
     direct_fleet_kernel<1><<<grid, threads, 0, st>>>(
         (const uint32_t*)w0, (const uint32_t*)w1, (const int32_t*)lengths,
         (int32_t*)owner, (uint32_t*)h0, (uint32_t*)h1, T, C, P);
+  return (int)cudaGetLastError();
+}
+
+// The batch's auto resolve. elem_stride: 1, w0 and w1 are (T, C, P)
+// planes; 2, w0 is the packed (T, C, P, 2) words (w1 unused), 8-byte
+// aligned. ids: (T, B) int32, id_row and id_col elements apart, each in
+// [0, P). out32: (3, T, B) int32 (owner, ptr, lookups); out8: (3, T, B)
+// bool (found, zero, cold). walk: 0 one thread a read, 1 one warp a read.
+extern "C" int resolve_auto_batch(const void* w0, const void* w1,
+                                  const void* lengths, const void* ids,
+                                  long long id_row, long long id_col,
+                                  void* out32, void* out8,
+                                  int T, int C, int P, int B, int elem_stride,
+                                  int walk, void* stream) {
+  (void)cudaGetLastError();
+  if (elem_stride != 1 && elem_stride != 2) return (int)cudaErrorInvalidValue;
+  if (walk != 0 && walk != 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const AutoBatch a{(const uint32_t*)w0, (const uint32_t*)w1,
+                    (const int32_t*)lengths, (const int32_t*)ids, id_row, id_col,
+                    (int32_t*)out32, (uint8_t*)out8, T, C, P, B};
+  const long long n = (long long)T * B;
+  const long long per_block = walk == 0 ? kThreads : kThreads / 32;
+  const unsigned int blocks = (unsigned int)((n + per_block - 1) / per_block);
+  if (walk == 0) {
+    if (elem_stride == 2) batch_vanilla_fleet_kernel<2><<<blocks, kThreads, 0, st>>>(a);
+    else batch_vanilla_fleet_kernel<1><<<blocks, kThreads, 0, st>>>(a);
+  } else {
+    if (elem_stride == 2) batch_warp_vanilla_fleet_kernel<2><<<blocks, kThreads, 0, st>>>(a);
+    else batch_warp_vanilla_fleet_kernel<1><<<blocks, kThreads, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,12 @@ seconds.
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. ``PAGES`` counts, beside it, the pages
-each launch was given to resolve: the fleet resolvers K1 and K2 take every
-tenant's whole map (T × P pages), whatever the batch asks for.
+each launch was given to resolve: the whole-map fleet resolvers K1 and K2
+take every tenant's whole map (T × P pages); K1's batch entry
+(``resolve_auto_batch``) takes the read's T × B pages, so an auto read
+gives K1 one page a read. The batch entry's kernels carry K1's name, so
+it counts under K1's name (as a trace sees it) and under its own: K1's
+whole-map launches and pages are the difference.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from repro_torch.core import format as fmt
 
 KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
            "fused_chain_attention", "gather_fleet", "resolve_vanilla",
-           "resolve_direct", "gather", "merge")
+           "resolve_direct", "gather", "merge", "resolve_auto_batch")
 
 #: Launches per kernel since the last ``reset_launches``.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
@@ -53,6 +57,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: argtypes of every C launcher; each returns its cudaGetLastError() code.
+#: ``resolve_auto_batch`` is counted as ``resolve_vanilla_fleet`` (K1's);
 #: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``),
 #: ``merge_entries`` and ``merge`` both launch K9 (counted as ``merge``);
 #: ``paged_attention``/``fused_chain_attention`` launch a split pass and its
@@ -61,6 +66,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "resolve_auto_batch": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P],
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
     "paged_attention_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -146,10 +153,14 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check_launch(name: str, code: int, pages: int = 0) -> None:
+def check_launch(name: str, code: int, pages: int = 0,
+                 entry: str | None = None) -> None:
     """Raise if a C launcher reported a CUDA error; else count the launch
-    and the ``pages`` it was given."""
+    and the ``pages`` it was given under ``name``, and under ``entry`` too
+    where the launcher is another entry of ``name``'s kernel."""
     if code != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
-    LAUNCHES[name] += 1
-    PAGES[name] += pages
+        raise RuntimeError(f"CUDA kernel {entry or name} failed to launch: "
+                           f"cudaError {code}")
+    for key in (name,) if entry is None else (name, entry):
+        LAUNCHES[key] += 1
+        PAGES[key] += pages

@@ -5,7 +5,8 @@ The counterparts of ``repro.kernels.chain_resolve.chain_resolve``'s
 stacked (T, C, P) fleet layout; both also read the words in place, as
 strided views of the packed (T, C, P, 2) words), and
 ``resolve_vanilla_pallas`` and ``resolve_direct_pallas`` (one chain's
-(C, N) planes):
+(C, N) planes), and beside them ``resolve_auto_batch_cuda``, the auto
+resolve of a read's (T, B) pages in one launch (no TPU counterpart):
 hand-written CUDA C++ in ``csrc/chain_resolve.cu``, built for Hopper by
 ``kernels._build``. The wrappers here take CUDA tensors only, check what
 the kernel takes, allocate the outputs, launch on the current stream
@@ -153,6 +154,61 @@ def resolve_direct_fleet_cuda(w0: torch.Tensor, w1: torch.Tensor,
         torch.cuda.current_stream(w0.device).cuda_stream)
     _build.check_launch("resolve_direct_fleet", code, pages=t * p)
     return owner, h0, h1
+
+
+#: The launch counter of the batch entry: its kernels carry K1's name
+#: (``vanilla_fleet_kernel``), so a trace and ``_build.LAUNCHES`` count
+#: them as K1's; ``AUTO_BATCH_ENTRY`` counts them apart besides.
+AUTO_BATCH_COUNTER = "resolve_vanilla_fleet"
+AUTO_BATCH_ENTRY = "resolve_auto_batch"
+
+
+def resolve_auto_batch_cuda(w0: torch.Tensor, w1: torch.Tensor,
+                            lengths: torch.Tensor, page_ids: torch.Tensor, *,
+                            walk: str | None = None):
+    """The auto resolve of a read's pages: for each (t, b) of ``page_ids``
+    (T, B) int32, the active entry of page ``page_ids[t, b]`` where it is
+    ALLOCATED and BFI_VALID, else the first-hit walk of tenant t's chain.
+    ``w0``/``w1`` (T, C, P) int32 in one of ``direct_fleet_stride``'s two
+    layouts, ``lengths`` (T,) int32; ``page_ids`` is read in place at its
+    strides (an expanded row too). Ids lie in [0, P): on any other the
+    kernel traps, so the stream's next sync raises, as the plain version
+    raises at once. Returns ``(owner, ptr, found, zero, lookups, cold)``,
+    each (T, B), bit for bit ``ref.resolve_auto_batch_ref``:
+    owner/ptr/lookups int32, found/zero/cold bool. ``walk`` ("thread" or
+    "warp") overrides ``fleet_walk(T, B)`` (for measurements). One
+    launch, counted as one of K1's with T × B pages, and as one of
+    ``AUTO_BATCH_ENTRY``'s."""
+    for x in (w0, w1, page_ids):
+        if x.dtype != torch.int32:
+            raise TypeError(f"resolve_auto_batch: expected int32 words and ids, got {x.dtype}")
+    es = direct_fleet_stride(w0, w1)
+    if page_ids.dim() != 2:
+        raise ValueError("resolve_auto_batch: page ids must be (T, B)")
+    for x in (w0, w1, page_ids):
+        if not x.is_cuda:
+            raise ValueError(f"resolve_auto_batch: expected CUDA tensors, got {x.device}")
+    _check_words("resolve_auto_batch", lengths)
+    t, c, p = w0.shape
+    b = page_ids.shape[1]
+    if lengths.shape != (t,) or page_ids.shape[0] != t:
+        raise ValueError(f"resolve_auto_batch: lengths {tuple(lengths.shape)} and "
+                         f"ids {tuple(page_ids.shape)} must have the words' {t} tenants")
+    words = torch.empty((3, t, b), dtype=torch.int32, device=w0.device)
+    flags = torch.empty((3, t, b), dtype=torch.bool, device=w0.device)
+    owner, ptr, lookups = words
+    found, zero, cold = flags
+    if t * b:
+        if not c * p:
+            raise ValueError("resolve_auto_batch: the words hold no entry to read")
+        code = _build.library().resolve_auto_batch(
+            w0.data_ptr(), w1.data_ptr(), lengths.data_ptr(), page_ids.data_ptr(),
+            *page_ids.stride(), words.data_ptr(), flags.data_ptr(), t, c, p, b,
+            es, WALKS[walk or fleet_walk(t, b)],
+            torch.cuda.current_stream(w0.device).cuda_stream)
+        _build.check_launch(AUTO_BATCH_COUNTER, code, pages=t * b,
+                            entry=AUTO_BATCH_ENTRY)
+    return owner, ptr, found, zero, lookups, cold
 
 
 def _check_planes(name: str, alloc: torch.Tensor, *words: torch.Tensor) -> int:

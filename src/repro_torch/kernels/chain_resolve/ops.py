@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.chain_resolve import ref
 from repro_torch.kernels.chain_resolve.chain_resolve import (
+    resolve_auto_batch_cuda,
     resolve_direct_cuda,
     resolve_direct_fleet_cuda,
     resolve_vanilla_cuda,
@@ -43,3 +44,11 @@ def resolve_direct_fleet(w0, w1, lengths):
     if w0.is_cuda:
         return resolve_direct_fleet_cuda(w0, w1, lengths)
     return ref.resolve_direct_fleet_ref(w0, w1, lengths)
+
+
+def resolve_auto_batch(w0, w1, lengths, page_ids):
+    """The auto resolve of (T, B) page ids over (T, C, P) words →
+    ``(owner, ptr, found, zero, lookups, cold)``, each (T, B)."""
+    if w0.is_cuda:
+        return resolve_auto_batch_cuda(w0, w1, lengths, page_ids)
+    return ref.resolve_auto_batch_ref(w0, w1, lengths, page_ids)

@@ -89,3 +89,36 @@ def resolve_direct_fleet_ref(w0, w1, lengths):
     bfi = h1 & fmt.BFI_MASK
     owner = torch.where(alloc, bfi, -1)
     return owner.to(torch.int32), h0.to(torch.int32), h1.to(torch.int32)
+
+
+def resolve_auto_batch_ref(w0, w1, lengths, page_ids):
+    """The auto resolve of a batch of pages: the direct entry where it is
+    trusted (ALLOCATED and BFI_VALID), the first-hit walk otherwise.
+
+    w0/w1: (T, C, P) int32 packed L2 words; lengths: (T,) int32;
+    page_ids: (T, B) ids in [0, P).
+
+    Returns (owner, ptr, found, zero, lookups, cold), each (T, B): int32
+    owner (-1 on a miss), ptr (0 on a miss) and lookups (1 where trusted,
+    ``length - owner`` where a walk finds the page, ``length`` where it
+    does not); bool found, zero and cold. Leaf for leaf what
+    ``resolve_direct_fleet_ref`` and ``resolve_vanilla_fleet_ref`` give at
+    these pages after the auto pick, on any words. The table helper
+    ``core.resolve.resolve_auto_tables`` differs in one leaf, and only on
+    a miss: its ``ptr`` there is layer 0's pointer bits, where this one,
+    like every stacked resolver, gives 0. They agree wherever that entry
+    is all zeros, as an unallocated entry is; a miss at an allocated one
+    is a length-0 tenant's.
+    """
+    t, c = w0.shape[0], w0.shape[1]
+    idx = page_ids.to(torch.int64)[:, None, :].expand(t, c, page_ids.shape[1])
+    g0, g1 = torch.gather(w0, 2, idx), torch.gather(w1, 2, idx)  # (T, C, B)
+    bfi_owner, h0, h1 = resolve_direct_fleet_ref(g0, g1, lengths)
+    walk_owner, hit = resolve_vanilla_fleet_ref(g0, lengths)
+    trust = ((h0 & fmt.FLAG_ALLOCATED_I32) != 0) & ((h1 & fmt.FLAG_BFI_VALID) != 0)
+    ln = lengths.to(torch.int32)[:, None]
+    lookups = torch.where(trust, 1, torch.where(walk_owner >= 0, ln - walk_owner, ln))
+    owner = torch.where(trust, bfi_owner, walk_owner)
+    word = torch.where(trust, h0, hit)
+    return (owner, word & fmt.PTR_MASK, owner >= 0, (word & fmt.FLAG_ZERO_I32) != 0,
+            lookups.to(torch.int32), (word & fmt.FLAG_COLD_I32) != 0)

@@ -7,7 +7,9 @@ whatever the profiler mirrors onto the device's timeline, and keeps every
 value it computes as it was without them; its breakdown of the idle gaps
 names the innermost host range a gap falls in, which may now be a
 program span. Each traced step holds the three spans inside the
-harness's own ``snapbench.read``.
+harness's own ``snapbench.read``. On the card, an auto read's resolve is
+one kernel that the layer map counts as K1's, and the trace of it is
+complete.
 """
 
 import importlib.util
@@ -155,3 +157,47 @@ def test_traced_window_records_the_spans_inside_each_step(tmp_path, monkeypatch,
         assert _inside(mine["fleet.read"], mine["fleet.gather"])
         assert mine["fleet.resolve"][1] <= mine["fleet.gather"][0]
     assert sum(n in SPANS for n, _, _ in ranges) == 3 * active
+
+
+@pytest.mark.gpu
+def test_auto_read_is_one_k1_launch_in_the_trace():
+    """One ``fleet.read(method="auto")`` adds 1 to K1's launch counter,
+    0 to K2's and T × B to K1's pages; its profiler trace holds exactly
+    one device event whose name contains ``vanilla_fleet_kernel`` and
+    none with ``direct_fleet_kernel``, so the accepted harness's
+    ``summarize`` sees as many launches as the counters made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.kernels import _build
+
+    t, p, b = 4, 256, 32
+    spec = tfleet.FleetSpec(n_tenants=t, n_pages=p, page_size=8, max_chain=8,
+                            pool_capacity=1024, lease_quantum=16, dtype=torch.float32)
+    fl = tfleet.create(spec, scalable=[True, False, True, False], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(4):
+        ids = torch.stack([torch.randperm(p, generator=g, device="cuda")[:b]
+                           for _ in range(t)]).to(torch.int32)
+        tfleet.write(fl, ids, torch.randn((t, b, 8), generator=g, device="cuda"))
+        tfleet.snapshot(fl)
+    ids = torch.randint(0, p, (t, b), generator=g, device="cuda", dtype=torch.int32)
+    tfleet.read(fl, ids, method="auto")
+    torch.cuda.synchronize()
+    before, pages = dict(_build.LAUNCHES), dict(_build.PAGES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tfleet.read(fl, ids, method="auto")
+        torch.cuda.synchronize()
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert launched["resolve_vanilla_fleet"] == 1
+    assert launched["resolve_direct_fleet"] == 0
+    assert _build.PAGES["resolve_vanilla_fleet"] - pages["resolve_vanilla_fleet"] == t * b
+    events = prof.events()
+    names = [e.name for e in tracing._device_events(events, torch)]
+    assert sum("vanilla_fleet_kernel" in n for n in names) == 1
+    assert not any("direct_fleet_kernel" in n for n in names)
+    out = tracing.summarize(events, Bench(ROOT).layers(), launched, 0, torch)
+    assert out["launches_seen"] == out["launches_made"]
+    assert out["launches_made"]["vanilla_fleet_kernel"] == 1

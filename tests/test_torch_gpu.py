@@ -6,8 +6,8 @@ JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-K1/K2/K6/K7 (chain resolve), K5/K8 (page gather) and K9 (streaming
-merge) must be bit-exact;
+K1/K2/K6/K7 (chain resolve) and K1's batch entry, K5/K8 (page gather)
+and K9 (streaming merge) must be bit-exact;
 K3/K4 (attention) within the
 tolerances of ``tests/test_kernels.py``: f32 2e-5, bf16 2e-2. The f32
 bound holds on the card because the kernels accumulate in f32 and the
@@ -627,6 +627,166 @@ def test_direct_fleet_layouts_bit_exact(cuda, t, c, p):
     # the length-0 tenant read layer C-1
     assert torch.equal(cr.resolve_direct_fleet_cuda(l2[..., 0], l2[..., 1], lens)[1][0],
                        l2[0, c - 1, :, 0])
+
+
+def mixed_fleet_words(cuda, seed, t, c, p, density):
+    """(T, C, P, 2) packed words made on the card at an allocation
+    ``density``, with trusted, untrusted, ZERO and COLD entries; tenant 0
+    has length 0 (its active layer wraps to C-1), tenant 1 (where T > 2)
+    a chain of C layers whose pages only the two bottom layers hold (the
+    longest walks), the last tenant length C."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (t, c, p)
+    rand = lambda: torch.rand(shape, generator=g, device=cuda)
+    alloc = rand() < density
+    if t > 2:
+        alloc[1, 2:] = False
+    l2 = fmt.pack_entry(
+        torch.randint(0, 1 << 28, shape, generator=g, device=cuda),
+        torch.randint(0, c, shape, generator=g, device=cuda),
+        allocated=alloc, bfi_valid=rand() < 0.7, zero=rand() < 0.1,
+        cold=rand() < 0.1)
+    lens = torch.randint(1, c + 1, (t,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    lens[0], lens[-1] = 0, c
+    if t > 2:
+        lens[1] = c
+    return l2.contiguous(), lens
+
+
+def batch_page_ids(cuda, seed, t, p, b, kind):
+    """(T, B) int32 page ids on the card: drawn with replacement, runs of
+    B contiguous pages from a drawn start (dd), one drawn row expanded
+    over the tenants (row stride 0), or every page (B = P)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if kind == "drawn":
+        return torch.randint(0, p, (t, b), generator=g, device=cuda, dtype=torch.int32)
+    if kind == "runs":
+        start = torch.randint(0, p, (t, 1), generator=g, device=cuda)
+        return ((start + torch.arange(b, device=cuda)) % p).to(torch.int32)
+    if kind == "expanded":
+        row = torch.randint(0, p, (b,), generator=g, device=cuda, dtype=torch.int32)
+        return row[None].expand(t, -1)
+    assert kind == "every" and b == p
+    return torch.arange(p, dtype=torch.int32, device=cuda)[None].expand(t, -1)
+
+
+@pytest.mark.parametrize("t,c,p,b,kind,density", [
+    (8, 128, 128, 16, "drawn", 0.02), (8, 128, 128, 128, "every", 0.5),
+    (64, 512, 16_384, 256, "drawn", 0.02), (64, 512, 16_384, 1_024, "runs", 0.3),
+    (6, 70, 333, 50, "expanded", 0.1)])
+def test_auto_batch_walks_and_layouts_bit_exact(cuda, t, c, p, b, kind, density):
+    """K1's batch entry (``resolve_auto_batch_cuda``) against its plain
+    version, every leaf bit for bit, with each walk forced and with the
+    planner's pick: on the ``l2[..., 0]``/``l2[..., 1]`` pair, on two
+    contiguous planes, on words 8 bytes off a 16-byte boundary and on a
+    one-tenant slice, and with the ids' columns apart and transposed; at
+    the decode state's shape, B = P, the fleet read's shape under
+    YCSB-C's and dd's batches, and an odd P with expanded ids. Every call
+    is one launch counted as K1's and as the entry's with T × B pages,
+    and none of K2's."""
+    l2, lens = mixed_fleet_words(cuda, t * c + p + b, t, c, p, density)
+    ids = batch_page_ids(cuda, t + c + b, t, p, b, kind)
+    off = shifted(l2, 2)
+    cases = {
+        "words": (l2[..., 0], l2[..., 1], lens, ids),
+        "planes": (l2[..., 0].contiguous(), l2[..., 1].contiguous(), lens, ids),
+        "shifted": (off[..., 0], off[..., 1], lens, ids),
+        "slice": (l2[1:2, ..., 0], l2[1:2, ..., 1], lens[1:2], ids[1:2]),
+        "columns_apart": (l2[..., 0], l2[..., 1], lens,
+                          torch.stack([ids, ids.flip(1)], -1)[..., 1]),
+        "transposed": (l2[..., 0], l2[..., 1], lens, ids.t().contiguous().t()),
+    }
+    for name, args in cases.items():
+        want = cr_ref.resolve_auto_batch_ref(*args)
+        if name == "words":
+            assert bool(want[2].any()) and bool((~want[2]).any())
+        for walk in (*cr.WALKS, None):
+            before, pages = dict(_build.LAUNCHES), dict(_build.PAGES)
+            got = cr.resolve_auto_batch_cuda(*args, walk=walk)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["resolve_vanilla_fleet"] == \
+                before["resolve_vanilla_fleet"] + 1
+            assert _build.PAGES["resolve_vanilla_fleet"] == \
+                pages["resolve_vanilla_fleet"] + args[3].numel()
+            assert _build.LAUNCHES["resolve_direct_fleet"] == \
+                before["resolve_direct_fleet"]
+            assert _build.LAUNCHES["resolve_auto_batch"] == \
+                before["resolve_auto_batch"] + 1
+            assert _build.PAGES["resolve_auto_batch"] == \
+                pages["resolve_auto_batch"] + args[3].numel()
+            for leaf, g, w in zip(("owner", "ptr", "found", "zero", "lookups",
+                                   "cold"), got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (name, walk, leaf)
+        del want
+
+
+def test_auto_batch_refuses_other_layouts(cuda):
+    """The batch entry takes the layouts K2 takes and raises on the pairs
+    K2 refuses, and on ids that are not (T, B); it reads (T, B) ids at
+    any strides."""
+    l2 = torch.zeros((3, 4, 8, 2), dtype=torch.int32, device=cuda)
+    other = torch.zeros_like(l2)
+    lens = torch.full((3,), 4, dtype=torch.int32, device=cuda)
+    ids = torch.zeros((3, 5), dtype=torch.int32, device=cuda)
+    off = shifted(l2, 1)
+    for bad in ((l2[..., 0], other[..., 1]), (l2[..., 1], l2[..., 0]),
+                (l2[..., 0].contiguous(), l2[..., 1]),
+                (off[..., 0], off[..., 1]), (l2[:, :3, :, 0], l2[:, :3, :, 1])):
+        with pytest.raises(ValueError, match="layout|strides"):
+            cr.resolve_auto_batch_cuda(*bad, lens, ids)
+        with pytest.raises(ValueError, match="layout|strides"):
+            cr.resolve_direct_fleet_cuda(*bad, lens)
+    with pytest.raises(ValueError, match="ids"):
+        cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids[0])
+    got = cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids)
+    apart = cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids[:, ::2])
+    torch.cuda.synchronize()
+    assert not bool(got[2].any())                       # every read a hole
+    assert all(torch.equal(a, g[:, ::2]) for a, g in zip(apart, got))
+
+
+TRAP_SCRIPT = """
+import os, sys
+import torch
+from repro_torch.kernels import _build
+from repro_torch.kernels.chain_resolve import chain_resolve as cr
+_build.build = lambda: _build.BUILD_DIR / _build.LIB_NAME   # the test's build
+bad, walk = int(sys.argv[1]), sys.argv[2]
+l2 = torch.zeros((2, 4, 8, 2), dtype=torch.int32, device="cuda")
+lens = torch.full((2,), 3, dtype=torch.int32, device="cuda")
+ids = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
+ids[1, 3] = bad
+cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids, walk=walk)
+try:
+    torch.cuda.synchronize()
+except Exception as e:
+    print("RAISED", type(e).__name__, str(e).splitlines()[0], flush=True)
+    os._exit(3)
+print("NO ERROR", flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.parametrize("bad,walk", [(-1, "thread"), (8, "warp"),
+                                      (2**31 - 1, "thread")])
+def test_auto_batch_traps_on_ids_outside_the_map(cuda, bad, walk):
+    """A page id outside [0, P) stops the batch entry: the stream's next
+    sync raises, as the bound check of a gather does, and no read answers
+    with another page. A trap leaves the process's CUDA context unusable,
+    so each case runs in a process of its own, on the library this
+    process built."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _build.library()
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=f"{src}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
+    out = subprocess.run([sys.executable, "-c", TRAP_SCRIPT, str(bad), walk],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 3 and "RAISED" in out.stdout, (out.stdout, out.stderr)
 
 
 @pytest.mark.parametrize("n", [262_144, 1_000, 257])

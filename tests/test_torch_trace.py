@@ -4,7 +4,8 @@
 a profiler records; ``fleet.read`` carries three spans, ``fleet.read``
 with ``fleet.resolve`` and then ``fleet.gather`` inside it. On the card,
 ``_build.PAGES`` counts the pages the fleet resolvers were given beside
-``_build.LAUNCHES`` (the ``gpu`` case skips here).
+``_build.LAUNCHES``: an auto read gives K1's batch entry its T × B pages
+and K2 none (the ``gpu`` case skips here).
 """
 
 import numpy as np
@@ -120,11 +121,31 @@ def test_check_launch_counts_pages_beside_the_launch(monkeypatch):
     assert _build.PAGES["resolve_direct_fleet"] == 0
 
 
+def test_check_launch_counts_an_entry_under_both_names(monkeypatch):
+    """K1's batch entry counts under K1's name, which its kernels carry,
+    and under its own: K1's whole-map launches and pages are the
+    difference."""
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.KERNELS, 0))
+    monkeypatch.setattr(_build, "PAGES", dict.fromkeys(_build.KERNELS, 0))
+    _build.check_launch("resolve_vanilla_fleet", 0, pages=T * P)
+    _build.check_launch("resolve_vanilla_fleet", 0, pages=T * B,
+                        entry="resolve_auto_batch")
+    with pytest.raises(RuntimeError, match="resolve_auto_batch"):
+        _build.check_launch("resolve_vanilla_fleet", 7, pages=5,
+                            entry="resolve_auto_batch")
+    assert _build.LAUNCHES["resolve_vanilla_fleet"] == 2
+    assert _build.PAGES["resolve_vanilla_fleet"] == T * P + T * B
+    assert _build.LAUNCHES["resolve_auto_batch"] == 1
+    assert _build.PAGES["resolve_auto_batch"] == T * B
+
+
 @pytest.mark.gpu
 def test_auto_read_counts_each_resolvers_whole_map():
-    """One ``fleet.read(method="auto")`` gives K1 and K2 T × P pages each;
-    ``reset_launches`` clears both counters, and ``chip_smoke.uncounted``
-    puts the pages back as well as the launches."""
+    """One ``fleet.read(method="auto")`` is one launch of K1's batch
+    entry, given the read's T × B pages (not a whole map), and none of
+    K2's; ``reset_launches`` clears both counters, and
+    ``chip_smoke.uncounted`` puts the pages back as well as the
+    launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
     import importlib.util
@@ -136,10 +157,12 @@ def test_auto_read_counts_each_resolvers_whole_map():
     assert not any(_build.PAGES.values())
     tfleet.read(fl, ids, method="auto")
     torch.cuda.synchronize()
-    assert _build.PAGES["resolve_vanilla_fleet"] == T * P
-    assert _build.PAGES["resolve_direct_fleet"] == T * P
+    assert _build.PAGES["resolve_vanilla_fleet"] == T * B
+    assert _build.PAGES["resolve_direct_fleet"] == 0
     assert _build.LAUNCHES["resolve_vanilla_fleet"] == 1
-    assert _build.LAUNCHES["resolve_direct_fleet"] == 1
+    assert _build.LAUNCHES["resolve_auto_batch"] == 1
+    assert _build.PAGES["resolve_auto_batch"] == T * B
+    assert _build.LAUNCHES["resolve_direct_fleet"] == 0
     assert _build.PAGES["gather_fleet"] == 0
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -148,7 +171,7 @@ def test_auto_read_counts_each_resolvers_whole_map():
     before, pages = dict(_build.LAUNCHES), dict(_build.PAGES)
     with smoke.uncounted(_build):
         tfleet.read(fl, ids, method="auto")
-        assert _build.PAGES["resolve_vanilla_fleet"] == 2 * T * P
+        assert _build.PAGES["resolve_vanilla_fleet"] == 2 * T * B
     assert _build.LAUNCHES == before and _build.PAGES == pages
     _build.reset_launches()
     assert not any(_build.PAGES.values()) and not any(_build.LAUNCHES.values())
