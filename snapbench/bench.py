@@ -5,15 +5,27 @@ configurations and metrics. Everything else is found by name under
 ``snapbench/``, so a later change adds files and entries and edits none:
 
 - a configuration: the ``file`` its entry names (``configs/<name>.json``),
-  whose ``reference`` names its plain reference, ``reference/<name>.py``;
-- a traffic mix: ``traffic/<name>.json``, read by ``generator.py``;
+  whose ``reference`` names its plain reference, ``reference/<name>.py``.
+  ``pool_headroom_rows`` (absent: 0) gives each disk that many spare pool
+  rows, in whole lease quanta, for the window's writes
+  (``systems.pool_rows``);
+- a traffic mix: ``traffic/<name>.json``, read by ``generator.py``. A mix
+  may write (``writes_per_tenant``), snapshot every disk every N batches
+  (``snapshot_every``) and tick the port's maintenance scheduler each
+  batch (``maintenance``, its keyword arguments);
 - a per-layer metric: ``metrics/<name>.py``, whose ``read(run)`` returns
   the value or ``None`` where it finds nothing to read. ``run`` holds the
-  unprofiled ``window`` (``seconds``, ``batches``, ``host_s`` a batch),
-  the ``trace`` (``tracing.summarize``'s ``complete``, ``window_s``,
-  ``busy_s``, ``layer_s`` by layer, ``steps``), the program's
-  ``lookups_per_read``, the card's ``peaks`` and the ``bytes`` the
-  window's and the traced batches need (``resolve``, ``gather``);
+  unprofiled ``window`` (``seconds``, ``batches``, ``host_s`` a batch,
+  in a mix that ticks ``tick_s`` a batch), the ``trace``
+  (``tracing.summarize``'s ``complete``, ``window_s``, ``busy_s``,
+  ``layer_s`` by layer, ``steps``), the program's ``lookups_per_read``,
+  the traced steps' ``spans`` (by range name, the harness's
+  ``snapbench.*`` and the program's: ``host_s``, ``count``, ``idle_s``)
+  and ``counters`` (``launches`` and ``pages``, the program's counters'
+  deltas, and the ``reads`` and ``writes`` issued), the card's ``peaks``
+  and the ``bytes`` the window's and the traced batches need
+  (``resolve``, ``gather``, and in a mix that writes ``write``; resolve
+  ``None`` where ``rooflines.bytes`` cannot count it);
 - a layer's kernels: ``layers/<file>.json``, each naming its ``layer``.
 """
 

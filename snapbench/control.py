@@ -27,7 +27,9 @@ LOWER = torch.bfloat16
 
 
 def control_system(bench: Bench):
-    def make(cfg, schedule, seed, device):
+    def make(cfg, schedule, seed, device, maintenance=None):
+        # streaming never changes what a read returns: the control has
+        # nothing to maintain
         return ReferenceReads(bench.reference(cfg)(cfg, schedule, seed), LOWER, device)
     return make
 

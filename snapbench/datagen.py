@@ -10,6 +10,16 @@ so no second copy of the fleet's data is ever held.
 Every value is a float32 in [1, 2) with 23 mixed mantissa bits: a hole
 (+0.0) never looks like data, and a copy that passed through bfloat16
 (8 mantissa bits) differs from it.
+
+A mix that writes draws its payloads from a bank of ``(T, W)`` rows made
+once in set-up, row ``(tenant, slot)`` being ``page_data`` under the
+layer key ``BANK_LAYER``, which no set-up version uses. Before each batch
+the harness stamps two floats of every row (``stamp``): float 0 the
+batch's index, float 1 the cluster the row is written to. So the version
+a batch writes into a cluster is a pure function of ``(seed, tenant,
+slot, batch, cluster)`` (``written_data``), distinct from every other
+version of that cluster, and a write that lands in another cluster or
+another disk, or never lands, reads back wrong.
 """
 
 from __future__ import annotations
@@ -84,6 +94,37 @@ def page_data(seed: int, tenant, layer, cluster, page_floats: int,
     if dtype != torch.float32:
         out = out.to(dtype).to(torch.float32)
     return out.reshape(*shape, page_floats)
+
+
+#: the layer key of the write bank's rows: above any chain a fleet holds
+BANK_LAYER = MASK32
+#: a stamp holds a batch index or a cluster id below this
+STAMP_LIMIT = 1 << 23
+
+
+def stamp(x) -> torch.Tensor:
+    """The float32 in [1, 2) whose 23 mantissa bits are ``x`` (int tensor
+    or int, each below ``STAMP_LIMIT``)."""
+    x = torch.as_tensor(x).to(torch.int32)
+    return ((x & _MANTISSA) | _ONE_BITS).view(torch.float32)
+
+
+def bank_data(seed: int, tenant, slot, page_floats: int, dtype=torch.float32):
+    """The write bank's rows before stamping (``page_data`` of ``BANK_LAYER``)."""
+    return page_data(seed, tenant, BANK_LAYER, slot, page_floats, dtype)
+
+
+def written_data(seed: int, tenant, slot, batch, cluster, page_floats: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """The version batch ``batch`` wrote into ``cluster`` from bank row
+    ``(tenant, slot)``: ``(N, page_floats)`` float32 for 1-d tensors of N
+    on one device (rounded through ``dtype``, as ``page_data``)."""
+    out = bank_data(seed, tenant, slot, page_floats)
+    out[:, 0] = stamp(batch)
+    out[:, 1] = stamp(cluster)
+    if dtype != torch.float32:
+        out = out.to(dtype).to(torch.float32)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,25 @@ inside the window. Parameters of a mix (``traffic/<name>.json``):
   (every cluster, holes included);
 - ``warmup_batches`` before the window and, in a traced run,
   ``trace_warmup`` and ``trace_batches`` under the profiler.
+
+A mix may also write, snapshot and tick maintenance; where these fields
+are absent, a batch is the read alone, as above:
+
+- ``writes_per_tenant`` (W): clusters each disk updates a batch, drawn by
+  the mix's ``kind`` and ``over`` from a stream of the seed that the read
+  ids do not use, unique within a disk's batch (a repeat is drawn again).
+  The ring of write ids (``make_write_ring``) has as many batches as the
+  ring of reads, and batch i writes row ``i % ring_batches`` of it;
+- ``snapshot_every`` (N): every N-th batch (batch i where ``(i + 1) % N
+  == 0``) snapshots every disk first;
+- ``maintenance``: the keyword arguments of the port's
+  ``MaintenanceScheduler``, ticked once a batch after its read, as
+  ``{"stream_chain_threshold": 30, "max_tenants_per_tick": 1}``.
+
+Batches are numbered from the first warm-up batch on, through the window
+and the traced batches alike. One batch runs in this order: the snapshot
+if due, then the writes, then the reads, then the tick. So a read of a
+cluster written in its own batch returns that batch's version.
 """
 
 from __future__ import annotations
@@ -70,9 +89,51 @@ def _items(mix: dict, reference, tenant: int, clusters: int) -> np.ndarray:
 def make_ring(mix: dict, cfg: dict, reference, seed: int) -> np.ndarray:
     """The mix's ring of batches: ``(ring_batches, T, reads_per_tenant)``
     int32 cluster ids."""
-    r, b = mix["ring_batches"], mix["reads_per_tenant"]
+    return _ring(mix, cfg, reference, datagen.rng_for(seed, 2),
+                 mix["reads_per_tenant"])
+
+
+def make_write_ring(mix: dict, cfg: dict, reference, seed: int) -> np.ndarray | None:
+    """The clusters each batch writes: ``(ring_batches, T,
+    writes_per_tenant)`` int32, unique within each disk's batch; ``None``
+    for a mix that does not write."""
+    w = mix.get("writes_per_tenant", 0)
+    if not w:
+        return None
+    rng = datagen.rng_for(seed, 4)
+    ring = _ring(mix, cfg, reference, rng, w)
+    for i in range(cfg["tenants"]):
+        items = _items(mix, reference, i, cfg["disk_clusters"])
+        if len(items) < w:
+            raise ValueError(f"disk {i} has {len(items)} clusters to write, "
+                             f"fewer than writes_per_tenant {w}")
+        rows = ring[:, i]
+        while True:
+            order = np.argsort(rows, axis=1, kind="stable")
+            srt = np.take_along_axis(rows, order, axis=1)
+            dup = np.zeros(rows.shape, bool)
+            dup[:, 1:] = srt[:, 1:] == srt[:, :-1]
+            if not dup.any():
+                break
+            # a repeat, not its first occurrence, is drawn again (only a
+            # Zipfian row repeats: a sequential one is W consecutive items)
+            again = np.zeros(rows.shape, bool)
+            np.put_along_axis(again, order, dup, axis=1)
+            rows[again] = items[fnv_hash64(zipf_ranks(rng, int(again.sum())))
+                                % len(items)]
+    return ring
+
+
+def snapshot_due(mix: dict, batch: int) -> bool:
+    """Whether batch ``batch`` (counted from the first warm-up batch)
+    snapshots every disk first."""
+    n = mix.get("snapshot_every", 0)
+    return bool(n) and (batch + 1) % n == 0
+
+
+def _ring(mix: dict, cfg: dict, reference, rng: np.random.Generator, b: int) -> np.ndarray:
+    r = mix["ring_batches"]
     t, p = cfg["tenants"], cfg["disk_clusters"]
-    rng = datagen.rng_for(seed, 2)
     ring = np.empty((r, t, b), np.int32)
     kind = mix["kind"]
     if kind not in KINDS:

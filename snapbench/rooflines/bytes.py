@@ -11,6 +11,15 @@ output slots.
   entry, the top layer's, which names the layer that holds the cluster.
 - Gather. A found cluster is read whole from the pool; every output
   cluster, holes included, is written whole.
+- Write (a mix that writes). Each written cluster is read whole from the
+  write bank, written whole into the pool, and its L2 entry written once.
+
+In a mix that writes, a batch's reads are counted against the versions
+as the reference replays them up to that batch (``batch_bytes`` given
+that state). Vanilla Qcow2's resolve bytes then hang on where streaming
+left each version, which the reference does not follow: where the mix
+ticks maintenance they are not countable (``resolve_countable``), and a
+reader gives nothing rather than a wrong share.
 """
 
 from __future__ import annotations
@@ -40,6 +49,17 @@ def resolve_bytes(fmt: str, length, owner) -> np.ndarray:
 def gather_bytes(found: int, outputs: int, cluster_bytes: int) -> int:
     """Bytes of a gather that reads ``found`` clusters and writes ``outputs``."""
     return (found + outputs) * cluster_bytes
+
+
+def write_bytes(writes, cluster_bytes: int):
+    """Bytes that ``writes`` cluster writes need."""
+    return writes * (2 * cluster_bytes + ENTRY_BYTES)
+
+
+def resolve_countable(fmt: str, mix: dict) -> bool:
+    """Whether the resolve bytes of a mix's reads follow from the
+    reference's versions: not on vanilla Qcow2 where streaming moves them."""
+    return not (fmt == "qcow2" and mix.get("maintenance") is not None)
 
 
 def batch_bytes(fmt: str, ids: np.ndarray, version: np.ndarray,

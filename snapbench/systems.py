@@ -9,8 +9,16 @@ a guest's I/O takes (resolve by K1/K2, gather by K5).
 place, each cluster version rounded through a lower precision.
 
 Both have ``read(ids) -> (data, result)``, where ``result`` is the
-program's ``ResolveResult`` (``None`` for the control), and ``launches``,
-the program's kernel launch counters (``None`` for the control).
+program's ``ResolveResult`` (``None`` for the control), ``launches`` and
+``pages``, the program's kernel launch and page counters (``None`` for
+the control). For a mix that writes, both have ``write(ids, data)`` (a
+batch of ``(T, W)`` clusters, unique within each disk's row),
+``snapshot()`` (every disk) and ``tick()`` (one maintenance slice), and
+``pressure()``: the program's ``(overflow, snap_dropped)`` flags as they
+stand, on the device, and ``allocated()``: the ``(T,)`` pool rows each
+disk has taken (``fleet.alloc_count``; ``None`` for the control, both).
+The program runs them through the port's ``fleet.write``,
+``fleet.snapshot`` and ``MaintenanceScheduler.tick``.
 """
 
 from __future__ import annotations
@@ -78,20 +86,30 @@ def cache_kernel_build(build_mod) -> None:
     build_mod.build = cached_build
 
 
+def pool_rows(cfg: dict, schedule: datagen.Schedule) -> int:
+    """The pool's rows: each tenant's set-up rows in whole leases, and
+    ``pool_headroom_rows`` (absent: 0) a tenant, in whole leases, for the
+    window's writes. The headroom stays free in the pool until a tenant's
+    write leases it."""
+    q = cfg["lease_quantum"]
+    rows = schedule.base.shape[1] + cfg["layer_writes"] * (schedule.targets - 1)
+    headroom = -(-cfg.get("pool_headroom_rows", 0) // q) * q
+    return int((-(-rows // q)).sum()) * q + cfg["tenants"] * headroom
+
+
 def build_fleet(fleet_lib, cfg: dict, schedule: datagen.Schedule, seed: int,
                 device, dtype=torch.float32):
     """The configuration's fleet, grown through the port's own calls: the
     base fill into layer 0, then for each layer a snapshot and a write of
     ``layer_writes`` clusters by every tenant whose chain reaches it. The
-    pool holds each tenant's rows in whole leases and nothing more; its
-    ``dtype`` is the configuration's float32 but in a test."""
+    pool holds each tenant's rows in whole leases, and the headroom of
+    ``pool_rows``; its ``dtype`` is the configuration's float32 but in a
+    test."""
     t, p, q = cfg["tenants"], cfg["disk_clusters"], cfg["lease_quantum"]
     floats = cfg["cluster_bytes"] // 4
-    rows = schedule.base.shape[1] + cfg["layer_writes"] * (schedule.targets - 1)
     spec = fleet_lib.FleetSpec(
         n_tenants=t, n_pages=p, page_size=floats, max_chain=cfg["max_chain"],
-        pool_capacity=int((-(-rows // q)).sum()) * q, lease_quantum=q,
-        dtype=dtype)
+        pool_capacity=pool_rows(cfg, schedule), lease_quantum=q, dtype=dtype)
     fl = fleet_lib.create(spec, scalable=cfg["format"] == "sqemu", device=device)
     tids = torch.arange(t, device=device)[:, None]
     base = torch.as_tensor(schedule.base, device=device)
@@ -113,34 +131,88 @@ def build_fleet(fleet_lib, cfg: dict, schedule: datagen.Schedule, seed: int,
 
 
 class FleetProgram:
-    """The system under test."""
+    """The system under test. ``maintenance``: the keyword arguments of the
+    ``MaintenanceScheduler`` that ``tick`` runs, which then holds the
+    fleet, as its docstring shows."""
 
     def __init__(self, cfg: dict, schedule: datagen.Schedule, seed: int,
-                 device):
+                 device, maintenance: dict | None = None):
         from repro_torch.core import fleet as fleet_lib
         from repro_torch.kernels import _build
 
         if torch.device(device).type == "cuda":
             cache_kernel_build(_build)
-        self.launches = _build.LAUNCHES
+        self.launches, self.pages = _build.LAUNCHES, _build.PAGES
+        self._lib = fleet_lib
         self._read = fleet_lib.read
         self.fleet = build_fleet(fleet_lib, cfg, schedule, seed, device)
+        self.sched = None
+        if maintenance is not None:
+            from repro_torch.core.scheduler import MaintenanceScheduler
+            self.sched = MaintenanceScheduler(self.fleet, **maintenance)
 
     def read(self, ids):
         return self._read(self.fleet, ids, method="auto")
 
+    def _hold(self, fleet):
+        self.fleet = fleet
+        if self.sched is not None:
+            self.sched.fleet = fleet
+
+    def write(self, ids, data):
+        self._hold(self._lib.write(self.fleet, ids, data))
+
+    def snapshot(self):
+        self._hold(self._lib.snapshot(self.fleet))
+
+    def tick(self) -> dict:
+        report = self.sched.tick()
+        self.fleet = self.sched.fleet
+        return report
+
+    def pressure(self):
+        return self.fleet.overflow, self.fleet.snap_dropped
+
+    def allocated(self):
+        return self.fleet.alloc_count
+
+    def maintenance_stats(self) -> dict | None:
+        """The scheduler's lifetime counters and the fleet's occupancy."""
+        return None if self.sched is None else self.sched.stats()
+
     def close(self):
-        self.fleet = None
+        self.fleet = self.sched = None
 
 
 class ReferenceReads:
     """The control: reads answered by the plain reference, each version
-    rounded through ``dtype``."""
+    rounded through ``dtype``. It follows a mix's snapshots and writes as
+    the reference replays them, taking each write's batch from the stamp
+    the harness put in its payloads."""
 
-    launches = None
+    launches = pages = None
 
     def __init__(self, reference, dtype, device):
         self.reference, self.dtype, self.device = reference, dtype, device
+
+    def write(self, ids, data):
+        batch = data[0, 0, :1].view(torch.int32).item() & (datagen.STAMP_LIMIT - 1)
+        self.reference.write(batch, ids.cpu().numpy())
+
+    def snapshot(self):
+        self.reference.snapshot()
+
+    def tick(self) -> dict:
+        return {}
+
+    def pressure(self):
+        return None
+
+    def allocated(self):
+        return None
+
+    def maintenance_stats(self):
+        return None
 
     def read(self, ids):
         host = ids.cpu().numpy()

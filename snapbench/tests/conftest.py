@@ -19,6 +19,15 @@ TINY = dict(tenants=4, disk_clusters=256, cluster_bytes=256, chain_length=8,
 TINY_MIX = {"ycsb-c": dict(reads_per_tenant=16, ring_batches=8),
             "dd": dict(reads_per_tenant=32, ring_batches=8)}
 TINY_CELLS = [f"tiny-{f}.{m}-tiny" for f in ("qcow2", "sqemu") for m in TINY_MIX]
+#: a tiny YCSB-A, reads and updates, on the tiny disks with room for the
+#: window's writes: a snapshot of every disk every 4 batches and the
+#: scheduler ticked each batch
+TINY_HEADROOM = dict(pool_headroom_rows=96)
+TINY_WRITE_MIX = dict(kind="zipfian", over="allocated", reads_per_tenant=8,
+                      writes_per_tenant=8, snapshot_every=4,
+                      maintenance=dict(stream_chain_threshold=4, max_tenants_per_tick=1),
+                      ring_batches=8, warmup_batches=16, trace_warmup=2, trace_batches=8)
+TINY_WRITE_CELLS = [f"tiny-{f}-w.ycsb-a-tiny" for f in ("qcow2", "sqemu")]
 
 
 def add_tiny_cells(root: Path) -> list[str]:
@@ -28,23 +37,25 @@ def add_tiny_cells(root: Path) -> list[str]:
     manifest = json.loads((root / "BENCHMARK.json").read_text())
     for fmt in ("qcow2", "sqemu"):
         src = json.loads((home / "configs" / f"{fmt}-fleet64.json").read_text())
-        name = f"tiny-{fmt}"
-        (home / "configs" / f"{name}.json").write_text(
-            json.dumps(dict(src, name=name, **TINY)))
-        manifest["configs"].append(dict(
-            name=name, source="test", file=f"snapbench/configs/{name}.json",
-            reduced=sorted(TINY), why="a CPU test"))
+        for name, extra in ((f"tiny-{fmt}", {}), (f"tiny-{fmt}-w", TINY_HEADROOM)):
+            (home / "configs" / f"{name}.json").write_text(
+                json.dumps(dict(src, name=name, **TINY, **extra)))
+            manifest["configs"].append(dict(
+                name=name, source="test", file=f"snapbench/configs/{name}.json",
+                reduced=sorted(TINY), why="a CPU test"))
     for mix, sizes in TINY_MIX.items():
         src = json.loads((home / "traffic" / f"{mix}.json").read_text())
         (home / "traffic" / f"{mix}-tiny.json").write_text(json.dumps(dict(src, **sizes)))
-    for cell in TINY_CELLS:
+    (home / "traffic" / "ycsb-a-tiny.json").write_text(json.dumps(TINY_WRITE_MIX))
+    cells = TINY_CELLS + TINY_WRITE_CELLS
+    for cell in cells:
         cfg, mix = cell.split(".")
         manifest["workloads"].append(dict(name=cell, config=cfg, traffic=mix, chips=1,
                                           why="a CPU test"))
     for m in manifest["per_layer"]:
-        m["workloads"] = m["workloads"] + TINY_CELLS
+        m["workloads"] = m["workloads"] + cells
     (root / "BENCHMARK.json").write_text(json.dumps(manifest, indent=1))
-    return TINY_CELLS
+    return cells
 
 
 @pytest.fixture

@@ -6,7 +6,7 @@ import json
 import re
 
 import pytest
-from conftest import ROOT, TINY_CELLS
+from conftest import ROOT, TINY_CELLS, TINY_WRITE_CELLS
 
 from snapbench import generator
 from snapbench.bench import Bench
@@ -104,8 +104,9 @@ def test_a_cell_added_as_files_alone_runs(checkout):
     """The tiny cells arrive as new files and manifest entries; nothing of
     the harness is edited, and each runs end to end on the CPU."""
     bench = Bench(checkout)
-    assert [w["name"] for w in bench.manifest["workloads"]][-len(TINY_CELLS):] == TINY_CELLS
-    for cell in TINY_CELLS:
+    cells = TINY_CELLS + TINY_WRITE_CELLS
+    assert [w["name"] for w in bench.manifest["workloads"]][-len(cells):] == cells
+    for cell in cells:
         assert bench.config(cell.split(".")[0])["tenants"] == 4
         r = run_cell(checkout, cell, 7, 0.1, False, device="cpu")
         assert r["correct"] and set(r["metrics"]) == {"ops_per_s", "io_p95_ms",
@@ -122,3 +123,60 @@ def test_a_metric_added_as_a_file_alone_is_read(checkout):
     (checkout / "BENCHMARK.json").write_text(json.dumps(m))
     r = run_cell(checkout, TINY_CELLS[0], 8, 0.1, True, device="cpu")
     assert r["metrics"]["batches_traced"]["value"] == 48.0
+
+
+def test_readers_read_spans_and_counters(checkout):
+    """A traced run hands a reader the host seconds, count and idle
+    seconds of every range (the harness's and the program's) and the
+    program's counters over the traced steps, in a cell that writes too."""
+    (checkout / "snapbench" / "metrics" / "write_host_ms.py").write_text(
+        "def read(run):\n"
+        "    s = run['spans'].get('snapbench.write')\n"
+        "    return None if s is None else 1e3 * s['host_s'] / s['count']\n")
+    (checkout / "snapbench" / "metrics" / "traced_ops.py").write_text(
+        "def read(run):\n"
+        "    c = run['counters']\n"
+        "    return float(c['reads'] + c['writes'])\n")
+    m = json.loads((checkout / "BENCHMARK.json").read_text())
+    cells = [TINY_CELLS[0], TINY_WRITE_CELLS[0]]
+    for name in ("write_host_ms", "traced_ops"):
+        m["per_layer"].append(dict(name=name, unit="ms", better="lower",
+                                   source="program_span", layer="fleet front",
+                                   moves="ops_per_s", workloads=cells))
+    (checkout / "BENCHMARK.json").write_text(json.dumps(m))
+    read = run_cell(checkout, cells[0], 8, 0.1, True, device="cpu")
+    assert "write_host_ms" not in read["metrics"]
+    assert read["metrics"]["traced_ops"]["value"] == 48 * 4 * 16
+    write = run_cell(checkout, cells[1], 8, 0.1, True, device="cpu")
+    assert write["metrics"]["write_host_ms"]["value"] > 0
+    assert write["metrics"]["traced_ops"]["value"] == 8 * 4 * (8 + 8)
+
+
+def test_span_summary_by_hand():
+    """Two steps of 100 µs; device busy [30, 50] and [60, 80] in each. The
+    write range [0, 40] holds 10 µs of device time; the read range [40, 90]
+    holds 30; a range outside the steps is left out."""
+    import torch
+    from types import SimpleNamespace
+
+    from snapbench import tracing
+
+    def ev(name, s, e, dev=False, ann=False):
+        return SimpleNamespace(
+            name=name, is_user_annotation=ann, time_range=SimpleNamespace(start=s, end=e),
+            device_type=(torch.autograd.DeviceType.CUDA if dev
+                         else torch.autograd.DeviceType.CPU))
+    events = [ev("snapbench.tick", 300.0, 310.0, ann=True)]
+    for o in (0.0, 100.0):
+        events += [ev(f"ProfilerStep#{int(o)}", o, o + 100, ann=True),
+                   ev("snapbench.write", o, o + 40, ann=True),
+                   ev("snapbench.read", o + 40, o + 90, ann=True),
+                   ev("snapbench.read", o + 40, o + 90, dev=True),
+                   ev("k1", o + 30, o + 50, dev=True), ev("k5", o + 60, o + 80, dev=True),
+                   ev("aten::empty", o + 1, o + 2)]
+    got = tracing.span_summary(events, torch)
+    assert set(got) == {"snapbench.write", "snapbench.read"}
+    assert got["snapbench.write"] == dict(host_s=pytest.approx(80e-6), count=2,
+                                          idle_s=pytest.approx(60e-6))
+    assert got["snapbench.read"] == dict(host_s=pytest.approx(100e-6), count=2,
+                                         idle_s=pytest.approx(40e-6))

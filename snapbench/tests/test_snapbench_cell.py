@@ -8,7 +8,7 @@ import subprocess
 import sys
 
 import pytest
-from conftest import ROOT, TINY_CELLS
+from conftest import ROOT, TINY_CELLS, TINY_WRITE_CELLS
 
 from snapbench import harness
 from snapbench.harness import run_cell
@@ -74,3 +74,44 @@ def test_command_without_a_card_fails_and_prints_nothing(tmp_path):
                             "--trace", "0"], cwd=root, capture_output=True, text=True,
                            timeout=120)
         assert p.returncode != 0 and p.stdout == ""
+
+
+@pytest.mark.parametrize("cell", TINY_WRITE_CELLS)
+def test_write_cell_is_correct(checkout, cell):
+    """A tiny YCSB-A cell, writes, snapshots and ticks in its batches, on
+    three seeds, untraced and traced: every read and every write it made
+    read back as the reference has them."""
+    for seed in (3, 2**31 + 77, 2**33 + 5):
+        for trace in (False, True):
+            log = io.StringIO()
+            r = run_cell(checkout, cell, seed, 0.1, trace, device="cpu", log=log)
+            assert r["correct"] is True and r["failed"] == 0, log.getvalue()
+            assert list(r["compared"]) == ["wrong_clusters", "checked_clusters",
+                                           "lost_writes"]
+            assert r["compared"]["lost_writes"] == {"value": 0, "limit": 0}
+            text = log.getvalue()
+            assert "overflow: 0 disk(s), never" in text and "tick ms:" in text
+            assert text.splitlines()[-1] == "lost_writes 0 (limit: at most 0)"
+            written = int(text.split("written clusters ")[1].split(",")[0])
+            assert written > 0
+            # each batch reads 8 and writes 8 clusters a disk
+            assert r["attempted"] % (4 * 16) == 0
+    assert set(r["metrics"]) == {"read_host_ms", "lookups_per_read"}
+
+
+def test_a_pool_that_runs_out_shows_refused_writes(checkout):
+    """Without headroom the first writes overflow the pool: the program
+    drops them and says so, and the run counts them under ``failed`` and
+    comes out not correct, its reads of those clusters being stale."""
+    cfg = checkout / "snapbench" / "configs" / "tiny-sqemu-w.json"
+    cfg.write_text(json.dumps(dict(json.loads(cfg.read_text()), pool_headroom_rows=0)))
+    log = io.StringIO()
+    r = run_cell(checkout, TINY_WRITE_CELLS[1], 5, 0.1, False, device="cpu", log=log)
+    assert not r["correct"] and r["failed"] > 0
+    assert r["compared"]["lost_writes"]["value"] == 0
+    text = log.getvalue()
+    assert "overflow: 4 disk(s), first at batch 0" in text
+    # exactly the clusters whose newest write was refused read back old
+    refused = int(text.split("newest write refused ")[1].split(",")[0])
+    assert refused == r["failed"]
+

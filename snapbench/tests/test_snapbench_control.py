@@ -6,7 +6,7 @@ cells' own size, ``python3 snapbench/control.py``)."""
 import io
 
 import pytest
-from conftest import TINY_CELLS
+from conftest import TINY_CELLS, TINY_WRITE_CELLS
 
 from snapbench.bench import Bench
 from snapbench.control import control_system
@@ -15,7 +15,7 @@ from snapbench.harness import run_cell
 SEEDS = (21, 22, 2**33 + 23)
 
 
-@pytest.mark.parametrize("cell", TINY_CELLS)
+@pytest.mark.parametrize("cell", TINY_CELLS + TINY_WRITE_CELLS)
 def test_control_fails_where_the_program_passes(checkout, cell):
     make = control_system(Bench(checkout))
     for seed in SEEDS:

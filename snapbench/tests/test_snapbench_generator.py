@@ -71,3 +71,53 @@ def test_schedule_writes_distinct_clusters_a_layer():
     assert all(len(set(row)) == 16 for row in s.base)
     assert all(len(set(w)) == 3 for layer in s.layers for w in layer)
     assert s.targets.tolist() == [1, 14, 27, 40]
+
+
+WRITE_MIX = dict(kind="zipfian", over="allocated", reads_per_tenant=16, ring_batches=8,
+                 writes_per_tenant=32, snapshot_every=3)
+
+
+def test_write_ring_is_unique_a_disk_and_leaves_the_reads_alone():
+    ring = generator.make_write_ring(WRITE_MIX, CFG, Items(), 2**33 + 9)
+    assert ring.shape == (8, 3, 32) and ring.dtype == np.int32
+    for t in range(3):
+        assert (ring[:, t] % 10 == t).all()
+        assert all(len(set(row)) == 32 for row in ring[:, t])
+    # Zipfian still: the hot clusters are written in most batches
+    vals, counts = np.unique(ring[:, 0], return_counts=True)
+    assert counts.max() == 8
+    # the read ids are those of the same mix without writes
+    reads = {k: v for k, v in WRITE_MIX.items()
+             if k not in ("writes_per_tenant", "snapshot_every")}
+    assert (generator.make_ring(WRITE_MIX, CFG, Items(), 4)
+            == generator.make_ring(reads, CFG, Items(), 4)).all()
+    assert generator.make_write_ring(reads, CFG, Items(), 4) is None
+
+
+def test_write_ring_and_stamps_follow_the_seed():
+    import torch
+
+    from snapbench.harness import WriteBank
+    rings = [generator.make_write_ring(WRITE_MIX, CFG, Items(), s) for s in (5, 5, 6)]
+    assert (rings[0] == rings[1]).all() and not (rings[0] == rings[2]).all()
+    banks = [WriteBank(s, rings[0], 16, "cpu") for s in (5, 5, 6)]
+    stamped = [b.stamped(10)[1].clone() for b in banks]
+    assert torch.equal(stamped[0], stamped[1]) and not torch.equal(stamped[0], stamped[2])
+    ids, data = banks[0].stamped(11)
+    assert torch.equal(ids, torch.as_tensor(rings[0][11 % 8]))
+    assert (data[..., 0] == datagen.stamp(11)).all()
+    assert torch.equal(data[..., 1], datagen.stamp(ids))
+    # the stamp is all that differs from batch 10's, and each row is the
+    # version the reference makes from (seed, tenant, slot, batch, cluster)
+    assert torch.equal(data[..., 2:], stamped[0][..., 2:])
+    t, w = torch.meshgrid(torch.arange(3), torch.arange(32), indexing="ij")
+    want = datagen.written_data(5, t.reshape(-1), w.reshape(-1), torch.full((96,), 11),
+                                ids.reshape(-1), 16)
+    assert torch.equal(data.reshape(96, 16), want)
+    assert ((data >= 1) & (data < 2)).all()
+
+
+def test_snapshots_fall_on_every_nth_batch():
+    due = [i for i in range(10) if generator.snapshot_due(WRITE_MIX, i)]
+    assert due == [2, 5, 8]
+    assert not any(generator.snapshot_due(dict(kind="zipfian"), i) for i in range(10))

@@ -1,5 +1,6 @@
-"""On the card: a tiny cell through the CUDA kernels, and the command in a
-directory that holds only the manifest and the benchmark's folder."""
+"""On the card: a tiny cell through the CUDA kernels (a cell that writes
+included), and the command in a directory that holds only the manifest
+and the benchmark's folder."""
 
 import io
 import shutil
@@ -8,7 +9,7 @@ import sys
 
 import pytest
 import torch
-from conftest import ROOT, TINY_CELLS
+from conftest import ROOT, TINY_CELLS, TINY_WRITE_CELLS
 
 from snapbench.harness import run_cell
 
@@ -19,7 +20,7 @@ def need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", TINY_CELLS)
+@pytest.mark.parametrize("cell", TINY_CELLS + TINY_WRITE_CELLS)
 def test_tiny_cell_on_the_card(checkout, cell):
     need_card()
     for trace in (False, True):

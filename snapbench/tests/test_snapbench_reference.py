@@ -95,3 +95,72 @@ def test_control_precision_differs_on_every_version():
                           torch.bfloat16)
     assert x.shape == (4, 8, 64) and ((x >= 1) & (x < 2)).all()
     assert (x.view(torch.int32) != y.view(torch.int32)).any(dim=-1).all()
+
+
+@pytest.mark.parametrize("fmt", ["qcow2", "sqemu"])
+def test_reference_follows_writes_snapshots_and_streaming(fmt):
+    """The port's CPU fleet driven through ``FleetProgram``'s writes,
+    snapshots and maintenance ticks, 40 batches, and the reference
+    replaying the same snapshots and writes: every cluster of every disk
+    reads alike, and a snapshot at ``max_chain`` is dropped on both."""
+    from snapbench.harness import NEVER, BatchOps, WriteBank, replay
+    from snapbench.systems import FleetProgram
+
+    cfg = dict(tiny(fmt), pool_headroom_rows=96)
+    mix = dict(kind="zipfian", over="allocated", writes_per_tenant=8, snapshot_every=3,
+               ring_batches=8, maintenance=dict(stream_chain_threshold=4))
+    seed = 2**33 + 3
+    sched = datagen.write_schedule(cfg, seed)
+    ref = CowChainReference(cfg, sched, seed)
+    from snapbench import generator
+    wring = generator.make_write_ring(mix, cfg, ref, seed)
+    prog = FleetProgram(cfg, sched, seed, "cpu", maintenance=mix["maintenance"])
+    ops = BatchOps(mix, prog, WriteBank(seed, wring, cfg["cluster_bytes"] // 4, "cpu"),
+                   cfg["tenants"], cfg["disk_clusters"], "cpu")
+    for _ in range(40):
+        ops.before()
+        ops.after()
+    replay(ref, mix, wring, 0, ops.next)
+    t, c = every_cluster(cfg)
+    got = materialize(prog.fleet).reshape(-1, cfg["cluster_bytes"] // 4)
+    assert ref.wrong_clusters(t, c, got) == 0
+    assert (ref.written >= 0).sum() > 0 and prog.sched.ticks == 40
+    assert prog.maintenance_stats()["tenants_streamed"] > 0
+    seen = ops.pressure_seen()
+    assert seen["refused"].shape == (4, cfg["disk_clusters"]) and not seen["refused"].any()
+    assert (seen["first_refused"] == NEVER).all() and (seen["first_dropped"] == NEVER).all()
+
+    # no maintenance: the chains grow to max_chain, and a snapshot there is
+    # dropped; nothing reclaims the rows overwrites orphan, so the pool
+    # holds them all
+    cfg["pool_headroom_rows"] = 30 * 8
+    ref = CowChainReference(cfg, sched, seed)
+    prog = FleetProgram(cfg, sched, seed, "cpu")
+    mix = dict(mix, maintenance=None)
+    ops = BatchOps(mix, prog, WriteBank(seed, wring, cfg["cluster_bytes"] // 4, "cpu"),
+                   cfg["tenants"], cfg["disk_clusters"], "cpu")
+    for _ in range(30):
+        ops.before()
+        ops.after()
+    replay(ref, mix, wring, 0, ops.next)
+    assert (ref.lengths == prog.fleet.length.numpy()).all()
+    assert (ref.lengths == cfg["max_chain"]).any()
+    got = materialize(prog.fleet).reshape(-1, cfg["cluster_bytes"] // 4)
+    assert ref.wrong_clusters(t, c, got) == 0
+    seen = ops.pressure_seen()
+    assert not seen["refused"].any() and (seen["first_dropped"] < NEVER).any()
+
+
+def test_written_versions_differ_from_every_other():
+    """A written version differs from set-up's version of its cluster and
+    from the same bank row written by another batch or into another
+    cluster, and rounding it through bfloat16 changes it."""
+    v = datagen.page_data(4, torch.tensor([1]), torch.tensor([3]), torch.tensor([9]), 64)
+    one = lambda batch, cluster, slot=0, dtype=torch.float32: datagen.written_data(
+        4, torch.tensor([1]), torch.tensor([slot]), torch.tensor([batch]),
+        torch.tensor([cluster]), 64, dtype)
+    base = one(7, 9)
+    for other in (v, one(8, 9), one(7, 10), one(7, 9, slot=1), one(7, 9, dtype=torch.bfloat16)):
+        assert (base.view(torch.int32) != other.view(torch.int32)).any()
+    assert torch.equal(base, one(7, 9))
+    assert datagen.stamp(datagen.STAMP_LIMIT - 1).item() < 2.0

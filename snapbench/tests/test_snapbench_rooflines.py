@@ -47,3 +47,46 @@ def test_batch_bytes_counts_each_input_once():
 def test_peaks_by_card_name():
     assert peaks("NVIDIA H100 80GB HBM3")["hbm_bytes_per_s"] == 3.35e12
     assert peaks("cpu") is None
+
+
+def test_write_bytes_and_what_is_countable():
+    assert rb.write_bytes(10, CB) == 10 * (2 * CB + 8)
+    assert rb.resolve_countable("sqemu", dict(maintenance={}))
+    assert rb.resolve_countable("qcow2", dict())
+    assert not rb.resolve_countable("qcow2", dict(maintenance={}))
+
+
+def test_replayed_bytes_follow_writes_and_snapshots():
+    """Vanilla Qcow2: a cluster written in batch 0 sits in the top layer,
+    one entry from the top; after batch 1's snapshot (and its write of
+    another cluster), two. Its read is
+    then of a found cluster, where set-up had a hole. sQemu reads one
+    entry either way; with maintenance Qcow2's resolve is not countable."""
+    from snapbench import datagen
+    from snapbench.harness import ReplayedBytes, follow
+    from snapbench.reference.cow_chain import CowChainReference
+
+    cfg = dict(format="qcow2", tenants=1, disk_clusters=8, cluster_bytes=CB,
+               base_fill=0.0, chain_length=3, layer_writes=1, max_chain=8)
+    sched = datagen.write_schedule(cfg, 1)
+    ref = CowChainReference(cfg, sched, 1)
+    hole, other = np.flatnonzero(ref.version[0] < 0)[:2]
+    ring = np.full((1, 1, 1), hole, np.int32)
+    wring = np.asarray([hole, other], np.int32).reshape(2, 1, 1)
+    mix = dict(snapshot_every=2)
+    win = dict(first=0, batches=1)
+
+    def counted(cfg, mix):
+        count = ReplayedBytes(cfg, mix, ring, wring, win, [1])
+        assert count.stop == 2
+        assert follow(CowChainReference(cfg, sched, 1), mix, wring, [], count.stop,
+                      count) == (0, 0)
+        return count.result()
+
+    got = counted(cfg, mix)
+    assert got["window"] == dict(resolve=8.0, gather=2.0 * CB, write=2.0 * CB + 8)
+    assert got["trace"] == dict(resolve=16.0, gather=2.0 * CB, write=2.0 * CB + 8)
+    none = counted(cfg, dict(mix, maintenance={}))
+    assert none["window"]["resolve"] is None and none["trace"]["gather"] == 2.0 * CB
+    sq = counted(dict(cfg, format="sqemu"), dict(mix, maintenance={}))
+    assert sq["window"]["resolve"] == sq["trace"]["resolve"] == 8.0
