@@ -1091,7 +1091,7 @@ def kernel_phase(torch, mods, state):
     shape = auto_batch_shape(torch, mods, l2, cl, ids, flush)
     batch_row, _ = measure(
         torch, "resolve_auto_batch",
-        lambda: cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], cl, ids),
+        lambda: cr.resolve_auto_batch_cuda(l2, cl, ids),
         lambda: cr_ref.resolve_auto_batch_ref(l2[..., 0], l2[..., 1], cl, ids),
         shape["bytes"], 0, None, flush)
     batch_row.update(walk=shape["planner_picks"], walk_sweep={"engine": shape})
@@ -1337,10 +1337,10 @@ def auto_batch_bytes(torch, mods, l2, lengths, ids, want):
 
 def auto_batch_shape(torch, mods, l2, lengths, ids, flush, n=30):
     """K1's batch entry (``resolve_auto_batch_cuda``) at (T, B) ``ids`` on
-    the packed words' ``l2[..., 0]``/``l2[..., 1]`` pair, with each walk
-    forced and with the planner's pick, every leaf of every call held bit
-    for bit against its plain version, each timed; the bound counts
-    ``auto_batch_bytes``."""
+    the packed words, with each walk forced and with the planner's pick,
+    every leaf of every call held bit for bit against its plain version
+    (on the ``l2[..., 0]``/``l2[..., 1]`` pair), each timed; the bound
+    counts ``auto_batch_bytes``."""
     cr, cr_ref = mods["cr"], mods["cr_ref"]
     t, c, p, _ = l2.shape
     w0, w1 = l2[..., 0], l2[..., 1]
@@ -1353,7 +1353,7 @@ def auto_batch_shape(torch, mods, l2, lengths, ids, flush, n=30):
                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, ms={})
     for walk in (*cr.WALKS, None):
         def call():
-            return cr.resolve_auto_batch_cuda(w0, w1, lengths, ids, walk=walk)
+            return cr.resolve_auto_batch_cuda(l2, lengths, ids, walk=walk)
         got = call()
         require(all(a.dtype == b.dtype and torch.equal(a, b)
                     for a, b in zip(got, want)),
@@ -1778,18 +1778,31 @@ def spin_sweep(torch, fn, host_ms, flush):
 
 
 def fleet_kernel(torch, mods, pool, res, flush):
-    """K5 at the fleet read's shapes against its plain version, timed."""
+    """K5 at the fleet read's shapes, as ``fleet.read`` launches it: its
+    entry on the resolve's leaves (``gather_fleet_resolved_cuda``) against
+    that entry's plain version, timed; the bound counts the pages read and
+    written and each page's ``ptr`` and three flag bytes. Beside it, the
+    rows entry (``gather_fleet_cuda``, the port of the TPU kernel) on the
+    ``readable_rows`` of the same leaves, timed."""
     cg, cg_ref = mods["cg"], mods["cg_ref"]
+    leaves = (res.ptr, res.found, res.zero, res.cold)
     safe_rows, ok = mods["readable_rows"](res)
     page = pool.shape[1] * pool.element_size()
     tb = safe_rows.numel()
     row, _ = measure(
-        torch, "gather_fleet", lambda: cg.gather_fleet_cuda(pool, safe_rows, ok),
-        lambda: cg_ref.gather_fleet_ref(pool, safe_rows, ok),
-        (int(ok.sum()) + tb) * page + 5 * tb, 0, None, flush,
+        torch, "gather_fleet",
+        lambda: cg.gather_fleet_resolved_cuda(pool, *leaves),
+        lambda: cg_ref.gather_fleet_resolved_ref(pool, *leaves),
+        (int(ok.sum()) + tb) * page + 7 * tb, 0, None, flush,
         library=lambda: torch.index_select(pool, 0, safe_rows.view(-1)),
         n_kernel=10, n_plain=3)
-    row["variant"] = cg.gather_variant(page).name
+    rows_out = cg.gather_fleet_cuda(pool, safe_rows, ok)
+    require(_same(torch, rows_out, cg.gather_fleet_resolved_cuda(pool, *leaves)),
+            "K5's two entries differ on the fleet read's leaves")
+    del rows_out
+    row.update(entry="gather_fleet_resolved", variant=cg.gather_variant(page).name,
+               rows_entry_ms=timed_ms(torch, lambda: cg.gather_fleet_cuda(
+                   pool, safe_rows, ok), 10, flush))
     return [row]
 
 

@@ -203,13 +203,17 @@ def resolve_auto_stacked(l2: torch.Tensor, lengths: torch.Tensor,
                          page_ids: torch.Tensor) -> ResolveResult:
     """Kernel-backed mixed-image resolution of the batch's pages in one
     launch: the active entry where it is trusted (``combine_auto``'s
-    trust), the walk elsewhere, read in place from the packed words.
+    trust), the walk elsewhere, read in place from the packed words (on the
+    card from their base: no view or copy is made, so the read's host side
+    is the two output buffers and their leaves).
     Bit-identical to ``combine_auto`` over ``resolve_direct_stacked`` and
     ``resolve_vanilla_stacked``, and so to ``resolve_auto_tables`` but for
     ``ptr`` on a miss (``ref.resolve_auto_batch_ref``)."""
-    return ResolveResult(*_kernel_ops.resolve_auto_batch(
-        l2[..., 0], l2[..., 1], lengths.to(torch.int32).contiguous(),
-        page_ids.to(torch.int32)))
+    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+        lengths = lengths.to(torch.int32).contiguous()
+    if page_ids.dtype != torch.int32:
+        page_ids = page_ids.to(torch.int32)
+    return ResolveResult(*_kernel_ops.resolve_auto_batch(l2, lengths, page_ids))
 
 
 def _as_chain(fn):

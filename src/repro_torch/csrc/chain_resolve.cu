@@ -192,8 +192,7 @@ __global__ void direct_fleet_kernel(const uint32_t* __restrict__ w0,
 // The batch entry's arguments. Outputs are two (3, T, B) stacks: int32
 // owner, ptr and lookups at out32, bool found, zero and cold at out8.
 struct AutoBatch {
-  const uint32_t* w0;
-  const uint32_t* w1;         // ES 1 only: the word1 plane
+  const uint32_t* l2;         // the packed (T, C, P, 2) words
   const int32_t* lengths;
   const int32_t* ids;         // (T, B), id_row and id_col elements apart
   long long id_row, id_col;
@@ -203,9 +202,8 @@ struct AutoBatch {
 };
 
 // Read i's tenant, length, page and active entry (t's layer length - 1,
-// wrapped and clamped as in direct_fleet_kernel). A page outside [0, P)
-// traps.
-template <int ES>
+// wrapped and clamped as in direct_fleet_kernel): one aligned 8-byte load
+// of the packed words. A page outside [0, P) traps.
 struct AutoRead {
   int t, len, p;
   uint2 e;
@@ -220,11 +218,7 @@ struct AutoRead {
     if (act < 0) act += a.C;
     act = max(0, min(act, a.C - 1));
     const size_t at = ((size_t)t * a.C + act) * a.P + p;
-    if constexpr (ES == 2) {
-      e = __ldg(reinterpret_cast<const uint2*>(a.w0 + 2 * at));
-    } else {
-      e = make_uint2(__ldg(a.w0 + at), __ldg(a.w1 + at));
-    }
+    e = __ldg(reinterpret_cast<const uint2*>(a.l2 + 2 * at));
   }
 
   // the direct entry answers the read: allocated, with a valid bfi
@@ -234,10 +228,10 @@ struct AutoRead {
 
   // word0 of layer 0 of the read's page; layers are col_stride() apart
   __device__ __forceinline__ const uint32_t* col(const AutoBatch& a) const {
-    return a.w0 + ((size_t)t * a.C * a.P + p) * ES;
+    return a.l2 + ((size_t)t * a.C * a.P + p) * 2;
   }
   __device__ __forceinline__ size_t col_stride(const AutoBatch& a) const {
-    return (size_t)a.P * ES;
+    return (size_t)a.P * 2;
   }
 };
 
@@ -261,11 +255,10 @@ __device__ __forceinline__ void write_walk(const AutoBatch& a, long long i,
 }
 
 // Many reads: one thread a read.
-template <int ES>
 __global__ void batch_vanilla_fleet_kernel(const AutoBatch a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)a.T * a.B) return;
-  const AutoRead<ES> r(a, i);
+  const AutoRead r(a, i);
   if (r.trusted()) {
     write_read(a, i, (int)(r.e.y & FMT_BFI_MASK), r.e.x, 1);
     return;
@@ -282,11 +275,10 @@ __global__ void batch_vanilla_fleet_kernel(const AutoBatch a) {
 
 // Few reads: one warp a read. Every lane loads the active entry (one
 // address, one transaction), so the trust test is the warp's own.
-template <int ES>
 __global__ void batch_warp_vanilla_fleet_kernel(const AutoBatch a) {
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (i >= (long long)a.T * a.B) return;   // whole warps leave together
-  const AutoRead<ES> r(a, i);
+  const AutoRead r(a, i);
   const bool lead = (threadIdx.x & 31) == 0;
   if (r.trusted()) {
     if (lead) write_read(a, i, (int)(r.e.y & FMT_BFI_MASK), r.e.x, 1);
@@ -399,34 +391,29 @@ extern "C" int resolve_direct_fleet(const void* w0, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// The batch's auto resolve. elem_stride: 1, w0 and w1 are (T, C, P)
-// planes; 2, w0 is the packed (T, C, P, 2) words (w1 unused), 8-byte
-// aligned. ids: (T, B) int32, id_row and id_col elements apart, each in
-// [0, P). out32: (3, T, B) int32 (owner, ptr, lookups); out8: (3, T, B)
-// bool (found, zero, cold). walk: 0 one thread a read, 1 one warp a read.
-extern "C" int resolve_auto_batch(const void* w0, const void* w1,
-                                  const void* lengths, const void* ids,
-                                  long long id_row, long long id_col,
-                                  void* out32, void* out8,
-                                  int T, int C, int P, int B, int elem_stride,
-                                  int walk, void* stream) {
+// The batch's auto resolve. l2: the packed (T, C, P, 2) words, contiguous
+// and 8-byte aligned. ids: (T, B) int32, id_row and id_col elements apart,
+// each in [0, P). out32: (3, T, B) int32 (owner, ptr, lookups); out8:
+// (3, T, B) bool (found, zero, cold). walk: 0 one thread a read, 1 one warp
+// a read.
+extern "C" int resolve_auto_batch(const void* l2, const void* lengths,
+                                  const void* ids, long long id_row,
+                                  long long id_col, void* out32, void* out8,
+                                  int T, int C, int P, int B, int walk,
+                                  void* stream) {
   (void)cudaGetLastError();
-  if (elem_stride != 1 && elem_stride != 2) return (int)cudaErrorInvalidValue;
   if (walk != 0 && walk != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const AutoBatch a{(const uint32_t*)w0, (const uint32_t*)w1,
-                    (const int32_t*)lengths, (const int32_t*)ids, id_row, id_col,
-                    (int32_t*)out32, (uint8_t*)out8, T, C, P, B};
+  const AutoBatch a{(const uint32_t*)l2, (const int32_t*)lengths,
+                    (const int32_t*)ids, id_row, id_col, (int32_t*)out32,
+                    (uint8_t*)out8, T, C, P, B};
   const long long n = (long long)T * B;
   const long long per_block = walk == 0 ? kThreads : kThreads / 32;
   const unsigned int blocks = (unsigned int)((n + per_block - 1) / per_block);
-  if (walk == 0) {
-    if (elem_stride == 2) batch_vanilla_fleet_kernel<2><<<blocks, kThreads, 0, st>>>(a);
-    else batch_vanilla_fleet_kernel<1><<<blocks, kThreads, 0, st>>>(a);
-  } else {
-    if (elem_stride == 2) batch_warp_vanilla_fleet_kernel<2><<<blocks, kThreads, 0, st>>>(a);
-    else batch_warp_vanilla_fleet_kernel<1><<<blocks, kThreads, 0, st>>>(a);
-  }
+  if (walk == 0)
+    batch_vanilla_fleet_kernel<<<blocks, kThreads, 0, st>>>(a);
+  else
+    batch_warp_vanilla_fleet_kernel<<<blocks, kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

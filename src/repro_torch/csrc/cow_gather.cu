@@ -4,12 +4,19 @@
 // src/repro/kernels/cow_gather/cow_gather.py:
 //   gather_fleet  <- gather_fleet_pallas (_gather_fleet_kernel), (T, B) pages
 //   gather        <- gather_pallas       (_gather_kernel), the T = 1 case
-// Both launch the one kernel below; the wrappers count them apart.
+// Both launch the one kernel below through cow_gather; the wrappers count
+// them apart. Its second entry, cow_gather_resolved (no TPU counterpart),
+// is K5 on a resolve's leaves as the resolver wrote them, so a fleet read
+// makes no mask between the resolve and the gather.
 //
 // What it computes: out[i] = pool[rows[i]] where found[i] and
 // 0 <= rows[i] < R, else zero bytes, for every output page i of the
 // flattened (T * B) batch. Pages are copied as raw bytes, so one kernel
-// serves every element type (f32, bf16, ...).
+// serves every element type (f32, bf16, ...). The two entries differ only
+// in the prologue that gives page i's row and its test (a Source below):
+// cow_gather reads rows[i] and found[i]; cow_gather_resolved reads ptr[i]
+// and the resolve's found[i] && !zero[i] && !cold[i], the pages that live
+// in the device pool.
 //
 // What bounds it on the card: device-memory bytes. It does no arithmetic:
 // each found page is read once and every output page written once, so the
@@ -111,47 +118,66 @@ __device__ __forceinline__ void move_page(const uint8_t* src, uint8_t* dst,
   }
 }
 
-template <int U>
+// The prologues: page i's pool row and whether the caller reads it from
+// the pool. Each loads its words before any test, so the loads are in
+// flight together.
+struct RowsFound {                     // cow_gather: the rows a caller holds
+  const int32_t* rows;
+  const uint8_t* found;
+  __device__ __forceinline__ bool take(long long i, int32_t* row) const {
+    *row = __ldg(rows + i);
+    return __ldg(found + i) != 0;
+  }
+};
+
+struct ResolvedLeaves {                // cow_gather_resolved: a resolve's leaves
+  const int32_t* ptr;
+  const uint8_t* found;
+  const uint8_t* zero;
+  const uint8_t* cold;
+  __device__ __forceinline__ bool take(long long i, int32_t* row) const {
+    *row = __ldg(ptr + i);
+    const uint8_t f = __ldg(found + i), z = __ldg(zero + i), c = __ldg(cold + i);
+    return (f != 0) & (z == 0) & (c == 0);
+  }
+};
+
+template <int U, typename Source>
 __global__ void __launch_bounds__(kThreads)
-gather_pages_kernel(const uint8_t* __restrict__ pool,
-                    const int32_t* __restrict__ rows,
-                    const uint8_t* __restrict__ found,
+gather_pages_kernel(const Source source, const uint8_t* __restrict__ pool,
                     uint8_t* __restrict__ out, long long n_out, long long R,
                     long long row_bytes, int warps_per_page) {
   const int warp = threadIdx.x >> 5;
   const long long i =
       (long long)blockIdx.x * (kWarps / warps_per_page) + warp / warps_per_page;
   if (i >= n_out) return;              // uniform across the group
-  const int32_t r = __ldg(rows + i);
-  const bool ok = __ldg(found + i) != 0 && r >= 0 && (long long)r < R;
+  int32_t r;
+  const bool ok = source.take(i, &r) && r >= 0 && (long long)r < R;
   const int threads = 32 * warps_per_page;
   move_page<U>(ok ? pool + (long long)r * row_bytes : nullptr,
                out + i * row_bytes, row_bytes,
                (warp % warps_per_page) * 32 + (threadIdx.x & 31), threads);
 }
 
-template <int U>
-cudaError_t launch(const void* pool, const void* rows, const void* found,
-                   void* out, long long n_out, long long R, long long row_bytes,
+template <int U, typename Source>
+cudaError_t launch(const Source& source, const void* pool, void* out,
+                   long long n_out, long long R, long long row_bytes,
                    int warps_per_page, cudaStream_t stream) {
   const long long per_block = kWarps / warps_per_page;
   const long long blocks = (n_out + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gather_pages_kernel<U><<<(unsigned int)blocks, kThreads, 0, stream>>>(
-      (const uint8_t*)pool, (const int32_t*)rows, (const uint8_t*)found,
-      (uint8_t*)out, n_out, R, row_bytes, warps_per_page);
+  gather_pages_kernel<U, Source><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+      source, (const uint8_t*)pool, (uint8_t*)out, n_out, R, row_bytes,
+      warps_per_page);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// pool (R, row_bytes) bytes; rows (n_out,) int32; found (n_out,) bool;
-// out (n_out, row_bytes) bytes. units: 16-byte loads a lane a round (1, 2,
-// 4, 8 or 16); warps_per_page: 1, 2, 4 or 8.
-extern "C" int cow_gather(const void* pool, const void* rows, const void* found,
-                          void* out, long long n_out, long long R,
-                          long long row_bytes, int units, int warps_per_page,
-                          void* stream) {
+// units: 16-byte loads a lane a round (1, 2, 4, 8 or 16); warps_per_page:
+// 1, 2, 4 or 8
+template <typename Source>
+int gather(const Source& source, const void* pool, void* out, long long n_out,
+           long long R, long long row_bytes, int units, int warps_per_page,
+           void* stream) {
   (void)cudaGetLastError();
   if (warps_per_page < 1 || warps_per_page > kWarps ||
       kWarps % warps_per_page != 0)
@@ -159,10 +185,34 @@ extern "C" int cow_gather(const void* pool, const void* rows, const void* found,
   cudaStream_t s = (cudaStream_t)stream;
   switch (units) {
 #define GATHER_CASE(u) \
-    case u: return (int)launch<u>(pool, rows, found, out, n_out, R, row_bytes, \
+    case u: return (int)launch<u>(source, pool, out, n_out, R, row_bytes, \
                                   warps_per_page, s);
     GATHER_CASE(1) GATHER_CASE(2) GATHER_CASE(4) GATHER_CASE(8) GATHER_CASE(16)
 #undef GATHER_CASE
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// pool (R, row_bytes) bytes; rows (n_out,) int32; found (n_out,) bool;
+// out (n_out, row_bytes) bytes.
+extern "C" int cow_gather(const void* pool, const void* rows, const void* found,
+                          void* out, long long n_out, long long R,
+                          long long row_bytes, int units, int warps_per_page,
+                          void* stream) {
+  return gather(RowsFound{(const int32_t*)rows, (const uint8_t*)found}, pool,
+                out, n_out, R, row_bytes, units, warps_per_page, stream);
+}
+
+// As cow_gather, on a resolve's leaves: ptr (n_out,) int32; found, zero and
+// cold (n_out,) bool each.
+extern "C" int cow_gather_resolved(const void* pool, const void* ptr,
+                                   const void* found, const void* zero,
+                                   const void* cold, void* out, long long n_out,
+                                   long long R, long long row_bytes, int units,
+                                   int warps_per_page, void* stream) {
+  return gather(ResolvedLeaves{(const int32_t*)ptr, (const uint8_t*)found,
+                               (const uint8_t*)zero, (const uint8_t*)cold},
+                pool, out, n_out, R, row_bytes, units, warps_per_page, stream);
 }

@@ -21,7 +21,9 @@ take every tenant's whole map (T × P pages); K1's batch entry
 (``resolve_auto_batch``) takes the read's T × B pages, so an auto read
 gives K1 one page a read. The batch entry's kernels carry K1's name, so
 it counts under K1's name (as a trace sees it) and under its own: K1's
-whole-map launches and pages are the difference.
+whole-map launches and pages are the difference. K5's entry on a
+resolve's leaves (``gather_fleet_resolved``, a fleet read's gather) counts
+the same way under K5's name (``gather_fleet``) and its own.
 """
 
 from __future__ import annotations
@@ -35,11 +37,14 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from repro_torch.core import format as fmt
 
 KERNELS = ("resolve_vanilla_fleet", "resolve_direct_fleet", "paged_attention",
            "fused_chain_attention", "gather_fleet", "resolve_vanilla",
-           "resolve_direct", "gather", "merge", "resolve_auto_batch")
+           "resolve_direct", "gather", "merge", "resolve_auto_batch",
+           "gather_fleet_resolved")
 
 #: Launches per kernel since the last ``reset_launches``.
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
@@ -59,6 +64,7 @@ _L = ctypes.c_longlong
 #: argtypes of every C launcher; each returns its cudaGetLastError() code.
 #: ``resolve_auto_batch`` is counted as ``resolve_vanilla_fleet`` (K1's);
 #: ``cow_gather`` launches both K5 (``gather_fleet``) and K8 (``gather``),
+#: ``cow_gather_resolved`` K5 on a resolve's leaves (counted as K5's too),
 #: ``merge_entries`` and ``merge`` both launch K9 (counted as ``merge``);
 #: ``paged_attention``/``fused_chain_attention`` launch a split pass and its
 #: combine, counted as one launch; ``paged_attention_shared`` (the
@@ -66,8 +72,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "resolve_vanilla_fleet": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "resolve_direct_fleet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "resolve_auto_batch": [_P, _P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _P],
+    "resolve_auto_batch": [_P, _P, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
     "paged_attention_shared": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -77,6 +82,7 @@ _SIGNATURES = {
     "resolve_vanilla": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "resolve_direct": [_P, _P, _P, _P, _P, _I, _I, _P],
     "cow_gather": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
+    "cow_gather_resolved": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
     "merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "merge_entries": [_P, _P, _P, _P, _I, _I, _P],
 }
@@ -151,6 +157,22 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+#: PyTorch's private getter of the raw current stream, which its own
+#: compiled launchers use; ``None`` where a release lacks it.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch_stream(x: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``x``'s device, which
+    every launcher takes. ``torch.cuda.current_stream(device).cuda_stream``
+    builds a ``Stream`` object on the way: 6-10 µs a call against 0.3-0.4
+    for the raw getter on an H100 machine's host; it is the fallback where
+    the getter is missing."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(x.device).cuda_stream
+    return _RAW_STREAM(x.get_device())
 
 
 def check_launch(name: str, code: int, pages: int = 0,

@@ -6,7 +6,8 @@ stacked (T, C, P) fleet layout; both also read the words in place, as
 strided views of the packed (T, C, P, 2) words), and
 ``resolve_vanilla_pallas`` and ``resolve_direct_pallas`` (one chain's
 (C, N) planes), and beside them ``resolve_auto_batch_cuda``, the auto
-resolve of a read's (T, B) pages in one launch (no TPU counterpart):
+resolve of a read's (T, B) pages in one launch on the packed words (no TPU
+counterpart):
 hand-written CUDA C++ in ``csrc/chain_resolve.cu``, built for Hopper by
 ``kernels._build``. The wrappers here take CUDA tensors only, check what
 the kernel takes, allocate the outputs, launch on the current stream
@@ -90,7 +91,7 @@ def resolve_vanilla_fleet_cuda(w0: torch.Tensor, lengths: torch.Tensor, *,
     code = lib.resolve_vanilla_fleet(
         w0.data_ptr(), lengths.data_ptr(), owner.data_ptr(), hit.data_ptr(),
         t, c, p, es, WALKS[walk or fleet_walk(t, p)],
-        torch.cuda.current_stream(w0.device).cuda_stream)
+        _build.launch_stream(w0))
     _build.check_launch("resolve_vanilla_fleet", code, pages=t * p)
     return owner, hit
 
@@ -151,7 +152,7 @@ def resolve_direct_fleet_cuda(w0: torch.Tensor, w1: torch.Tensor,
     code = lib.resolve_direct_fleet(
         w0.data_ptr(), w1.data_ptr(), lengths.data_ptr(), owner.data_ptr(),
         h0.data_ptr(), h1.data_ptr(), t, c, p, es,
-        torch.cuda.current_stream(w0.device).cuda_stream)
+        _build.launch_stream(w0))
     _build.check_launch("resolve_direct_fleet", code, pages=t * p)
     return owner, h0, h1
 
@@ -163,51 +164,58 @@ AUTO_BATCH_COUNTER = "resolve_vanilla_fleet"
 AUTO_BATCH_ENTRY = "resolve_auto_batch"
 
 
-def resolve_auto_batch_cuda(w0: torch.Tensor, w1: torch.Tensor,
-                            lengths: torch.Tensor, page_ids: torch.Tensor, *,
-                            walk: str | None = None):
+def resolve_auto_batch_cuda(l2: torch.Tensor, lengths: torch.Tensor,
+                            page_ids: torch.Tensor, *, walk: str | None = None):
     """The auto resolve of a read's pages: for each (t, b) of ``page_ids``
     (T, B) int32, the active entry of page ``page_ids[t, b]`` where it is
     ALLOCATED and BFI_VALID, else the first-hit walk of tenant t's chain.
-    ``w0``/``w1`` (T, C, P) int32 in one of ``direct_fleet_stride``'s two
-    layouts, ``lengths`` (T,) int32; ``page_ids`` is read in place at its
-    strides (an expanded row too). Ids lie in [0, P): on any other the
-    kernel traps, so the stream's next sync raises, as the plain version
-    raises at once. Returns ``(owner, ptr, found, zero, lookups, cold)``,
-    each (T, B), bit for bit ``ref.resolve_auto_batch_ref``:
-    owner/ptr/lookups int32, found/zero/cold bool. ``walk`` ("thread" or
-    "warp") overrides ``fleet_walk(T, B)`` (for measurements). One
-    launch, counted as one of K1's with T × B pages, and as one of
-    ``AUTO_BATCH_ENTRY``'s."""
-    for x in (w0, w1, page_ids):
-        if x.dtype != torch.int32:
-            raise TypeError(f"resolve_auto_batch: expected int32 words and ids, got {x.dtype}")
-    es = direct_fleet_stride(w0, w1)
+    ``l2`` is the packed (T, C, P, 2) int32 words, contiguous and 8-byte
+    aligned (a one-tenant slice ``l2[t:t + 1]`` is too): the kernel reads
+    them in place from their base, so no ``l2[..., k]`` view is made.
+    ``lengths`` (T,) int32; ``page_ids`` is read in place at its strides
+    (an expanded row too). Ids lie in [0, P): on any other the kernel
+    traps, so the stream's next sync raises, as the plain version raises
+    at once. Returns ``(owner, ptr, found, zero, lookups, cold)``, each
+    (T, B), bit for bit ``ref.resolve_auto_batch_ref`` on ``l2[..., 0]``
+    and ``l2[..., 1]``: owner/ptr/lookups int32, found/zero/cold bool, the
+    planes of two output buffers. ``walk`` ("thread" or "warp") overrides
+    ``fleet_walk(T, B)`` (for measurements). One launch, counted as one of
+    K1's with T × B pages, and as one of ``AUTO_BATCH_ENTRY``'s."""
+    name = AUTO_BATCH_ENTRY
+    if l2.dim() != 4 or l2.shape[3] != 2:
+        raise ValueError(f"{name}: words must be (T, C, P, 2), got {tuple(l2.shape)}")
+    if l2.dtype != torch.int32 or page_ids.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 words and ids, got "
+                        f"{l2.dtype} and {page_ids.dtype}")
+    if not l2.is_contiguous():
+        raise ValueError(f"{name}: layout is not contiguous (T, C, P, 2) words")
+    if l2.data_ptr() % 8:
+        raise ValueError(f"{name}: layout misaligned: the packed words must "
+                         "start on an 8-byte boundary")
     if page_ids.dim() != 2:
-        raise ValueError("resolve_auto_batch: page ids must be (T, B)")
-    for x in (w0, w1, page_ids):
+        raise ValueError(f"{name}: page ids must be (T, B)")
+    for x in (l2, page_ids):
         if not x.is_cuda:
-            raise ValueError(f"resolve_auto_batch: expected CUDA tensors, got {x.device}")
-    _check_words("resolve_auto_batch", lengths)
-    t, c, p = w0.shape
+            raise ValueError(f"{name}: expected CUDA tensors, got {x.device}")
+    _check_words(name, lengths)
+    t, c, p, _ = l2.shape
     b = page_ids.shape[1]
     if lengths.shape != (t,) or page_ids.shape[0] != t:
-        raise ValueError(f"resolve_auto_batch: lengths {tuple(lengths.shape)} and "
-                         f"ids {tuple(page_ids.shape)} must have the words' {t} tenants")
-    words = torch.empty((3, t, b), dtype=torch.int32, device=w0.device)
-    flags = torch.empty((3, t, b), dtype=torch.bool, device=w0.device)
-    owner, ptr, lookups = words
-    found, zero, cold = flags
+        raise ValueError(f"{name}: lengths {tuple(lengths.shape)} and ids "
+                         f"{tuple(page_ids.shape)} must have the words' {t} tenants")
+    words = torch.empty((3, t, b), dtype=torch.int32, device=l2.device)
+    flags = torch.empty((3, t, b), dtype=torch.bool, device=l2.device)
     if t * b:
         if not c * p:
-            raise ValueError("resolve_auto_batch: the words hold no entry to read")
+            raise ValueError(f"{name}: the words hold no entry to read")
         code = _build.library().resolve_auto_batch(
-            w0.data_ptr(), w1.data_ptr(), lengths.data_ptr(), page_ids.data_ptr(),
+            l2.data_ptr(), lengths.data_ptr(), page_ids.data_ptr(),
             *page_ids.stride(), words.data_ptr(), flags.data_ptr(), t, c, p, b,
-            es, WALKS[walk or fleet_walk(t, b)],
-            torch.cuda.current_stream(w0.device).cuda_stream)
+            WALKS[walk or fleet_walk(t, b)], _build.launch_stream(l2))
         _build.check_launch(AUTO_BATCH_COUNTER, code, pages=t * b,
                             entry=AUTO_BATCH_ENTRY)
+    owner, ptr, lookups = words.unbind()
+    found, zero, cold = flags.unbind()
     return owner, ptr, found, zero, lookups, cold
 
 
@@ -258,7 +266,7 @@ def resolve_vanilla_cuda(alloc: torch.Tensor, ptrs: torch.Tensor, length):
     code = _build.library().resolve_vanilla(
         alloc.data_ptr(), ptrs.data_ptr(), ln.data_ptr(), owner.data_ptr(),
         ptr.data_ptr(), c, n, nbytes, vec,
-        torch.cuda.current_stream(alloc.device).cuda_stream)
+        _build.launch_stream(alloc))
     _build.check_launch("resolve_vanilla", code)
     return owner, ptr
 
@@ -281,6 +289,6 @@ def resolve_direct_cuda(alloc_active: torch.Tensor, bfi_active: torch.Tensor,
     code = _build.library().resolve_direct(
         alloc_active.data_ptr(), bfi_active.data_ptr(), ptrs_active.data_ptr(),
         owner.data_ptr(), ptr.data_ptr(), n, nbytes,
-        torch.cuda.current_stream(alloc_active.device).cuda_stream)
+        _build.launch_stream(alloc_active))
     _build.check_launch("resolve_direct", code)
     return owner, ptr

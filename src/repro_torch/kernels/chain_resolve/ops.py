@@ -46,9 +46,11 @@ def resolve_direct_fleet(w0, w1, lengths):
     return ref.resolve_direct_fleet_ref(w0, w1, lengths)
 
 
-def resolve_auto_batch(w0, w1, lengths, page_ids):
-    """The auto resolve of (T, B) page ids over (T, C, P) words →
-    ``(owner, ptr, found, zero, lookups, cold)``, each (T, B)."""
-    if w0.is_cuda:
-        return resolve_auto_batch_cuda(w0, w1, lengths, page_ids)
-    return ref.resolve_auto_batch_ref(w0, w1, lengths, page_ids)
+def resolve_auto_batch(l2, lengths, page_ids):
+    """The auto resolve of (T, B) page ids over the packed (T, C, P, 2)
+    words → ``(owner, ptr, found, zero, lookups, cold)``, each (T, B): on
+    the card one launch reading the words in place, on the CPU the plain
+    version of the ``l2[..., 0]``/``l2[..., 1]`` pair."""
+    if l2.is_cuda:
+        return resolve_auto_batch_cuda(l2, lengths, page_ids)
+    return ref.resolve_auto_batch_ref(l2[..., 0], l2[..., 1], lengths, page_ids)

@@ -4,16 +4,20 @@ The counterpart of ``repro.kernels.cow_gather.cow_gather``'s
 ``gather_pallas`` (K8, one chain's (B,) pages) and ``gather_fleet_pallas``
 (K5, a fleet's (T, B) pages): one hand-written CUDA C++ kernel in
 ``csrc/cow_gather.cu`` that copies each page as raw bytes, one to eight
-warps a page, built for Hopper by ``kernels._build``. The wrappers here
-take CUDA tensors only, check what the kernel takes, pick the kernel's
-variant from the page bytes alone (``gather_variant``), allocate the
-output, launch on the current stream without synchronising, and count the
-launch under their own name. ``ops`` dispatches CPU tensors to the plain
-versions in ``ref``.
+warps a page, built for Hopper by ``kernels._build``. K5 has a second
+entry, ``gather_fleet_resolved_cuda``, that takes a resolve's leaves as
+the resolver wrote them and tests each page itself (no TPU counterpart:
+the JAX package masks the leaves first), so a fleet read launches nothing
+between its resolve and its gather. The wrappers here take CUDA tensors
+only, check what the kernel takes, pick the kernel's variant from the
+page bytes alone (``gather_variant``), allocate the output, launch on the
+current stream without synchronising, and count the launch under their
+own name. ``ops`` dispatches CPU tensors to the plain versions in ``ref``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,6 +42,7 @@ class GatherVariant(NamedTuple):
         return f"u{self.units}g{self.warps_per_page}"
 
 
+@functools.cache
 def gather_variant(page_bytes: int) -> GatherVariant:
     """The kernel's variant for pages of ``page_bytes``, from the shape
     alone (no sync, no read of ``found``). Warps a page: the most that
@@ -45,7 +50,8 @@ def gather_variant(page_bytes: int) -> GatherVariant:
     warps; 16 KiB and up: 8). Loads a lane a round: the fewest that cover
     the page in one round of the group, at most 16 (a 64 KiB page over 8
     warps). The page count and the SM count do not enter: on the card the
-    best variant was the same at 64 and at 829,376 pages (``PERF.md`` §6)."""
+    best variant was the same at 64 and at 829,376 pages (``PERF.md`` §6).
+    Cached by page size: it runs on every launch's host path."""
     g = max((w for w in _WARPS_PER_PAGE if 512 * _MIN_LOADS * w <= page_bytes),
             default=1)
     need = -(-page_bytes // (512 * g))
@@ -53,12 +59,12 @@ def gather_variant(page_bytes: int) -> GatherVariant:
     return GatherVariant(units, g)
 
 
-def _launch(name: str, pool: torch.Tensor, rows: torch.Tensor,
-            found: torch.Tensor,
-            variant: GatherVariant | None = None) -> torch.Tensor:
-    """Checks, allocates and launches; ``variant`` overrides the pick
-    (the GPU tests run every instantiation of the kernel through it)."""
-    for x in (pool, rows, found):
+def _prepare(name: str, pool: torch.Tensor, rows: torch.Tensor,
+             flags: tuple[torch.Tensor, ...], variant: GatherVariant | None):
+    """Checks what the kernel reads, from attributes alone; returns the
+    output, the page bytes and the variant (``variant`` overrides the
+    pick)."""
+    for x in (pool, rows, *flags):
         if not x.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {x.device}")
         if not x.is_contiguous():
@@ -67,21 +73,32 @@ def _launch(name: str, pool: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"{name}: pool must be (R, P), got {tuple(pool.shape)}")
     if rows.dtype != torch.int32:
         raise TypeError(f"{name}: rows must be int32, got {rows.dtype}")
-    if found.dtype != torch.bool or found.shape != rows.shape:
-        raise ValueError(f"{name}: found must be bool of the rows' shape")
-    r, p = pool.shape
-    out = torch.empty((*rows.shape, p), dtype=pool.dtype, device=pool.device)
-    if out.numel() == 0:
-        return out
-    page = p * pool.element_size()
+    for f in flags:
+        if f.dtype != torch.bool or f.shape != rows.shape:
+            raise ValueError(f"{name}: each flag (found, zero, cold) must be "
+                             "bool of the rows' shape")
+    page = pool.shape[1] * pool.element_size()
     v = variant or gather_variant(page)
     if v.units not in _UNITS or v.warps_per_page not in _WARPS_PER_PAGE:
         raise ValueError(f"{name}: no kernel variant {v}")
-    code = _build.library().cow_gather(
-        pool.data_ptr(), rows.data_ptr(), found.data_ptr(), out.data_ptr(),
-        rows.numel(), r, page, v.units, v.warps_per_page,
-        torch.cuda.current_stream(pool.device).cuda_stream)
-    _build.check_launch(name, code)
+    out = torch.empty((*rows.shape, pool.shape[1]), dtype=pool.dtype,
+                      device=pool.device)
+    return out, page, v
+
+
+def _launch(name: str, pool: torch.Tensor, rows: torch.Tensor,
+            found: torch.Tensor,
+            variant: GatherVariant | None = None) -> torch.Tensor:
+    """Checks, allocates and launches ``cow_gather``; ``variant`` overrides
+    the pick (the GPU tests run every instantiation of the kernel through
+    it)."""
+    out, page, v = _prepare(name, pool, rows, (found,), variant)
+    if out.numel():
+        code = _build.library().cow_gather(
+            pool.data_ptr(), rows.data_ptr(), found.data_ptr(), out.data_ptr(),
+            rows.numel(), pool.shape[0], page, v.units, v.warps_per_page,
+            _build.launch_stream(pool))
+        _build.check_launch(name, code)
     return out
 
 
@@ -103,3 +120,33 @@ def gather_fleet_cuda(pool: torch.Tensor, rows: torch.Tensor,
         raise ValueError(
             f"gather_fleet: rows must be (T, B), got {tuple(rows.shape)}")
     return _launch("gather_fleet", pool, rows, found)
+
+
+#: The entry key of K5 on a resolve's leaves: its kernel is K5's
+#: (``gather_pages_kernel``), so a trace and ``_build.LAUNCHES`` count its
+#: launches as K5's (``gather_fleet``); this key counts them apart besides.
+RESOLVED_ENTRY = "gather_fleet_resolved"
+
+
+def gather_fleet_resolved_cuda(pool: torch.Tensor, ptr: torch.Tensor,
+                               found: torch.Tensor, zero: torch.Tensor,
+                               cold: torch.Tensor, *,
+                               variant: GatherVariant | None = None) -> torch.Tensor:
+    """K5 on a resolve's (T, B) leaves as the resolver wrote them: ``ptr``
+    int32, ``found``/``zero``/``cold`` bool → (T, B, P): ``pool[ptr]``
+    where the page was found and is neither a ZERO cluster nor COLD (a
+    cold ``ptr`` addresses a host-tier row), +0.0 bytes elsewhere; a row
+    outside [0, R) reads as zeros too. Bit for bit ``gather_fleet_cuda``
+    on ``store.readable_rows`` of the same leaves, in one launch and with
+    no mask made before it; counted as K5's and as ``RESOLVED_ENTRY``'s.
+    ``variant`` overrides the pick (for the tests)."""
+    if ptr.dim() != 2:
+        raise ValueError(f"{RESOLVED_ENTRY}: ptr must be (T, B), got {tuple(ptr.shape)}")
+    out, page, v = _prepare(RESOLVED_ENTRY, pool, ptr, (found, zero, cold), variant)
+    if out.numel():
+        code = _build.library().cow_gather_resolved(
+            pool.data_ptr(), ptr.data_ptr(), found.data_ptr(), zero.data_ptr(),
+            cold.data_ptr(), out.data_ptr(), ptr.numel(), pool.shape[0], page,
+            v.units, v.warps_per_page, _build.launch_stream(pool))
+        _build.check_launch("gather_fleet", code, entry=RESOLVED_ENTRY)
+    return out

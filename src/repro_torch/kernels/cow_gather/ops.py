@@ -10,7 +10,11 @@ have.
 from __future__ import annotations
 
 from repro_torch.kernels.cow_gather import ref
-from repro_torch.kernels.cow_gather.cow_gather import gather_cuda, gather_fleet_cuda
+from repro_torch.kernels.cow_gather.cow_gather import (
+    gather_cuda,
+    gather_fleet_cuda,
+    gather_fleet_resolved_cuda,
+)
 
 
 def gather(pool, rows, found):
@@ -25,3 +29,11 @@ def gather_fleet(pool, rows, found):
     if pool.is_cuda:
         return gather_fleet_cuda(pool, rows, found)
     return ref.gather_fleet_ref(pool, rows, found)
+
+
+def gather_fleet_resolved(pool, ptr, found, zero, cold):
+    """Fleet read gather on a resolve's (T, B) leaves → (T, B, P): the
+    pages found in the device pool (not ZERO, not COLD), zeros elsewhere."""
+    if pool.is_cuda:
+        return gather_fleet_resolved_cuda(pool, ptr, found, zero, cold)
+    return ref.gather_fleet_resolved_ref(pool, ptr, found, zero, cold)

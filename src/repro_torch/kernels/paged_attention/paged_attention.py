@@ -271,7 +271,7 @@ def paged_attention_cuda(q, pool_k, pool_v, tables, lengths, *,
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, h, hkv, d,
         nb, bs, m, p.pages_per_split, p.layout, int(p.warp_combine),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], _build.launch_stream(q))
     _build.check_launch("paged_attention", code)
     return out
 
@@ -298,7 +298,7 @@ def paged_attention_shared_table_cuda(q, pool_k, pool_v, table, lengths):
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
         lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(), s, h, hkv, d,
         nb, bs, m, p.pages_per_split, p.warps, int(p.warp_combine),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], _build.launch_stream(q))
     _build.check_launch("paged_attention", code)
     return out
 
@@ -331,6 +331,6 @@ def fused_chain_attention_cuda(q, pool_k, pool_v, w0, chain_lengths, tenants,
         chain_lengths.data_ptr(), tenants.data_ptr(), kv_lengths.data_ptr(),
         scratch.data_ptr(), out.data_ptr(), b, h, hkv, d, nb, bs, t, c, p,
         sp.pages_per_split, sp.layout, int(sp.warp_combine),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], _build.launch_stream(q))
     _build.check_launch("fused_chain_attention", code)
     return out

@@ -52,7 +52,7 @@ def merge_entries_cuda(sub: torch.Tensor):
         return merged, found, src
     code = _build.library().merge_entries(
         sub.data_ptr(), merged.data_ptr(), found.data_ptr(), src.data_ptr(),
-        k, n, torch.cuda.current_stream(dev).cuda_stream)
+        k, n, _build.launch_stream(sub))
     _build.check_launch("merge", code)
     return merged, found, src
 
@@ -93,6 +93,6 @@ def merge_cuda(alloc: torch.Tensor, ptrs: torch.Tensor):
     code = _build.library().merge(
         alloc.data_ptr(), ptrs.data_ptr(), found.data_ptr(), ptr.data_ptr(),
         src.data_ptr(), k, n, alloc.element_size(), v,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.launch_stream(alloc))
     _build.check_launch("merge", code)
     return found, ptr, src

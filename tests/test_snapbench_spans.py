@@ -162,10 +162,13 @@ def test_traced_window_records_the_spans_inside_each_step(tmp_path, monkeypatch,
 @pytest.mark.gpu
 def test_auto_read_is_one_k1_launch_in_the_trace():
     """One ``fleet.read(method="auto")`` adds 1 to K1's launch counter,
-    0 to K2's and T × B to K1's pages; its profiler trace holds exactly
-    one device event whose name contains ``vanilla_fleet_kernel`` and
-    none with ``direct_fleet_kernel``, so the accepted harness's
-    ``summarize`` sees as many launches as the counters made."""
+    0 to K2's and T × B to K1's pages, and 1 to K5's and to its entry on
+    a resolve's leaves; its profiler trace holds exactly one device event
+    whose name contains ``vanilla_fleet_kernel``, none with
+    ``direct_fleet_kernel``, and no elementwise, ``where`` or ``select``
+    kernel between it and K5's ``gather_pages_kernel`` (nor any on the
+    host inside ``fleet.read``), so the accepted harness's ``summarize``
+    sees as many launches as the counters made."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
     from torch.profiler import ProfilerActivity, profile
@@ -193,11 +196,23 @@ def test_auto_read_is_one_k1_launch_in_the_trace():
     launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
     assert launched["resolve_vanilla_fleet"] == 1
     assert launched["resolve_direct_fleet"] == 0
+    assert launched["gather_fleet"] == 1 and launched["gather_fleet_resolved"] == 1
     assert _build.PAGES["resolve_vanilla_fleet"] - pages["resolve_vanilla_fleet"] == t * b
     events = prof.events()
-    names = [e.name for e in tracing._device_events(events, torch)]
+    device = sorted(tracing._device_events(events, torch), key=lambda e: e.time_range.start)
+    names = [e.name for e in device]
     assert sum("vanilla_fleet_kernel" in n for n in names) == 1
     assert not any("direct_fleet_kernel" in n for n in names)
+    k1 = next(i for i, n in enumerate(names) if "vanilla_fleet_kernel" in n)
+    k5 = next(i for i, n in enumerate(names) if "gather_pages_kernel" in n)
+    assert k1 < k5
+    masks = ("bitwise", "where", "select", "elementwise")
+    assert not [n for n in names[k1 + 1:k5] if any(m in n for m in masks)]
+    read = next(e for e in events if e.name == "fleet.read"
+                and e.device_type == CPU)
+    inside = [e.name for e in events if e.device_type == CPU and e.name.startswith("aten::")
+              and read.time_range.start <= e.time_range.start <= read.time_range.end]
+    assert not [n for n in inside if any(m in n for m in ("bitwise", "where", "_to_copy"))]
     out = tracing.summarize(events, Bench(ROOT).layers(), launched, 0, torch)
     assert out["launches_seen"] == out["launches_made"]
     assert out["launches_made"]["vanilla_fleet_kernel"] == 1

@@ -455,16 +455,13 @@ def test_auto_batch_is_the_whole_map_pick_on_any_words(t, c, p, b, kind):
     e, lengths = mixed_image(t * 7 + c + p, t, c, p, all_zero_holes=False)
     l2, lens = _as_torch(e, lengths)
     ids = batch_ids(kind, t * 3 + p + b, t, p, b)
-    got = tops.resolve_auto_batch(l2[..., 0], l2[..., 1], lens, ids)
+    got = tops.resolve_auto_batch(l2, lens, ids)
     direct = tres.resolve_direct_stacked(l2, lens, ids)
     want = tres.combine_auto(direct.found, direct,
                              tres.resolve_vanilla_stacked(l2, lens, ids))
     for field, g, w in zip(want._fields, got, want):
         assert g.dtype == w.dtype, field
         assert torch.equal(g, w), field
-    planes = tops.resolve_auto_batch(l2[..., 0].contiguous(),
-                                     l2[..., 1].contiguous(), lens, ids)
-    assert all(torch.equal(x, y) for x, y in zip(planes, got))
 
 
 @pytest.mark.parametrize("t", [0, 1, 3])
@@ -524,32 +521,42 @@ def test_fleet_read_auto_on_a_tenant_slice(n_pages, t):
 
 
 def test_auto_batch_wrapper_refuses_other_layouts():
-    """The CUDA wrapper takes the words in K2's two layouts and (T, B) ids
-    at any strides, and raises on anything else before it looks at the
-    device."""
+    """The CUDA wrapper takes contiguous (T, C, P, 2) int32 words on an
+    8-byte boundary and (T, B) int32 ids, and raises on anything else (a
+    view of the words, one word plane, a misaligned base, int64 words or
+    ids, ids that are not (T, B)) before it looks at the device."""
     l2 = torch.zeros((3, 4, 8, 2), dtype=torch.int32)
-    other = torch.zeros_like(l2)
     lengths = torch.full((3,), 4, dtype=torch.int32)
     ids = torch.zeros((3, 5), dtype=torch.int32)
-    shifted = torch.zeros(l2.numel() + 1, dtype=torch.int32)[1:].view(l2.shape)
-    for bad in ((l2[..., 0], other[..., 1]), (l2[..., 1], l2[..., 0]),
-                (l2[..., 0].contiguous(), l2[..., 1]),
-                (shifted[..., 0], shifted[..., 1]),
-                (l2[:, :3, :, 0], l2[:, :3, :, 1])):
-        with pytest.raises(ValueError, match="layout|strides"):
-            tcr.resolve_auto_batch_cuda(*bad, lengths, ids)
+    flat = torch.zeros(l2.numel() + 2, dtype=torch.int32)
+    for bad in (l2[:, :3], l2[..., :1], l2[..., 0], l2.transpose(1, 2),
+                flat[1:-1].view(l2.shape)):
+        with pytest.raises(ValueError, match="layout|words"):
+            tcr.resolve_auto_batch_cuda(bad, lengths, ids)
+    for bad in ((l2.long(), ids), (l2, ids.long())):
+        with pytest.raises(TypeError, match="int32"):
+            tcr.resolve_auto_batch_cuda(bad[0], lengths, bad[1])
     for bad_ids in (ids[0], ids[None]):
         with pytest.raises(ValueError, match="ids"):
-            tcr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lengths, bad_ids)
-    with pytest.raises(TypeError):
-        tcr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lengths, ids.long())
-    wide = torch.zeros((5, 3), dtype=torch.int32)
-    for good in ((l2[..., 0], l2[..., 1]),
-                 (l2[..., 0].contiguous(), l2[..., 1].contiguous())):
-        for good_ids in (ids[:1].expand(3, -1), wide.t(),
-                         torch.zeros((3, 10), dtype=torch.int32)[:, ::2]):
-            with pytest.raises(ValueError, match="CUDA"):
-                tcr.resolve_auto_batch_cuda(*good, lengths, good_ids)
+            tcr.resolve_auto_batch_cuda(l2, lengths, bad_ids)
+
+
+def test_auto_batch_wrapper_takes_a_tenant_slice_and_ids_at_any_strides():
+    """The words of a one-tenant slice ``l2[t:t + 1]`` and of an aligned
+    base past the start of a buffer, and ids as columns apart, a
+    transposed store or an expanded row, pass every check the wrapper
+    makes before the device's."""
+    l2 = torch.zeros((3, 4, 8, 2), dtype=torch.int32)
+    lengths = torch.full((3,), 4, dtype=torch.int32)
+    ids = torch.zeros((3, 5), dtype=torch.int32)
+    flat = torch.zeros(l2.numel() + 2, dtype=torch.int32)
+    for good in ((l2, lengths, ids), (l2[1:2], lengths[1:2], ids[1:2]),
+                 (flat[2:].view(l2.shape), lengths, ids),
+                 (l2, lengths, ids[:1].expand(3, -1)),
+                 (l2, lengths, torch.zeros((5, 3), dtype=torch.int32).t()),
+                 (l2, lengths, torch.zeros((3, 10), dtype=torch.int32)[:, ::2])):
+        with pytest.raises(ValueError, match="CUDA"):
+            tcr.resolve_auto_batch_cuda(*good)
 
 
 @pytest.mark.parametrize("bad", [-1, 8, 2**31 - 1])

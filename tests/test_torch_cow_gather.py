@@ -86,6 +86,8 @@ def test_cpu_dispatch_takes_the_plain_version():
         tcg.gather_cuda(pool, idx[0], found[0])
     with pytest.raises(ValueError, match="CUDA"):
         tcg.gather_fleet_cuda(pool, idx, found)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcg.gather_fleet_resolved_cuda(pool, idx, found, found, found)
 
 
 # page bytes -> the kernel variant the wrapper picks (loads a lane a round,
@@ -112,3 +114,83 @@ def test_gather_variant_at_the_systems_shapes():
     assert tcg.gather_variant(65_536).name == "u16g8"
     assert tcg.gather_variant(2).name == "u1g1"
     assert {tcg.gather_variant(p).units for p in PICKS} == set(tcg._UNITS)
+
+
+def _leaves(seed, rows, t, b, kind):
+    """A resolve's (T, B) leaves in the batch entry's layout (``ptr`` a
+    plane of (3, T, B) int32 words, found/zero/cold the planes of (3, T, B)
+    bool flags) over a pool of ``rows`` rows: every page found (``found``),
+    found and ZERO (``zero``), found and COLD with host-tier rows
+    (``cold``), missed with garbage or out-of-range ptrs (``miss``), or a
+    mix of all four (``mixed``)."""
+    rng = np.random.default_rng(seed)
+    words = torch.as_tensor(rng.integers(0, rows, (3, t, b)).astype(np.int32))
+    flags = torch.zeros((3, t, b), dtype=torch.bool)
+    found, zero, cold = flags.unbind()
+    ptr = words[1]
+    draw = lambda q: torch.as_tensor(rng.random((t, b)) < q)
+    found.copy_({"found": draw(1.0), "zero": draw(1.0), "cold": draw(1.0),
+                 "miss": draw(0.0), "mixed": draw(0.7)}[kind])
+    zero.copy_(found & draw({"zero": 1.0, "mixed": 0.2}.get(kind, 0.0)))
+    cold.copy_(found & draw({"cold": 1.0, "mixed": 0.2}.get(kind, 0.0)))
+    # a page not read from the pool may carry any ptr: far past the pool,
+    # negative, or a host-tier row
+    far = torch.as_tensor(rng.integers(-(1 << 20), 1 << 28, (t, b)).astype(np.int32))
+    ptr.copy_(torch.where(found & ~zero & ~cold, ptr, far))
+    return ptr, found, zero, cold
+
+
+@pytest.mark.parametrize("kind", ["found", "zero", "cold", "miss", "mixed"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gather_fleet_resolved_is_the_fleet_gather_of_readable_rows(kind, tdt):
+    """K5's entry on a resolve's leaves (its plain version, which ``ops``
+    takes on the CPU) reads exactly the pages ``store.readable_rows``
+    marks, bit for bit ``gather_fleet_ref`` of them: found pages from the
+    pool, ZERO and COLD pages and misses (whatever their ``ptr``) as +0.0."""
+    from repro_torch.core.resolve import ResolveResult
+    from repro_torch.core.store import readable_rows
+
+    rows, t, b = 40, 3, 17
+    pool, _, _ = _case(len(kind) + rows, rows, 24, (1,))
+    pool = torch.as_tensor(pool).to(tdt)
+    ptr, found, zero, cold = _leaves(len(kind), rows, t, b, kind)
+    res = ResolveResult(owner=ptr, ptr=ptr, found=found, zero=zero,
+                        lookups=ptr, cold=cold)
+    before = dict(_build.LAUNCHES)
+    got = tops.gather_fleet_resolved(pool, ptr, found, zero, cold)
+    want = tref.gather_fleet_ref(pool, *readable_rows(res))
+    assert _build.LAUNCHES == before
+    assert got.dtype == tdt and tuple(got.shape) == (t, b, 24)
+    np.testing.assert_array_equal(_bytes(got), _bytes(want))
+    np.testing.assert_array_equal(
+        _bytes(got), _bytes(tref.gather_fleet_resolved_ref(pool, ptr, found, zero, cold)))
+    readable = found & ~zero & ~cold
+    assert not _bytes(got)[~readable.numpy()].any()
+    if kind == "mixed":
+        assert bool(readable.any()) and not bool(readable.all())
+    else:
+        assert bool((readable == (kind == "found")).all())
+
+
+def test_resolved_entry_keeps_k5s_name_and_counter():
+    """The benchmark's layer map (``snapbench/layers/gather.json``) puts a
+    kernel in the gather layer by a substring of its name and checks a
+    trace's completeness by matching K5's launch counter to it. Both entries
+    of ``csrc/cow_gather.cu`` launch the one kernel that carries it, and the
+    entry on a resolve's leaves counts its launch under K5's counter and
+    under its own key."""
+    import inspect
+    import json
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    layer = json.loads((root / "snapbench" / "layers" / "gather.json").read_text())
+    source = (root / "src" / "repro_torch" / "csrc" / "cow_gather.cu").read_text()
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\(\w+\)\s+)?(\w+)", source)
+    assert kernels == ["gather_pages_kernel"]
+    assert layer["launches"]["gather_fleet"] == "gather_pages_kernel"
+    assert re.findall(r'extern "C" int (\w+)', source) == ["cow_gather", "cow_gather_resolved"]
+    assert 'check_launch("gather_fleet", code, entry=RESOLVED_ENTRY)' in inspect.getsource(
+        tcg.gather_fleet_resolved_cuda)
+    assert tcg.RESOLVED_ENTRY in _build.LAUNCHES

@@ -7,6 +7,8 @@ must match bit for bit, and every resolver method must give bit-identical
 results.
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,6 +20,7 @@ from repro.core import fleet as jfleet  # noqa: E402
 from repro.core import format as jfmt  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import fleet as tfleet  # noqa: E402
+from repro_torch.core import format as fmt  # noqa: E402
 
 METHODS = ["vanilla", "gather", "direct", "auto", "pallas_vanilla", "pallas_direct"]
 T, Q, CAP, C = 4, 16, 256, 6
@@ -176,3 +179,49 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda|CUDA"):
         tfleet.create(_specs(64)[1])
+
+
+@pytest.mark.parametrize("method", ["auto", "pallas_vanilla", "pallas_direct"])
+def test_kernel_reads_gather_on_the_resolves_leaves(method, monkeypatch):
+    """A fleet read on the kernels hands the resolve's own leaves to K5's
+    entry for them and makes no ``store.readable_rows`` mask between the
+    resolve and the gather. On the CPU, with P a multiple of 128 so that
+    ``auto`` takes the kernel path, both run as their plain versions and
+    give the plain gather's bytes of the same leaves, with holes, ZERO
+    clusters and COLD pages reading +0.0."""
+    from repro_torch.core import store as tstore
+    from repro_torch.kernels.cow_gather import ops as cow_ops
+
+    rng = np.random.default_rng(5)
+    spec = dataclasses.replace(_specs(128)[1], pool_capacity=1024)
+    tf = tfleet.create(spec, scalable=[True, False, True, False], device="cpu")
+    for layer in range(4):
+        if layer:
+            tfleet.snapshot(tf)
+        ids = np.stack([rng.permutation(128)[:40] for _ in range(T)]).astype(np.int32)
+        tfleet.write(tf, torch.as_tensor(ids),
+                     torch.as_tensor(rng.standard_normal((T, 40, 8)).astype(np.float32)))
+    store = tstore.TieredStore.for_fleet(spec)
+    tf, rep = tfleet.demote_tenants(tf, store, [1, 2], max_rows=30)
+    assert rep["rows_demoted"] > 0
+    tf.l2[0, :, :32, 0] |= fmt.FLAG_ZERO_I32            # ZERO clusters
+    ids = torch.as_tensor(rng.integers(0, 128, (T, 64)).astype(np.int32))
+    calls = []
+    real = cow_ops.gather_fleet_resolved
+    monkeypatch.setattr(cow_ops, "gather_fleet_resolved",
+                        lambda *a: calls.append(a) or real(*a))
+
+    def no_mask(res):
+        raise AssertionError("a kernel read made the readable_rows mask")
+
+    monkeypatch.setattr(tstore, "readable_rows", no_mask)
+    data, res = tfleet.read(tf, ids, method=method)
+    assert len(calls) == 1
+    assert calls[0][0] is tf.pool
+    assert all(a is b for a, b in zip(calls[0][1:], (res.ptr, res.found, res.zero, res.cold)))
+    assert bool(res.zero.any()) and bool((~res.found).any())
+    # demotion moves snapshot layers, and direct access reads the active one
+    assert bool(res.cold.any()) == (method != "pallas_direct")
+    monkeypatch.undo()
+    want = tstore.gather_pages(tf.pool, res)
+    assert torch.equal(data.view(torch.int32), want.view(torch.int32))

@@ -414,6 +414,165 @@ def test_gather_refuses_what_it_cannot_take(cuda):
         cg.gather_cuda(pool, rows.long(), found)
 
 
+def _resolved_leaves(cuda, seed, r, t, b, found_share=0.7):
+    """A resolve's (T, B) leaves in the batch entry's layout: ``ptr`` the
+    second plane of (3, T, B) int32 words, found/zero/cold the planes of
+    (3, T, B) bool flags. Found pages are ZERO or COLD one in five each;
+    a page not read from the pool carries a garbage ``ptr`` (far past the
+    pool, negative, or a host-tier row), and a few found pages a row
+    outside [0, R)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    words = torch.randint(0, r, (3, t, b), generator=g, device=cuda,
+                          dtype=torch.int32)
+    flags = torch.rand((3, t, b), generator=g, device=cuda) < 0.2
+    flags[0] = torch.rand((t, b), generator=g, device=cuda) < found_share
+    found, zero, cold = flags.unbind()
+    zero &= found
+    cold &= found
+    ptr = words[1]
+    far = torch.randint(0, 1 << 28, (t, b), generator=g, device=cuda,
+                        dtype=torch.int32)
+    far[:, 1::7] = -1 - far[:, 1::7]
+    ptr.copy_(torch.where(found & ~zero & ~cold, ptr, far))
+    ptr[:, ::11] = torch.where(found[:, ::11], r + 3, ptr[:, ::11])
+    return ptr, found, zero, cold
+
+
+def _resolved_check(pool, ptr, found, zero, cold, variant=None):
+    """K5's entry on the leaves, bit for bit K5 on ``store.readable_rows``
+    of them (with the same variant forced, or both picking), one launch
+    counted as K5's and as the entry's."""
+    from repro_torch.core.resolve import ResolveResult
+    from repro_torch.core.store import readable_rows
+
+    res = ResolveResult(owner=ptr, ptr=ptr, found=found, zero=zero,
+                        lookups=ptr, cold=cold)
+    want = cg._launch("gather_fleet", pool, *readable_rows(res), variant)
+    before = dict(_build.LAUNCHES)
+    got = cg.gather_fleet_resolved_cuda(pool, ptr, found, zero, cold,
+                                        variant=variant)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gather_fleet"] == before["gather_fleet"] + 1
+    assert _build.LAUNCHES[cg.RESOLVED_ENTRY] == before[cg.RESOLVED_ENTRY] + 1
+    assert _build.LAUNCHES["gather"] == before["gather"]
+    assert _same_bytes(got, want)
+    readable = found & ~zero & ~cold & (ptr >= 0) & (ptr < pool.shape[0])
+    assert not got.view(torch.uint8)[~readable].any()
+    assert _same_bytes(got, cg_ref.gather_fleet_ref(pool, ptr, readable))
+
+
+@pytest.mark.parametrize("row_bytes,offset", [(8_192, 0), (65_536, 0),
+                                              (1029, 1), (24, 0)])
+def test_gather_resolved_every_variant_bit_exact(cuda, row_bytes, offset):
+    """K5's entry on a resolve's leaves under each forced (loads a lane a
+    round, warps a page) variant, on uint8 pools, aligned or not: found,
+    ZERO and COLD pages, misses whose ``ptr`` is garbage or outside the
+    pool, and found rows outside [0, R)."""
+    pool = _gather_pool(cuda, torch.uint8, 70, row_bytes, offset, row_bytes)
+    leaves = _resolved_leaves(cuda, row_bytes + offset, 70, 2, 301)
+    for u in cg._UNITS:
+        for g in cg._WARPS_PER_PAGE:
+            _resolved_check(pool, *leaves, cg.GatherVariant(u, g))
+
+
+@pytest.mark.parametrize("dtype", _GATHER_DTYPES)
+@pytest.mark.parametrize("row_bytes,t,b,found_share", [
+    (65_536, 64, 256, 1.0), (65_536, 8, 1_024, 0.9), (8_192, 5, 333, 0.0),
+    (8_192, 3, 129, 0.7)])
+def test_gather_resolved_at_the_reads_shapes_bit_exact(cuda, dtype, row_bytes, t,
+                                                       b, found_share):
+    """Through the wrapper's pick: the fleet read's YCSB-C batch (64 × 256
+    clusters of 64 KiB), a dd batch's runs, every page missed, and 8 KiB
+    pages, in f32, bf16 and uint8."""
+    pool = _gather_pool(cuda, dtype, 600, row_bytes, 0, t * b)
+    _resolved_check(pool, *_resolved_leaves(cuda, t + b, 600, t, b, found_share))
+
+
+def test_gather_resolved_refuses_what_it_cannot_take(cuda):
+    pool = torch.zeros((4, 8), device=cuda)
+    ptr = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    flags = torch.zeros((3, 2, 3), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="variant"):
+        cg.gather_fleet_resolved_cuda(pool, ptr, *flags,
+                                      variant=cg.GatherVariant(16, 3))
+    with pytest.raises(ValueError, match="T, B"):
+        cg.gather_fleet_resolved_cuda(pool, ptr[0], *flags[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        cg.gather_fleet_resolved_cuda(pool, ptr, flags[0], flags[1].t().contiguous().t(),
+                                      flags[2])
+    with pytest.raises(ValueError, match="bool"):
+        cg.gather_fleet_resolved_cuda(pool, ptr, flags[0], flags[1].int(), flags[2])
+    with pytest.raises(ValueError, match="CUDA"):
+        cg.gather_fleet_resolved_cuda(pool, ptr, flags[0], flags[1], flags[2].cpu())
+    with pytest.raises(TypeError, match="int32"):
+        cg.gather_fleet_resolved_cuda(pool, ptr.long(), *flags)
+
+
+def _card_and_cpu_fleets(cuda, scalable, seed):
+    """The same fleet on the CPU and on the card: 4 tenants of 256 pages
+    (a multiple of 128, so the CPU's ``auto`` read takes the kernels' plain
+    versions and gives their leaves bit for bit), chains of 1 to 12 layers,
+    holes, ZERO clusters and two tenants' snapshot layers demoted to the
+    host tier."""
+    import dataclasses
+
+    from repro_torch.core import fleet as tfleet
+    from repro_torch.core.store import TieredStore
+
+    spec = tfleet.FleetSpec(n_tenants=4, n_pages=256, page_size=64,
+                            max_chain=16, pool_capacity=4096, lease_quantum=32)
+    fl = tfleet.create(spec, scalable=scalable, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.tensor([1, 4, 9, 12])
+    for layer in range(12):
+        mask = lengths > layer
+        if layer:
+            tfleet.snapshot(fl, mask)
+        ids = torch.argsort(torch.rand((4, 256), generator=g), dim=1)[:, :24]
+        tfleet.write(fl, ids.to(torch.int32), torch.randn((4, 24, 64), generator=g), mask)
+    fl.l2[3, :, :64, 0] |= fmt.FLAG_ZERO_I32
+    store = TieredStore.for_fleet(spec)
+    fl, rep = tfleet.demote_tenants(fl, store, [1, 2], max_rows=40)
+    assert rep["rows_demoted"] > 0
+    on_card = dataclasses.replace(fl, **{
+        f.name: getattr(fl, f.name).to(cuda)
+        for f in dataclasses.fields(fl) if f.name != "spec"})
+    return fl, on_card, store
+
+
+@pytest.mark.parametrize("scalable", [True, False, [True, False, True, False]],
+                         ids=["sqemu", "qcow2", "mixed"])
+def test_fleet_read_auto_on_the_card_equals_the_plain_read(cuda, scalable):
+    """``fleet.read(method="auto")`` on the card (K1's batch entry, then
+    K5 on its leaves) equals the CPU's read of the same fleet, data and
+    every leaf bit for bit, and the card's plain read (``"vanilla"``, the
+    plain gather) byte for byte, on both formats; ``materialize`` and
+    ``read_tiered`` too. One auto read is one launch of each entry."""
+    from repro_torch.core import fleet as tfleet
+
+    fl, on_card, store = _card_and_cpu_fleets(cuda, scalable, 17)
+    g = torch.Generator().manual_seed(18)
+    ids = torch.randint(0, 256, (4, 300), generator=g, dtype=torch.int32)
+    before = dict(_build.LAUNCHES)
+    data, res = tfleet.read(on_card, ids.to(cuda), method="auto")
+    torch.cuda.synchronize()
+    launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert {k: v for k, v in launched.items() if v} == {
+        "resolve_vanilla_fleet": 1, "resolve_auto_batch": 1,
+        "gather_fleet": 1, cg.RESOLVED_ENTRY: 1}
+    want, want_res = tfleet.read(fl, ids, method="auto")
+    assert _same_bytes(data.cpu(), want)
+    for leaf, a, b in zip(res._fields, res, want_res):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), leaf
+    assert bool(want_res.cold.any()) and bool(want_res.zero.any())
+    assert bool((~want_res.found).any())
+    plain, _ = tfleet.read(on_card, ids.to(cuda), method="vanilla")
+    assert _same_bytes(data, plain)
+    assert _same_bytes(tfleet.materialize(on_card).cpu(), tfleet.materialize(fl))
+    tiered, _ = tfleet.read_tiered(on_card, store, ids.to(cuda))
+    assert _same_bytes(tiered.cpu(), tfleet.read_tiered(fl, store, ids)[0])
+
+
 @pytest.mark.parametrize("c,n", [(1, 128), (7, 1000), (64, 4096), (512, 257)])
 @pytest.mark.parametrize("alloc_dtype", [torch.int32, torch.bool])
 def test_single_chain_resolve_kernels_bit_exact(cuda, c, n, alloc_dtype):
@@ -678,27 +837,24 @@ def batch_page_ids(cuda, seed, t, p, b, kind):
 def test_auto_batch_walks_and_layouts_bit_exact(cuda, t, c, p, b, kind, density):
     """K1's batch entry (``resolve_auto_batch_cuda``) against its plain
     version, every leaf bit for bit, with each walk forced and with the
-    planner's pick: on the ``l2[..., 0]``/``l2[..., 1]`` pair, on two
-    contiguous planes, on words 8 bytes off a 16-byte boundary and on a
-    one-tenant slice, and with the ids' columns apart and transposed; at
-    the decode state's shape, B = P, the fleet read's shape under
-    YCSB-C's and dd's batches, and an odd P with expanded ids. Every call
-    is one launch counted as K1's and as the entry's with T × B pages,
-    and none of K2's."""
+    planner's pick: on the packed words, on words 8 bytes off a 16-byte
+    boundary and on a one-tenant slice, and with the ids' columns apart
+    and transposed; at the decode state's shape, B = P, the fleet read's
+    shape under YCSB-C's and dd's batches, and an odd P with expanded ids.
+    Every call is one launch counted as K1's and as the entry's with
+    T × B pages, and none of K2's."""
     l2, lens = mixed_fleet_words(cuda, t * c + p + b, t, c, p, density)
     ids = batch_page_ids(cuda, t + c + b, t, p, b, kind)
-    off = shifted(l2, 2)
     cases = {
-        "words": (l2[..., 0], l2[..., 1], lens, ids),
-        "planes": (l2[..., 0].contiguous(), l2[..., 1].contiguous(), lens, ids),
-        "shifted": (off[..., 0], off[..., 1], lens, ids),
-        "slice": (l2[1:2, ..., 0], l2[1:2, ..., 1], lens[1:2], ids[1:2]),
-        "columns_apart": (l2[..., 0], l2[..., 1], lens,
-                          torch.stack([ids, ids.flip(1)], -1)[..., 1]),
-        "transposed": (l2[..., 0], l2[..., 1], lens, ids.t().contiguous().t()),
+        "words": (l2, lens, ids),
+        "shifted": (shifted(l2, 2), lens, ids),
+        "slice": (l2[1:2], lens[1:2], ids[1:2]),
+        "columns_apart": (l2, lens, torch.stack([ids, ids.flip(1)], -1)[..., 1]),
+        "transposed": (l2, lens, ids.t().contiguous().t()),
     }
     for name, args in cases.items():
-        want = cr_ref.resolve_auto_batch_ref(*args)
+        want = cr_ref.resolve_auto_batch_ref(args[0][..., 0], args[0][..., 1],
+                                             *args[1:])
         if name == "words":
             assert bool(want[2].any()) and bool((~want[2]).any())
         for walk in (*cr.WALKS, None):
@@ -708,13 +864,13 @@ def test_auto_batch_walks_and_layouts_bit_exact(cuda, t, c, p, b, kind, density)
             assert _build.LAUNCHES["resolve_vanilla_fleet"] == \
                 before["resolve_vanilla_fleet"] + 1
             assert _build.PAGES["resolve_vanilla_fleet"] == \
-                pages["resolve_vanilla_fleet"] + args[3].numel()
+                pages["resolve_vanilla_fleet"] + args[2].numel()
             assert _build.LAUNCHES["resolve_direct_fleet"] == \
                 before["resolve_direct_fleet"]
             assert _build.LAUNCHES["resolve_auto_batch"] == \
                 before["resolve_auto_batch"] + 1
             assert _build.PAGES["resolve_auto_batch"] == \
-                pages["resolve_auto_batch"] + args[3].numel()
+                pages["resolve_auto_batch"] + args[2].numel()
             for leaf, g, w in zip(("owner", "ptr", "found", "zero", "lookups",
                                    "cold"), got, want):
                 assert g.dtype == w.dtype and torch.equal(g, w), (name, walk, leaf)
@@ -722,25 +878,28 @@ def test_auto_batch_walks_and_layouts_bit_exact(cuda, t, c, p, b, kind, density)
 
 
 def test_auto_batch_refuses_other_layouts(cuda):
-    """The batch entry takes the layouts K2 takes and raises on the pairs
-    K2 refuses, and on ids that are not (T, B); it reads (T, B) ids at
-    any strides."""
+    """The batch entry takes the packed words, contiguous and on an 8-byte
+    boundary, and raises on a view of them, a word plane, a misaligned
+    base and ids that are not (T, B); it reads (T, B) ids at any
+    strides."""
     l2 = torch.zeros((3, 4, 8, 2), dtype=torch.int32, device=cuda)
-    other = torch.zeros_like(l2)
     lens = torch.full((3,), 4, dtype=torch.int32, device=cuda)
     ids = torch.zeros((3, 5), dtype=torch.int32, device=cuda)
     off = shifted(l2, 1)
+    for bad in (l2[:, :3], l2[..., :1], l2[..., 0], l2.transpose(1, 2), off):
+        with pytest.raises(ValueError, match="layout|words"):
+            cr.resolve_auto_batch_cuda(bad, lens, ids)
+    # and K2 refuses the pairs of views those words would give
+    other = torch.zeros_like(l2)
     for bad in ((l2[..., 0], other[..., 1]), (l2[..., 1], l2[..., 0]),
                 (l2[..., 0].contiguous(), l2[..., 1]),
                 (off[..., 0], off[..., 1]), (l2[:, :3, :, 0], l2[:, :3, :, 1])):
         with pytest.raises(ValueError, match="layout|strides"):
-            cr.resolve_auto_batch_cuda(*bad, lens, ids)
-        with pytest.raises(ValueError, match="layout|strides"):
             cr.resolve_direct_fleet_cuda(*bad, lens)
     with pytest.raises(ValueError, match="ids"):
-        cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids[0])
-    got = cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids)
-    apart = cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids[:, ::2])
+        cr.resolve_auto_batch_cuda(l2, lens, ids[0])
+    got = cr.resolve_auto_batch_cuda(l2, lens, ids)
+    apart = cr.resolve_auto_batch_cuda(l2, lens, ids[:, ::2])
     torch.cuda.synchronize()
     assert not bool(got[2].any())                       # every read a hole
     assert all(torch.equal(a, g[:, ::2]) for a, g in zip(apart, got))
@@ -757,7 +916,7 @@ l2 = torch.zeros((2, 4, 8, 2), dtype=torch.int32, device="cuda")
 lens = torch.full((2,), 3, dtype=torch.int32, device="cuda")
 ids = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
 ids[1, 3] = bad
-cr.resolve_auto_batch_cuda(l2[..., 0], l2[..., 1], lens, ids, walk=walk)
+cr.resolve_auto_batch_cuda(l2, lens, ids, walk=walk)
 try:
     torch.cuda.synchronize()
 except Exception as e:
